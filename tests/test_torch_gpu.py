@@ -1,0 +1,115 @@
+"""The port on a CUDA card: each hand-written kernel against its plain
+PyTorch twin at the main path's width, and the golden cases bitwise on the
+``cuda`` backend.  Every test skips without a card (the kernels have no CPU
+mode); on one, run them with
+
+    PYTHONPATH=src python3 -m pytest -q -m gpu tests/test_torch_gpu.py
+
+This file imports neither jax nor the JAX package, so it runs where only
+PyTorch is installed.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import scheduler, xqueue  # noqa: E402
+from repro_torch.core.spec import RuntimeSpec  # noqa: E402
+from repro_torch.core.state import (CTR_NAMES, SimConfig,  # noqa: E402
+                                    make_params, to_numpy)
+from repro_torch.core.taskgraph import build as build_graph  # noqa: E402
+from repro_torch.kernels import sched_queue as sq  # noqa: E402
+
+W, Q, NC = 64, 16, 18
+GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden_modes.json")
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _queues(rs, device):
+    head = rs.integers(0, 40, (W, W)).astype(np.int32)
+    size = np.where(rs.random((W, W)) < 0.5, 0,
+                    rs.integers(1, Q + 1, (W, W))).astype(np.int32)
+    arrs = dict(buf=rs.integers(-1, 99, (W, W, Q)).astype(np.int32),
+                ts=rs.integers(0, 9999, (W, W, Q)).astype(np.int32),
+                head=head, tail=head + size)
+    return xqueue.XQ(**{k: torch.as_tensor(v, device=device)
+                        for k, v in arrs.items()})
+
+
+def _equal(a, b, label):
+    a, b = to_numpy(a) if hasattr(a, "_fields") else {"": a}, \
+        to_numpy(b) if hasattr(b, "_fields") else {"": b}
+    for k in b:
+        x = a[k] if isinstance(a[k], np.ndarray) else a[k].cpu().numpy()
+        y = b[k] if isinstance(b[k], np.ndarray) else b[k].cpu().numpy()
+        assert np.array_equal(x, y), (label, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(3))
+def test_cuda_kernels_match_plain(seed):
+    """Each CUDA kernel against its plain twin at W = 64, Q = 16, bitwise,
+    counting one launch per call."""
+    _need_card()
+    rs = np.random.default_rng(seed)
+    sq.reset_launches()
+    cpu = _queues(rs, "cpu")
+
+    def card():
+        return xqueue.XQ(*(x.cuda() for x in cpu))
+
+    rot = torch.as_tensor(rs.integers(0, 99, W).astype(np.int32))
+    mask = torch.as_tensor(rs.random(W) < 0.8)
+    na = torch.tensor(W - 3, dtype=torch.int32)
+    got = sq.pop_first(card(), rot.cuda(), mask.cuda(), na.cuda())
+    want = xqueue.pop_first(cpu, rot, mask, na)
+    _equal(got[0], want[0], "pop xq")
+    for i, (a, b) in enumerate(zip(got[1:], want[1:])):
+        _equal(a, b, ("pop", i))
+    lanes = [torch.arange(W, dtype=torch.int32),
+             torch.as_tensor(rs.integers(0, W, W).astype(np.int32)),
+             torch.as_tensor(rs.integers(0, 99, W).astype(np.int32)),
+             torch.as_tensor(rs.integers(0, 9999, W).astype(np.int32)),
+             mask]
+    got = sq.push(card(), *(x.cuda() for x in lanes))
+    want = xqueue.push(cpu, *lanes)
+    _equal(got[0], want[0], "push xq")
+    _equal(got[1], want[1], "push ok")
+    ctr = torch.as_tensor(rs.integers(0, 99, (W, NC)).astype(np.int32))
+    val = torch.as_tensor(rs.integers(0, 9, W).astype(np.int32))
+    _equal(sq.ctr_add(ctr.cuda(), 5, val.cuda()),
+           sq.ctr_add_ref(ctr, 5, val), "ctr_add")
+    torch.cuda.synchronize()
+    assert [k.launches for k in sq.KERNELS.values()] == [1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_goldens_bitwise_on_the_card():
+    """The 10 golden cases on the ``cuda`` backend, bitwise, with every
+    kernel launched."""
+    _need_card()
+    with open(GOLDEN_PATH) as f:
+        golden = json.load(f)
+    cfg = dataclasses.replace(SimConfig(**golden["cfg"]), backend="cuda")
+    sq.reset_launches()
+    for c in golden["cases"]:
+        family, kw = golden["graphs"][c["graph"]]
+        r = scheduler.run_schedule(
+            build_graph(family, **kw), spec=RuntimeSpec.from_mode(c["mode"]),
+            cfg=cfg, params=make_params(**golden["knobs"], device="cuda"))
+        label = (c["graph"], c["mode"])
+        assert r.completed and r.time_ns == c["time_ns"], label
+        assert r.steps == c["steps"], label
+        for name in CTR_NAMES:
+            assert r.counters[name] == c["counters"].get(name, 0), \
+                (*label, name)
+    assert all(k.launches > 0 for k in sq.KERNELS.values())

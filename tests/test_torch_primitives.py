@@ -1,0 +1,262 @@
+"""Parity of the port's queue, messaging and DLB primitives with the JAX
+package, bitwise, on random inputs made from a numpy seed.
+
+The inputs cover the corners the phases reach: duplicate victims (racy
+request overwrites), full and empty queues, padded lanes (``n_active <
+W``), victims past the last lane, and flat, NUMA and cluster topologies
+(native and bandwidth-starved fabrics).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from repro.core import dlb as j_dlb  # noqa: E402
+from repro.core import messaging as j_msg  # noqa: E402
+from repro.core import topology as j_topo  # noqa: E402
+from repro.core import xqueue as j_xq  # noqa: E402
+from repro_torch.core import dlb as t_dlb  # noqa: E402
+from repro_torch.core import messaging as t_msg  # noqa: E402
+from repro_torch.core import topology as t_topo  # noqa: E402
+from repro_torch.core import xqueue as t_xq  # noqa: E402
+from repro_torch.core.state import WS_CAP, to_numpy  # noqa: E402
+
+W, Q = 8, 4
+#: the JAX transfer compiled once per variant (eager dispatch of its ~100
+#: ops is what would dominate this file's time otherwise)
+J_WS_TRANSFER = jax.jit(j_dlb.ws_transfer, static_argnums=(7,))
+
+
+def T(x, dtype=None):
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.as_tensor(a.copy(), dtype=dtype)
+
+
+def J(x):
+    return jnp.asarray(np.asarray(x))
+
+
+def same(a, b, label):
+    a = np.asarray(a.numpy() if isinstance(a, torch.Tensor) else a)
+    b = np.asarray(b)
+    assert a.shape == b.shape, (label, a.shape, b.shape)
+    assert np.array_equal(a.astype(b.dtype), b), (label, a, b)
+
+
+def same_tree(t_tree, j_tree, label):
+    t_np, j_np = to_numpy(t_tree), to_numpy(j_tree)
+    assert t_np.keys() == j_np.keys(), label
+    for k in j_np:
+        same(t_np[k], j_np[k], (label, k))
+
+
+def random_xq(rs, full_bias=0.3):
+    head = rs.integers(0, 40, (W, W)).astype(np.int32)
+    size = rs.integers(0, Q + 1, (W, W)).astype(np.int32)
+    size = np.where(rs.random((W, W)) < full_bias, Q, size).astype(np.int32)
+    buf = rs.integers(-1, 60, (W, W, Q)).astype(np.int32)
+    ts = rs.integers(0, 10_000, (W, W, Q)).astype(np.int32)
+    arrs = dict(buf=buf, ts=ts, head=head, tail=head + size)
+    return (t_xq.XQ(**{k: T(v) for k, v in arrs.items()}),
+            j_xq.XQ(**{k: J(v) for k, v in arrs.items()}))
+
+
+TOPOLOGIES = [None, "flat", "quad_socket_48", "two_node_2x24",
+              "two_node_2x24@bw4", "rack_4x2x24"]
+
+
+def topo_pair(name):
+    """(port TopoArrays, JAX TopoArrays, zone-size rule) for a topology
+    label; ``None`` is the degenerate flat machine."""
+    if name is None:
+        return (t_topo.degenerate_arrays(), j_topo.degenerate_arrays(),
+                lambda n: max(n // 2, 1))
+    if name == "flat":
+        t = t_topo.MachineTopology.flat(4)
+        j = j_topo.MachineTopology.flat(4)
+    elif name.endswith("@bw4"):
+        base = name.split("@")[0]
+        t = t_topo.PRESETS[base].with_bandwidth(4)
+        j = j_topo.PRESETS[base].with_bandwidth(4)
+    else:
+        t, j = t_topo.PRESETS[name], j_topo.PRESETS[name]
+    return t.arrays(), j.arrays(), t.zone_size_for
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_push_matches_jax(seed):
+    rs = np.random.default_rng(seed)
+    t_q, j_q = random_xq(rs)
+    n_active = int(rs.integers(1, W + 1))
+    producer = np.arange(W, dtype=np.int32)
+    consumer = rs.integers(0, n_active, W).astype(np.int32)
+    task = rs.integers(0, 60, W).astype(np.int32)
+    ts = rs.integers(0, 10_000, W).astype(np.int32)
+    mask = (rs.random(W) < 0.7) & (producer < n_active)
+    t_out, t_ok = t_xq.push(t_q, T(producer), T(consumer), T(task), T(ts),
+                            T(mask))
+    j_out, j_ok = j_xq.push(j_q, J(producer), J(consumer), J(task), J(ts),
+                            J(mask))
+    same_tree(t_out, j_out, ("push", seed))
+    same(t_ok, j_ok, ("push ok", seed))
+    # the inputs were not written (the plain versions are functional)
+    same(t_q.tail, np.asarray(j_q.tail), "push input")
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_pop_scan_matches_jax(seed):
+    rs = np.random.default_rng(100 + seed)
+    t_q, j_q = random_xq(rs, full_bias=0.0)
+    # empty about half the queues so the scan has to walk
+    empty = rs.random((W, W)) < 0.6
+    tail = np.where(empty, np.asarray(j_q.head), np.asarray(j_q.tail))
+    t_q = t_q._replace(tail=T(tail))
+    j_q = j_q._replace(tail=J(tail))
+    n_active = int(rs.integers(1, W + 1))
+    rot = rs.integers(0, 50, W).astype(np.int32)
+    mask = (rs.random(W) < 0.8) & (np.arange(W) < n_active)
+    t_out = t_xq.pop_first(t_q, T(rot), T(mask), T(np.int32(n_active)))
+    j_out = j_xq.pop_first(j_q, J(rot), J(mask), jnp.int32(n_active))
+    same_tree(t_out[0], j_out[0], ("pop xq", seed))
+    for k, (a, b) in enumerate(zip(t_out[1:], j_out[1:])):
+        same(a, b, ("pop", seed, k))
+    me = np.arange(W, dtype=np.int32)
+    for n in (1, 2, n_active, W):
+        na = T(np.int32(n))
+        same(t_xq.scan_pos(W, T(me), T(rot), na),
+             j_xq.scan_pos(W, J(me), J(rot), jnp.int32(n)), ("scan_pos", n))
+        to, tv = t_xq._scan_order(W, T(me), T(rot), na)
+        jo, jv = j_xq._scan_order(W, J(me), J(rot), jnp.int32(n))
+        same(to, jo, ("scan_order", n))
+        same(tv, jv, ("scan_valid", n))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_thief_send_duplicate_victims(seed):
+    rs = np.random.default_rng(200 + seed)
+    rounds = rs.integers(1, 6, W).astype(np.int32)
+    req_round = rs.integers(0, 6, W).astype(np.int32)
+    req_tid = rs.integers(-1, W, W).astype(np.int32)
+    # few distinct victims -> many duplicate writes; W is past the end
+    victim = rs.choice(np.array([1, 3, W], np.int32), W)
+    mask = rs.random(W) < 0.8
+    thief = np.arange(W, dtype=np.int32)
+    t_c, t_sent = t_msg.thief_send(
+        t_msg.Cells(T(rounds), T(req_round), T(req_tid)), T(thief),
+        T(victim), T(mask))
+    j_c, j_sent = j_msg.thief_send(
+        j_msg.Cells(J(rounds), J(req_round), J(req_tid)), J(thief),
+        J(victim), J(mask))
+    same_tree(t_c, j_c, ("thief_send", seed))
+    same(t_sent, j_sent, ("sent", seed))
+    same(t_msg.victim_valid(t_c), j_msg.victim_valid(j_c), "valid")
+    h = rs.random(W) < 0.5
+    same_tree(t_msg.victim_advance(t_c, T(h)),
+              j_msg.victim_advance(j_c, J(h)), "advance")
+
+
+def test_xorshift_uniform_match_jax():
+    rs = np.random.default_rng(7)
+    s = rs.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    s[:3] = (1, 0xFFFFFFFF, 0x80000000)
+    t_s, j_s = T(s), J(s)
+    for _ in range(3):
+        t_s, j_s = t_dlb.xorshift(t_s), j_dlb.xorshift(j_s)
+        same(t_s, j_s, "xorshift")
+        same(t_dlb.uniform(t_s), j_dlb.uniform(j_s), "uniform")
+
+
+@pytest.mark.parametrize("topo", TOPOLOGIES)
+@pytest.mark.parametrize("n_workers", (3, 5, 8))
+def test_pick_victim_matches_jax(topo, n_workers):
+    t_t, j_t, zone_for = topo_pair(topo)
+    zone = zone_for(n_workers)
+    rs = np.random.default_rng(n_workers)
+    me = np.arange(W, dtype=np.int32)
+    rng = rs.integers(1, 2**32, W, dtype=np.uint64).astype(np.uint32)
+    t_rng, j_rng = T(rng), J(rng)
+    for restrict in (None, "node_local", "node_remote"):
+        tables = (
+            t_dlb.remote_weight_table(T(me), T(np.int32(n_workers)),
+                                      T(np.int32(zone)), t_t, restrict),
+            j_dlb.remote_weight_table(J(me), jnp.int32(n_workers),
+                                      jnp.int32(zone), j_t, restrict))
+        for a, b in zip(*tables):
+            same(a, b, ("weights", topo, restrict))
+    for p_local in (0.0, 0.7, 1.0):
+        pl = np.float32(p_local)
+        for _ in range(4):
+            t_rng, t_v = t_dlb.pick_victim(
+                t_rng, T(me), T(np.int32(n_workers)), T(np.int32(zone)),
+                T(pl), t_t, p_local_node=T(np.float32(0.75)))
+            j_rng, j_v = j_dlb.pick_victim(
+                j_rng, J(me), jnp.int32(n_workers), jnp.int32(zone),
+                jnp.float32(pl), j_t, p_local_node=jnp.float32(0.75))
+            same(t_rng, j_rng, ("rng", topo, p_local))
+            same(t_v, j_v, ("victim", topo, p_local))
+        # the topology-free (legacy) path
+        t_rng, t_v = t_dlb.pick_victim(t_rng, T(me), n_workers, zone, T(pl))
+        j_rng, j_v = j_dlb.pick_victim(j_rng, J(me), n_workers, zone,
+                                       jnp.float32(pl))
+        same(t_v, j_v, ("victim no topo", topo, p_local))
+
+
+def test_rp_adopt_matches_jax():
+    rs = np.random.default_rng(11)
+    tgt = rs.integers(-1, W, W).astype(np.int32)
+    left = rs.integers(0, 9, W).astype(np.int32)
+    thief = rs.integers(0, W, W).astype(np.int32)
+    valid = rs.random(W) < 0.6
+    t_rp, t_a = t_dlb.rp_adopt(t_dlb.RPState(T(tgt), T(left)), T(thief),
+                               T(np.int32(8)), T(valid))
+    j_rp, j_a = j_dlb.rp_adopt(j_dlb.RPState(J(tgt), J(left)), J(thief),
+                               jnp.int32(8), J(valid))
+    same_tree(t_rp, j_rp, "rp_adopt")
+    same(t_a, j_a, "adopted")
+    same_tree(t_dlb.rp_make(W), j_dlb.rp_make(W), "rp_make")
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_ws_transfer_matches_jax(seed):
+    rs = np.random.default_rng(300 + seed)
+    t_q, j_q = random_xq(rs)
+    n_active = int(rs.integers(2, W + 1))
+    me = np.arange(W)
+    thief = ((me + rs.integers(1, n_active, W)) % n_active).astype(np.int32)
+    victim_mask = (rs.random(W) < 0.6) & (me < n_active)
+    # one victim per thief at most (the messaging cells guarantee it)
+    _, first = np.unique(np.where(victim_mask, thief, -1 - me),
+                         return_index=True)
+    keep = np.zeros(W, bool)
+    keep[first] = True
+    victim_mask &= keep
+    clock = rs.integers(0, 5000, W).astype(np.int32)
+    comm = rs.integers(2, 200, W).astype(np.int32)
+    deq_rr = rs.integers(0, 30, W).astype(np.int32)
+    payload = rs.integers(0, 4000, 60).astype(np.int32)
+    xfer_bw = np.where(rs.random(W) < 0.5, 0,
+                       rs.integers(1, 64, W)).astype(np.int32)
+    n_steal = int(rs.integers(1, 10))
+    args_t = (T(victim_mask), T(thief), T(np.int32(n_steal)), T(clock),
+              T(comm), T(deq_rr), WS_CAP, T(np.int32(n_active)))
+    args_j = (J(victim_mask), J(thief), jnp.int32(n_steal), J(clock),
+              J(comm), J(deq_rr), WS_CAP, jnp.int32(n_active))
+    for priced in (False, True):
+        kw_t = dict(payload=T(payload), xfer_bw=T(xfer_bw)) if priced else {}
+        kw_j = dict(payload=J(payload), xfer_bw=J(xfer_bw)) if priced else {}
+        t_out = t_dlb.ws_transfer(t_q, *args_t, **kw_t)
+        j_out = J_WS_TRANSFER(j_q, *args_j, **kw_j)
+        same_tree(t_out[0], j_out[0], ("ws xq", seed, priced))
+        for k, (a, b) in enumerate(zip(t_out[1:], j_out[1:])):
+            same(a, b, ("ws", seed, priced, k))
+    # no victim at all: the one-shot transfer is skipped, state unchanged
+    none_t = t_dlb.ws_transfer(t_q, T(np.zeros(W, bool)), *args_t[1:])
+    none_j = j_dlb.ws_transfer(j_q, J(np.zeros(W, bool)), *args_j[1:])
+    same_tree(none_t[0], none_j[0], "ws idle")
+    for a, b in zip(none_t[1:], none_j[1:]):
+        same(a, b, "ws idle")

@@ -5,30 +5,43 @@ Run from the repository root:  python3 chip_smoke.py
 
 In order, it
 1. prints the card's name and power limit (nvidia-smi), then builds the
-   port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-   timing the build;
+   port's CUDA sources from ``src/repro_torch/kernels/csrc`` with nvcc, one
+   process per source, all started together, timing the build and printing
+   the compiler's register report;
 2. reproduces the 10 cases of ``tests/golden_modes.json`` bitwise on the
-   card with the ``cuda`` step backend (``time_ns``, ``steps``, counters);
-3. runs the main path at full width (``SimConfig()``: W=64, 8 zones, Q=16,
-   S=512): bench-scale ``fib`` (n=16) and ``uts`` (n_target=3000) under the
-   five ladder specs, plus NA-WS on ``quad_socket_48`` at W=48, each with
-   the ``cuda`` and the ``reference`` backend on the card, and requires the
-   final states to be equal leaf for leaf.  The kernels' launch counts are
-   zeroed just before and read just after the ``cuda`` runs;
-4. holds each kernel against its plain PyTorch twin on random inputs at the
-   main path's shapes and times kernel, twin and (for ``ctr_add``) the one
-   PyTorch call computing the same function, with CUDA events;
-5. prints the ``kernels`` JSON line, the end-to-end times and steps per
-   second of step 3, and last the device line.
+   card: through ``run_schedule`` on the ``cuda`` and the ``cuda_fused``
+   backends, and through ``run_cases`` on ``cuda_fused`` with the serial,
+   batched and sharded executors (the goldens mixed with open-system cases
+   in one batch);
+3. runs the first slice's main path at full width (``SimConfig()``: W=64,
+   8 zones, Q=16, S=512): bench-scale ``fib`` (n=16) and ``uts``
+   (n_target=3000) under the five ladder specs, plus NA-WS on
+   ``quad_socket_48`` at W=48, each with the ``cuda``, ``cuda_fused`` and
+   ``reference`` backends, and requires the final states to be equal leaf
+   for leaf.  Launch counts are zeroed just before and read just after;
+4. runs this slice's path, the batched sweep: one ``run_cases`` call on
+   ``cuda_fused`` (batched executor) over the 12-point lattice × {flat W=64,
+   ``quad_socket_48`` W=48, ``two_node_2x24`` W=96} × the two bench graphs,
+   with launch counts zeroed just before and read just after.  Every
+   case's raw result must equal the serial executor's, the cases phase 3
+   ran must equal phase 3's, and the cluster preset must equal the
+   ``reference`` backend at smoke scale;
+5. holds each kernel against its plain PyTorch twin at the main path's
+   shapes (the fused step with ``max_iters = 1`` on mid-run NA-WS, NA-RP and
+   gomp states, flat, NUMA and cluster) and times kernel, twin and, where
+   one exists, the one PyTorch call computing the same function, with CUDA
+   events;
+6. prints the ``kernels`` JSON line, the end-to-end rates, the card line
+   and last the device line.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
-prints the compiler's register report and one ``{"report": ...}`` line with
-every case's steps and times.
+prints one ``{"report": ...}`` line with every case's steps and times.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -47,9 +60,18 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 
+class SmokeFailure(Exception):
+    pass
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 1
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
 
 
 def smi_line() -> str:
@@ -63,6 +85,15 @@ def states_equal(a, b, to_numpy) -> bool:
     x, y = to_numpy(a), to_numpy(b)
     return x.keys() == y.keys() and all(
         x[k].dtype == y[k].dtype and (x[k] == y[k]).all() for k in x)
+
+
+def max_abs_err(a, b, to_numpy) -> int:
+    """Largest absolute difference over every leaf of two tuples of
+    tensors (as int64; bools count 0/1)."""
+    x, y = to_numpy(a), to_numpy(b)
+    assert x.keys() == y.keys()
+    return max(int(abs(x[k].astype("int64") - y[k].astype("int64")).max())
+               if x[k].size else 0 for k in x)
 
 
 def cuda_time_ms(fn, n: int, torch) -> float:
@@ -96,15 +127,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device available")
     sys.path.insert(0, str(SRC))
+    try:
+        return run(torch)
+    except SmokeFailure as e:
+        return fail(str(e))
+
+
+def run(torch) -> int:
     import numpy as np
 
     from repro_torch import apps
-    from repro_torch.core import scheduler, xqueue
-    from repro_torch.core.spec import MODE_SPECS, RuntimeSpec
-    from repro_torch.core.state import (CTR_NAMES, NC, SimConfig,
-                                        make_params, to_numpy)
+    from repro_torch.core import executors, plan, scheduler, sweep, xqueue
+    from repro_torch.core.spec import LATTICE, MODE_SPECS, RuntimeSpec
+    from repro_torch.core.state import (CTR, CTR_NAMES, NC, SimConfig,
+                                        batch_of_one, graph_arrays,
+                                        make_params, stack, to_numpy,
+                                        tree_map)
     from repro_torch.core.taskgraph import build as build_graph
     from repro_torch.kernels import sched_queue as sq
+    from repro_torch.kernels import sched_step as ss
 
     dev = torch.device("cuda")
     card = smi_line()
@@ -112,47 +153,86 @@ def main() -> int:
     report = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
-    # 1. build the kernels
+    # 1. build the kernels: one nvcc per source, started together
     t0 = time.perf_counter()
-    lib_path, log = sq.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(fn) for name, fn in
+                  (("sched_queue", sq.build), ("sched_step", ss.build))}
+        logs = {name: f.result() for name, f in builds.items()}
     report["build_s"] = time.perf_counter() - t0
-    print(log.strip())
-    print(f"built {lib_path.name} in {report['build_s']:.2f} s", flush=True)
+    for name, (path, log) in logs.items():
+        print(log.strip())
+        print(f"built {path.name}", flush=True)
+    print(f"built both sources in {report['build_s']:.2f} s", flush=True)
 
-    # 2. the goldens, bitwise, on the cuda backend
+    # 2. the goldens, bitwise: run_schedule on cuda and cuda_fused, then
+    # run_cases on cuda_fused with every executor
     golden = json.loads(GOLDEN.read_text())
-    gcfg = SimConfig(**golden["cfg"], backend="cuda")
     graphs = {n: build_graph(b, **kw)
               for n, (b, kw) in golden["graphs"].items()}
-    for c in golden["cases"]:
-        r = scheduler.run_schedule(
-            graphs[c["graph"]], spec=RuntimeSpec.from_mode(c["mode"]),
-            cfg=gcfg, params=make_params(**golden["knobs"], device=dev),
-            device=dev)
+
+    def golden_ok(label, time_ns, steps, counters, c):
         want = dict(c["counters"], **{n: 0 for n in CTR_NAMES
                                       if n not in c["counters"]})
-        got = {n: r.counters[n] for n in want}
-        if not (r.completed and r.time_ns == c["time_ns"]
-                and r.steps == c["steps"] and got == want):
-            return fail(f"golden {c['graph']}/{c['mode']} differs: "
-                        f"time_ns {r.time_ns} vs {c['time_ns']}, steps "
-                        f"{r.steps} vs {c['steps']}, counters {got}")
-    print(f"goldens: {len(golden['cases'])} cases bitwise on "
-          f"{gcfg.backend}", flush=True)
+        got = {n: counters[n] for n in want}
+        check(time_ns == c["time_ns"] and steps == c["steps"]
+              and got == want,
+              f"golden {label} {c['graph']}/{c['mode']} differs: time_ns "
+              f"{time_ns} vs {c['time_ns']}, steps {steps} vs "
+              f"{c['steps']}, counters {got}")
 
-    # 3. the main path at full width: cuda against reference, leaf by leaf
-    runs = [(name, m, MODE_SPECS[m], SimConfig(), None)
-            for name in ("fib", "uts") for m in MODE_SPECS]
-    runs += [(name, "na_ws", MODE_SPECS["na_ws"], SimConfig(n_workers=48),
-              "quad_socket_48") for name in ("fib", "uts")]
+    for backend in ("cuda", "cuda_fused"):
+        gcfg = SimConfig(**golden["cfg"], backend=backend)
+        for c in golden["cases"]:
+            r = scheduler.run_schedule(
+                graphs[c["graph"]], spec=RuntimeSpec.from_mode(c["mode"]),
+                cfg=gcfg, params=make_params(**golden["knobs"], device=dev),
+                device=dev)
+            check(r.completed, f"golden {c} incomplete on {backend}")
+            golden_ok(backend, r.time_ns, r.steps, r.counters, c)
+    names = list(graphs)
+    gcfg = SimConfig(**golden["cfg"])
+    gspecs = [plan.CaseSpec(spec=RuntimeSpec.from_mode(c["mode"]),
+                            n_workers=gcfg.n_workers, n_zones=gcfg.n_zones,
+                            graph=names.index(c["graph"]), **golden["knobs"])
+              for c in golden["cases"]]
+    open_specs = [plan.CaseSpec(spec="na_ws", n_workers=gcfg.n_workers,
+                                n_zones=gcfg.n_zones, graph=gi,
+                                arrivals="poisson:2", **golden["knobs"])
+                  for gi in range(len(names))]
+    for strategy in ("serial", "batched", "sharded"):
+        for extra in ([], open_specs):
+            res = sweep.run_cases(list(graphs.values()), gspecs + extra,
+                                  cfg=gcfg, strategy=strategy,
+                                  backend="cuda_fused", device=dev)
+            check(bool(res.completed.all()), f"run_cases {strategy} "
+                  "incomplete")
+            for i, c in enumerate(golden["cases"]):
+                golden_ok(f"run_cases/{strategy}", int(res.time_ns[i]),
+                          int(res.steps[i]),
+                          {n: int(v[i]) for n, v in res.counters.items()}, c)
+    print(f"goldens: {len(golden['cases'])} cases bitwise on cuda and "
+          "cuda_fused (run_schedule), and on cuda_fused through run_cases "
+          "(serial, batched, sharded; closed and mixed open batches)",
+          flush=True)
+
+    # 3. the first slice's main path at full width: cuda and cuda_fused
+    # against reference, leaf by leaf
+    main_runs = [(name, m, MODE_SPECS[m], SimConfig(), None)
+                 for name in ("fib", "uts") for m in MODE_SPECS]
+    main_runs += [(name, "na_ws", MODE_SPECS["na_ws"],
+                   SimConfig(n_workers=48), "quad_socket_48")
+                  for name in ("fib", "uts")]
     bench = {name: apps.build(name, scale="bench") for name in ("fib", "uts")}
-    wall = {"cuda": 0.0, "reference": 0.0}
+    backends = ("cuda", "cuda_fused", "reference")
+    wall = {b: 0.0 for b in backends}
     steps = 0
     cases = []
+    main_results = {}
     sq.reset_launches()
-    for name, mode, spec, cfg, topo in runs:
+    for name, mode, spec, cfg, topo in main_runs:
         out = {}
-        for backend in ("cuda", "reference"):
+        for backend in backends:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out[backend] = scheduler.run(
@@ -162,29 +242,124 @@ def main() -> int:
             torch.cuda.synchronize()
             out[backend + "_s"] = time.perf_counter() - t0
             wall[backend] += out[backend + "_s"]
-        res = scheduler.result(out["cuda"])
-        if not res.completed:
-            return fail(f"{name}/{mode}/{topo} did not complete")
-        if not states_equal(out["cuda"].state, out["reference"].state,
-                            to_numpy):
-            return fail(f"{name}/{mode}/{topo}: cuda and reference final "
-                        "states differ")
+        res = scheduler.result(out["cuda_fused"])
+        check(res.completed, f"{name}/{mode}/{topo} did not complete")
+        for backend in ("cuda", "cuda_fused"):
+            check(states_equal(out[backend].state, out["reference"].state,
+                               to_numpy),
+                  f"{name}/{mode}/{topo}: {backend} and reference final "
+                  "states differ")
+        main_results[(name, spec, topo)] = res
         steps += res.steps
         cases.append(dict(graph=bench[name].name, mode=mode,
                           topology=topo or "flat", n_workers=cfg.n_workers,
                           n_tasks=bench[name].n_tasks, steps=res.steps,
-                          time_ns=res.time_ns, cuda_s=out["cuda_s"],
-                          reference_s=out["reference_s"]))
+                          time_ns=res.time_ns,
+                          **{b + "_s": out[b + "_s"] for b in backends}))
         print(f"  {name:4s} {mode:8s} {topo or 'flat':15s} W={cfg.n_workers}"
-              f" steps={res.steps} cuda={out['cuda_s']:.3f}s "
-              f"reference={out['reference_s']:.3f}s  bitwise", flush=True)
-    launches = {k: v.launches for k, v in sq.KERNELS.items()}
-    if not all(launches.values()):
-        return fail(f"a kernel never launched on the main path: {launches}")
+              f" steps={res.steps} " + " ".join(
+                  f"{b}={out[b + '_s']:.3f}s" for b in backends)
+              + "  bitwise", flush=True)
+    main_launches = {k: v.launches for k, v in sq.KERNELS.items()}
+    check(all(main_launches.values()),
+          f"a kernel never launched on the main path: {main_launches}")
+    check(main_launches["sched_step"] == len(main_runs),
+          f"cuda_fused took {main_launches['sched_step']} launches for "
+          f"{len(main_runs)} runs")
     report["main_path"] = dict(cases=cases, steps=steps, wall_s=wall,
-                               launches=launches)
+                               launches=main_launches)
 
-    # 4. each kernel against its plain twin, and its time, at W=64, Q=16
+    # 4. this slice's path: the batched sweep at full width, one call
+    machines = ((None, 64), ("quad_socket_48", 48), ("two_node_2x24", 96))
+    sweep_graphs = [bench["fib"], bench["uts"]]
+    sweep_specs = [plan.CaseSpec(spec=sp, n_workers=w, n_zones=8, graph=gi,
+                                 topology=topo)
+                   for gi in range(len(sweep_graphs)) for sp in LATTICE
+                   for topo, w in machines]
+    scfg = SimConfig(backend="cuda_fused")
+    executors.reset_engine_stats()
+    torch.cuda.synchronize()
+    sq.reset_launches()
+    t0 = time.perf_counter()
+    swept = sweep.run_cases(sweep_graphs, sweep_specs, cfg=scfg,
+                            strategy="batched", device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = {k: v.launches for k, v in sq.KERNELS.items()}
+    sweep_stats = dict(executors.ENGINE_STATS)
+    check(bool(swept.completed.all()), "the sweep left cases incomplete")
+    n_chunks = len({s.spec for s in sweep_specs})
+    check(sweep_launches["sched_step"] == n_chunks,
+          f"the batched sweep took {sweep_launches['sched_step']} launches "
+          f"for {n_chunks} chunks")
+    # every case's raw result against the serial executor's
+    splan = plan.build_plan(sweep_graphs, sweep_specs)
+    ctx = executors.ExecContext(
+        cfg=dataclasses.replace(scfg, n_workers=splan.w_pad),
+        gq_cap=splan.gq_cap, graphs=sweep_graphs,
+        garr=[graph_arrays(g, splan.t_pad, device=dev)
+              for g in sweep_graphs], device=dev)
+    for chunk in splan.chunks:
+        a = executors.EXECUTORS["vmap"].run_chunk(ctx, sweep_specs, chunk)
+        b = executors.EXECUTORS["serial"].run_chunk(ctx, sweep_specs, chunk)
+        for field in a._fields:
+            check(np.array_equal(getattr(a, field), getattr(b, field)),
+                  f"batched and serial ChunkRaw.{field} differ in the "
+                  f"{chunk.spec.slug} chunk")
+    # the cases phase 3 ran
+    matched = 0
+    for i, s in enumerate(sweep_specs):
+        key = (("fib", "uts")[s.graph], s.spec, s.topology and s.topology.name)
+        r = main_results.get(key)
+        if r is None or s.n_workers != r.n_workers:
+            continue
+        matched += 1
+        check(int(swept.time_ns[i]) == r.time_ns
+              and int(swept.steps[i]) == r.steps
+              and all(int(swept.counters[n][i]) == r.counters[n]
+                      for n in CTR_NAMES),
+              f"sweep case {key} differs from its phase-3 run")
+    check(matched == len(main_runs), f"matched {matched} phase-3 runs")
+    # the cluster preset against reference, at smoke scale
+    smoke = [apps.build(n, scale="smoke") for n in ("fib", "uts")]
+    cl_specs = [plan.CaseSpec(spec=sp, n_workers=96, graph=gi,
+                              topology="two_node_2x24")
+                for gi in range(len(smoke)) for sp in LATTICE]
+    t0 = time.perf_counter()
+    cl = {b: sweep.run_cases(smoke, cl_specs, cfg=SimConfig(backend=b),
+                             strategy=("batched" if b == "cuda_fused"
+                                       else "serial"), device=dev)
+          for b in ("cuda_fused", "reference")}
+    cluster_s = time.perf_counter() - t0
+    for field in ("time_ns", "steps", "completed"):
+        check(np.array_equal(getattr(cl["cuda_fused"], field),
+                             getattr(cl["reference"], field)),
+              f"two_node_2x24 smoke: cuda_fused {field} differs")
+    for n in CTR_NAMES:
+        check(np.array_equal(cl["cuda_fused"].counters[n],
+                             cl["reference"].counters[n]),
+              f"two_node_2x24 smoke: counter {n} differs")
+    sweep_steps = int(swept.steps.sum())
+    report["sweep"] = dict(
+        cases=len(sweep_specs), chunks=n_chunks, wall_s=sweep_s,
+        configs_per_s=len(sweep_specs) / sweep_s,
+        steps=sweep_steps, steps_per_s=sweep_steps / sweep_s,
+        launches=sweep_launches, engine=sweep_stats,
+        cluster_smoke=dict(cases=len(cl_specs), wall_s=cluster_s,
+                           steps=int(cl["reference"].steps.sum())),
+        rows=[dict(graph=sweep_graphs[s.graph].name, spec=s.spec.slug,
+                   topology=s.topology.name if s.topology else "flat",
+                   n_workers=s.n_workers, steps=int(swept.steps[i]),
+                   time_ns=int(swept.time_ns[i]))
+              for i, s in enumerate(sweep_specs)])
+    print(f"sweep: {len(sweep_specs)} cases in {n_chunks} launches, "
+          f"{sweep_s:.3f} s, {len(sweep_specs) / sweep_s:.1f} configs/s, "
+          f"{sweep_steps / sweep_s:.0f} steps/s; batched == serial; "
+          f"{matched} phase-3 runs equal; two_node_2x24 smoke == reference "
+          f"({len(cl_specs)} cases)", flush=True)
+
+    # 5. each kernel against its plain twin, and its time, at the main
+    # path's shapes (launches here are not counted: the counts were read)
     W, Q, n_time = 64, 16, 200
     rs = np.random.default_rng(0)
 
@@ -270,15 +445,94 @@ def main() -> int:
     kernels.append(dict(name="pop_first", max_abs_err=err, ms=ms,
                         plain_ms=plain_ms, bound_ms=b, bound_by=by,
                         library_ms=None))
+    copies = None
+
+    # sched_step, max_iters = 1, on mid-run states: NA-WS (transfer, thief
+    # loop), NA-RP and gomp (join claims), flat, NUMA and cluster
+    fracs = (0.1, 0.3, 0.5, 0.7, 0.9)
+    twin_cfgs = [("fib", "na_ws", None, 64, fracs),
+                 ("uts", "na_ws", "two_node_2x24", 96, fracs),
+                 ("fib", "gomp", None, 64, fracs),
+                 ("uts", "na_rp", "quad_socket_48", 48, fracs[::2]),
+                 ("fib", "xgomp", "two_node_2x24", 96, fracs[::2])]
+    step_err, n_states, events = 0, 0, {"stolen": 0, "req_sent": 0,
+                                        "exec": 0}
+    big = SimConfig().max_steps
+    for gname, mode, topo, w, fr in twin_cfgs:
+        cfg = SimConfig(n_workers=w, backend="cuda_fused")
+        full = scheduler.run(bench[gname], spec=MODE_SPECS[mode], cfg=cfg,
+                             topology=topo, device=dev)
+        n_steps = int(full.state.step_i)
+        runs = [scheduler.run(bench[gname], spec=MODE_SPECS[mode],
+                              cfg=dataclasses.replace(
+                                  cfg, max_steps=max(int(f * n_steps), 1)),
+                              topology=topo, device=dev) for f in fr]
+        st = stack([r.state for r in runs])
+        g_b = stack([r.graph for r in runs])
+        c_b = stack([r.case for r in runs])
+        want = ss.run_lanes(tree_map(torch.clone, st), g_b, c_b,
+                            costs=cfg.costs, max_steps=big, max_iters=1)
+        got = ss.sched_step(tree_map(torch.clone, st), g_b, c_b,
+                            costs=cfg.costs, max_steps=big, max_iters=1)
+        torch.cuda.synchronize()
+        step_err = max(step_err, max_abs_err(got, want, to_numpy))
+        check(bool((got.step_i == st.step_i + 1).all()),
+              f"{gname}/{mode}/{topo}: a mid-run state did not step")
+        delta = (want.ctr.long() - st.ctr.long()).sum(dim=(0, 1))
+        for k in events:
+            events[k] += int(delta[CTR[k]])
+        n_states += len(runs)
+    check(n_states >= 20, f"only {n_states} mid-run states")
+    check(step_err == 0, f"sched_step disagrees with its twin (max abs err "
+          f"{step_err})")
+    print(f"sched_step == twin on {n_states} mid-run states (step events: "
+          f"{events})", flush=True)
+
+    # its time: one step of a mid-run fib(16) NA-WS state at W=64
+    cfg = SimConfig(backend="cuda_fused")
+    mid = scheduler.run(bench["fib"], spec=MODE_SPECS["na_ws"],
+                        cfg=dataclasses.replace(cfg, max_steps=40),
+                        device=dev)
+    st1, g1, c1 = (batch_of_one(x) for x in (mid.state, mid.graph, mid.case))
+    pool = iter([tree_map(torch.clone, st1) for _ in range(n_time + 10)])
+    ms = cuda_time_ms(lambda i: ss.sched_step(
+        next(pool), g1, c1, costs=cfg.costs, max_steps=big, max_iters=1),
+        n_time, torch)
+    pool = iter([tree_map(torch.clone, st1) for _ in range(30)])
+    plain_ms = cuda_time_ms(lambda i: ss.run_lanes(
+        next(pool), g1, c1, costs=cfg.costs, max_steps=big, max_iters=1),
+        20, torch)
+    after = ss.run_lanes(tree_map(torch.clone, st1), g1, c1,
+                         costs=cfg.costs, max_steps=big, max_iters=1)
+    d = (after.ctr.long() - st1.ctr.long()).sum(dim=(0, 1))
+    pushes, pops, moved = (int(d[CTR["static_push"]]), int(d[CTR["exec"]]),
+                           int(d[CTR["stolen"]]))
+    # per-lane state read and written (12 int32 vectors, the int64 PRNG,
+    # the counter row), the (W, W) heads and tails the gate and the scans
+    # read, queue slots (task + stamp) and stack entries moved, and the
+    # task arrays an execution touches
+    step_bytes = (2 * W * (12 * 4 + 8 + NC * 4) + 2 * W * W * 4
+                  + 8 * (pushes + pops) + 16 * moved + 16 * pushes
+                  + 32 * pops)
+    b, by = bound_ms(step_bytes, 10 * W * W)
+    kernels.append(dict(name="sched_step", max_abs_err=step_err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                        library_ms=None))
+    report["sched_step_timed"] = dict(step=int(mid.state.step_i),
+                                      pushes=pushes, pops=pops, moved=moved,
+                                      bytes=step_bytes)
 
     for k in kernels:
-        if k["max_abs_err"] != 0:
-            return fail(f"kernel {k['name']} disagrees with its plain twin "
-                        f"(max abs err {k['max_abs_err']})")
-        k.update(route="cuda",
-                 source="src/repro_torch/kernels/csrc/sched_queue.cu",
+        check(k["max_abs_err"] == 0, f"kernel {k['name']} disagrees with its "
+              f"plain twin (max abs err {k['max_abs_err']})")
+        src = "sched_step.cu" if k["name"] == "sched_step" else \
+            "sched_queue.cu"
+        k.update(route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                  replaces=sq.KERNELS[k["name"]].replaces,
-                 launches=launches[k["name"]])
+                 # each kernel's launches on the path it serves: the queue
+                 # kernels on phase 3's cuda runs, sched_step on the sweep
+                 launches=(sweep_launches if k["name"] == "sched_step"
+                           else main_launches)[k["name"]])
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -289,7 +543,9 @@ def main() -> int:
                                   for kk in kernels]}))
     print(json.dumps({"main_path_wall_s": wall, "main_path_steps": steps,
                       "steps_per_s": {b: steps / s for b, s in wall.items()},
-                      "launches": launches}))
+                      "launches": main_launches}))
+    print(json.dumps({"sweep": {k: v for k, v in report["sweep"].items()
+                                if k != "rows"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -278,3 +278,7 @@ def slo_metrics(done_ns, release_ns, n_tasks: int) -> dict:
                 p99_ns=pct(99.0), span_ns=span,
                 throughput_tasks_per_s=n_completed * 1e9 / span)
 
+
+#: the per-case SLO arrays a sweep result carries (see sweep.SweepResult)
+SLO_FIELDS = ("p50_ns", "p90_ns", "p99_ns", "throughput_tasks_per_s")
+

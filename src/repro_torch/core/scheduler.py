@@ -9,8 +9,9 @@ counts virtual nanoseconds in integers).
 
 Runs go to the CUDA device unless the caller passes ``device="cpu"``;
 without a GPU and without ``device=`` the run raises.  The step backend
-follows the device (``cuda`` kernels on the card, the plain ``reference``
-ops on the CPU) unless ``cfg.backend`` names one.
+follows the device (the fused ``cuda_fused`` kernel on the card, one
+launch per run; the plain ``reference`` ops on the CPU) unless
+``cfg.backend`` names one.
 """
 
 from __future__ import annotations
@@ -24,13 +25,12 @@ import torch
 from repro_torch.core import arrivals as arrivals_mod
 from repro_torch.core import backends as backends_mod
 from repro_torch.core import barrier as barrier_mod
-from repro_torch.core import phases as phases_mod
 from repro_torch.core import topology as topology_mod
 from repro_torch.core.spec import RuntimeSpec, resolve_spec
 from repro_torch.core.state import (CTR, CTR_NAMES, GraphArrays, Params,
                                     SimConfig, SimState, SweepCase,
-                                    graph_arrays, init_state, make_case,
-                                    make_params)
+                                    batch_of_one, graph_arrays, init_batch,
+                                    lane, make_case, make_params, to_device)
 from repro_torch.core.taskgraph import TaskGraph
 
 
@@ -95,8 +95,8 @@ def run(graph: TaskGraph, mode: str | RuntimeSpec | None = None,
         topology=None, arrivals=None, device=None) -> Run:
     """Simulate ``graph`` to completion and return the final state (the
     arguments are :func:`run_schedule`'s).  ``params`` built by
-    :func:`~repro_torch.core.state.make_params` must lie on the run's
-    device; ``None`` takes the defaults there."""
+    :func:`~repro_torch.core.state.make_params` may lie on the CPU or on
+    the run's device; ``None`` takes the defaults."""
     dev = resolve_device(device)
     rspec = resolve_spec(spec, mode, where="run_schedule")
     topo = topology_mod.resolve(topology)
@@ -104,23 +104,27 @@ def run(graph: TaskGraph, mode: str | RuntimeSpec | None = None,
     cfg = cfg or SimConfig()
     cfg = dataclasses.replace(
         cfg, backend=backends_mod.resolve_name(cfg.backend, dev))
-    ops = backends_mod.step_ops(cfg.backend)
-    params = params if params is not None else make_params(device=dev)
+    params = params if params is not None else make_params()
     gq_cap = graph.n_tasks + 2 if rspec.queue == "locked_global" else 4
     W = cfg.n_workers
     zone_size = (topo.zone_size_for(W) if topo is not None
                  else max(W // cfg.n_zones, 1))
     release = (None if arr is None
                else arrivals_mod.release_times(arr, graph.n_tasks, seed))
-    case = make_case(rspec, W, zone_size, seed,
-                     round(float(graph.mem_bound), 3), params,
-                     topology=topo, release_ns=release, device=dev)
-    g = graph_arrays(graph, device=dev)
-    st = init_state(g, W, cfg.stack_cap, cfg.queue_cap, gq_cap, seed)
-    while bool(phases_mod.run_gate(st, g, cfg.max_steps)):
-        st = phases_mod.step_pipeline(st, g=g, case=case, costs=cfg.costs,
-                                      ops=ops, max_steps=cfg.max_steps)
-    return Run(graph.name, st, g, case, rspec, cfg, topo, arr, release)
+    # inputs are built on the host and copied without a host sync; the
+    # state is built on the device (on ``cuda_fused`` the whole run is
+    # then one launch and no host sync)
+    case = to_device(batch_of_one(make_case(
+        rspec, W, zone_size, seed, round(float(graph.mem_bound), 3), params,
+        topology=topo, release_ns=release)), dev)
+    g = to_device(batch_of_one(graph_arrays(graph)), dev)
+    st = init_batch(g, case.seed, W, cfg.stack_cap, cfg.queue_cap, gq_cap)
+    st = backends_mod.run_loop(cfg.backend)(
+        st, g, case, costs=cfg.costs, max_steps=cfg.max_steps,
+        max_iters=cfg.max_steps)
+    g, case = lane(g, 0), lane(case, 0)
+    return Run(graph.name, lane(st, 0), g, case, rspec, cfg, topo, arr,
+               release)
 
 
 def result(r: Run) -> SimResult:

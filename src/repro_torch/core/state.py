@@ -203,8 +203,8 @@ class SimState(NamedTuple):
 class SimConfig:
     """Static simulator configuration — fixes every tensor shape.
     ``backend`` names the step backend (see :mod:`repro_torch.core.backends`);
-    ``None`` follows the device: ``cuda`` on a GPU, ``reference`` on the
-    CPU."""
+    ``None`` follows the device: ``cuda_fused`` on a GPU, ``reference`` on
+    the CPU."""
     n_workers: int = 64
     n_zones: int = 8
     queue_cap: int = 16
@@ -218,41 +218,87 @@ def init_state(g: GraphArrays, W: int, S: int, q_cap: int, gq_cap: int,
                seed) -> SimState:
     """Fresh simulator state on ``g``'s device: empty queues/cells/stacks,
     per-lane RNG streams derived from ``seed``, and the root task seeded
-    onto worker 0's spawn stack as a 1-length range."""
-    dev = g.dur.device
-    T = g.dur.shape[0]
-    seed32 = int(seed) & dlb.U32_MASK
+    onto worker 0's spawn stack as a 1-length range (:func:`init_batch`
+    for a batch of one)."""
+    seeds = torch.tensor([int(seed)], dtype=torch.int64, device=g.dur.device)
+    return lane(init_batch(batch_of_one(g), seeds, W, S, q_cap, gq_cap), 0)
+
+
+# ---------------- batches of simulations ----------------
+def tree_map(fn, tree, *rest):
+    """``fn`` leaf by leaf over tuples of tensors of one structure (a
+    ``SimState``, ``SweepCase`` or ``GraphArrays``), rebuilding the tuple."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+def leaves(tree) -> list:
+    """The tensors of a tuple of tensors, depth first."""
+    if hasattr(tree, "_fields"):
+        return [x for sub in tree for x in leaves(sub)]
+    return [tree]
+
+
+def stack(trees):
+    """Stack same-shaped tuples of tensors along a new leading batch axis
+    (the port's counterpart of vmapping over a batch of simulations)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def to_device(tree, device):
+    """Copy a tuple of tensors to ``device`` without a host sync (tensors
+    already there are kept as they are)."""
+    return tree_map(lambda x: x.to(device, non_blocking=True), tree)
+
+
+def batch_of_one(tree):
+    """A single simulation's tuple as a batch of one: views, so an
+    in-place update of the batch reaches the original tensors."""
+    return tree_map(lambda x: x.unsqueeze(0), tree)
+
+
+def lane(tree, b: int):
+    """Lane ``b`` of a batched tuple (views)."""
+    return tree_map(lambda x: x[b], tree)
+
+
+def init_batch(gb: GraphArrays, seeds: torch.Tensor, W: int, S: int,
+               q_cap: int, gq_cap: int) -> SimState:
+    """Fresh states for a batch of graphs ``gb`` with per-lane ``seeds``,
+    every leaf with a leading batch axis, built on ``gb``'s device with
+    batched fills (no host copy): the JAX package's ``init_state`` lane by
+    lane."""
+    B, T = gb.dur.shape
+    dev = gb.dur.device
+
+    def full(shape, value, dtype=I32):
+        return torch.full((B, *shape), value, dtype=dtype, device=dev)
+
     lanes = torch.arange(W, dtype=torch.int64, device=dev)
-    rng = (lanes * 2654435761 + ((seed32 * 40503 + 1) & dlb.U32_MASK)) \
-        & dlb.U32_MASK
-    s_task = torch.zeros((W, S), dtype=I32, device=dev)
-    s_cnt = torch.zeros((W, S), dtype=I32, device=dev)
-    s_top = torch.zeros((W,), dtype=I32, device=dev)
-    s_cnt[0, 0] = 1
-    s_top[0] = 1
+    seed32 = seeds.to(torch.int64) & dlb.U32_MASK
+    rng = (lanes[None, :] * 2654435761
+           + ((seed32[:, None] * 40503 + 1) & dlb.U32_MASK)) & dlb.U32_MASK
+    s_cnt = full((W, S), 0)
+    s_cnt[:, 0, 0] = 1
+    s_top = full((W,), 0)
+    s_top[:, 0] = 1
     return SimState(
-        xq=xqueue.make(W, q_cap, dev),
-        cells=messaging.make(W, dev),
-        rp=dlb.rp_make(W, dev),
-        g_buf=torch.full((gq_cap,), -1, dtype=I32, device=dev),
-        g_ts=torch.zeros((gq_cap,), dtype=I32, device=dev),
-        g_head=_i32(0, dev), g_tail=_i32(0, dev),
-        s_task=s_task, s_cnt=s_cnt, s_top=s_top,
-        join_cnt=g.join_dep.clone(),
-        done=torch.zeros((T,), dtype=torch.bool, device=dev),
-        done_ns=torch.full((T,), -1, dtype=I32, device=dev),
-        creator=torch.zeros((T,), dtype=I32, device=dev),
-        clock=torch.zeros((W,), dtype=I32, device=dev),
-        rr=torch.arange(W, dtype=I32, device=dev),  # round-robin at master
-        deq_rr=torch.zeros((W,), dtype=I32, device=dev),
-        idle=torch.zeros((W,), dtype=I32, device=dev),
-        rng=rng,
-        ctr=torch.zeros((W, NC), dtype=I32, device=dev),
-        n_done=_i32(0, dev),
-        overflow=torch.tensor(False, device=dev),
-        step_i=_i32(0, dev),
-        nlink_bytes=torch.zeros((W,), dtype=I32, device=dev),
-    )
+        xq=xqueue.XQ(full((W, W, q_cap), -1), full((W, W, q_cap), 0),
+                     full((W, W), 0), full((W, W), 0)),
+        cells=messaging.Cells(full((W,), 1), full((W,), 0), full((W,), -1)),
+        rp=dlb.RPState(full((W,), -1), full((W,), 0)),
+        g_buf=full((gq_cap,), -1), g_ts=full((gq_cap,), 0),
+        g_head=full((), 0), g_tail=full((), 0),
+        s_task=full((W, S), 0), s_cnt=s_cnt, s_top=s_top,
+        join_cnt=gb.join_dep.clone(),
+        done=full((T,), False, torch.bool), done_ns=full((T,), -1),
+        creator=full((T,), 0), clock=full((W,), 0),
+        rr=torch.arange(W, dtype=I32, device=dev).repeat(B, 1),
+        deq_rr=full((W,), 0), idle=full((W,), 0), rng=rng.contiguous(),
+        ctr=full((W, NC), 0), n_done=full((), 0),
+        overflow=full((), False, torch.bool), step_i=full((), 0),
+        nlink_bytes=full((W,), 0))
 
 
 # ---------------- carrying states between the two packages ----------------

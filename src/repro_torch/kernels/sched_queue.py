@@ -61,11 +61,16 @@ class Kernel:
     launches: int = 0
 
 
+#: every hand-written kernel of the package, with its launch count (the
+#: fused step of :mod:`repro_torch.kernels.sched_step` included)
 KERNELS = {k.name: k for k in (
     Kernel("ctr_add", "src/repro/kernels/sched_queue.py:54"),
     Kernel("push", "src/repro/kernels/sched_queue.py:108"),
     Kernel("pop_first", "src/repro/kernels/sched_queue.py:144"),
+    Kernel("sched_step", "src/repro/kernels/sched_step.py:121"),
 )}
+#: the three kernels of this module's source
+QUEUE_KERNELS = ("ctr_add", "push", "pop_first")
 
 
 def reset_launches() -> None:
@@ -73,7 +78,7 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-def _nvcc() -> str:
+def _nvcc(source: Path) -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -82,24 +87,24 @@ def _nvcc() -> str:
     if candidate.exists():
         return str(candidate)
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+                       f"{source.name}")
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels if this source/flag hash has no library yet.
-    Returns ``(library path, compiler log)`` (the log is empty when the
-    library was already built)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def build(source: Path = SOURCE) -> tuple[Path, str]:
+    """Compile one CUDA source into its own shared library if this
+    source/flag hash has none yet.  Returns ``(library path, compiler
+    log)`` (the log is empty when the library was already built)."""
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_ROOT / digest / "libsched_queue.so"
+    lib = BUILD_ROOT / digest / f"lib{source.stem}.so"
     if lib.exists():
         return lib, ""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(source), *NVCC_FLAGS, "-o", str(tmp),
+                           str(source)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
 

@@ -1,7 +1,8 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 PyTorch twin at the main path's width, and the golden cases bitwise on the
-``cuda`` backend.  Every test skips without a card (the kernels have no CPU
-mode); on one, run them with
+``cuda`` and ``cuda_fused`` backends and through the sweep service.  Every
+test skips without a card (the kernels have no CPU mode); on one, run them
+with
 
     PYTHONPATH=src python3 -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -18,12 +19,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import scheduler, xqueue  # noqa: E402
-from repro_torch.core.spec import RuntimeSpec  # noqa: E402
+from repro_torch.core import scheduler, sweep, xqueue  # noqa: E402
+from repro_torch.core.plan import CaseSpec  # noqa: E402
+from repro_torch.core.spec import MODE_SPECS, RuntimeSpec  # noqa: E402
 from repro_torch.core.state import (CTR_NAMES, SimConfig,  # noqa: E402
-                                    make_params, to_numpy)
+                                    batch_of_one, make_params, to_numpy,
+                                    tree_map)
 from repro_torch.core.taskgraph import build as build_graph  # noqa: E402
 from repro_torch.kernels import sched_queue as sq  # noqa: E402
+from repro_torch.kernels import sched_step as ss  # noqa: E402
 
 W, Q, NC = 64, 16, 18
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden_modes.json")
@@ -89,7 +93,7 @@ def test_cuda_kernels_match_plain(seed):
     _equal(sq.ctr_add(ctr.cuda(), 5, val.cuda()),
            sq.ctr_add_ref(ctr, 5, val), "ctr_add")
     torch.cuda.synchronize()
-    assert [k.launches for k in sq.KERNELS.values()] == [1, 1, 1]
+    assert [sq.KERNELS[k].launches for k in sq.QUEUE_KERNELS] == [1, 1, 1]
 
 
 @pytest.mark.gpu
@@ -112,4 +116,66 @@ def test_goldens_bitwise_on_the_card():
         for name in CTR_NAMES:
             assert r.counters[name] == c["counters"].get(name, 0), \
                 (*label, name)
-    assert all(k.launches > 0 for k in sq.KERNELS.values())
+    assert all(sq.KERNELS[k].launches > 0 for k in sq.QUEUE_KERNELS)
+
+
+def _golden():
+    with open(GOLDEN_PATH) as f:
+        return json.load(f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology", (None, "quad_socket_48",
+                                      "two_node_2x24"))
+@pytest.mark.parametrize("mode", ("gomp", "na_rp", "na_ws"))
+def test_fused_step_matches_its_twin(mode, topology):
+    """``sched_step`` with ``max_iters=1`` against its plain twin on
+    mid-run states at W = 16, every leaf bitwise."""
+    _need_card()
+    graph = build_graph("fib", n=9)
+    if topology == "two_node_2x24":
+        graph = graph.with_payload(8.0)
+    params = dict(n_victim=2, n_steal=4, t_interval=5, p_local=0.7)
+    for k in (3, 9, 20):
+        cfg = SimConfig(n_workers=16, n_zones=4, max_steps=k,
+                        backend="reference")
+        r = scheduler.run(graph, spec=MODE_SPECS[mode], cfg=cfg, seed=k,
+                          topology=topology,
+                          params=make_params(**params, device="cuda"),
+                          device="cuda")
+        st, g, case = (batch_of_one(x) for x in (r.state, r.graph, r.case))
+        want = ss.run_lanes(tree_map(torch.clone, st), g, case,
+                            costs=cfg.costs, max_steps=60_000, max_iters=1)
+        got = ss.sched_step(tree_map(torch.clone, st), g, case,
+                            costs=cfg.costs, max_steps=60_000, max_iters=1)
+        torch.cuda.synchronize()
+        _equal(got, want, (mode, topology, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ("serial", "batched", "sharded"))
+def test_goldens_through_run_cases_on_cuda_fused(strategy):
+    """The 10 goldens through the sweep service on ``cuda_fused``, one
+    kernel launch per case (serial) or per chunk (batched)."""
+    _need_card()
+    golden = _golden()
+    cfg = SimConfig(**golden["cfg"])
+    names = list(golden["graphs"])
+    graphs = [build_graph(f, **kw) for f, kw in golden["graphs"].values()]
+    specs = [CaseSpec(spec=RuntimeSpec.from_mode(c["mode"]),
+                      n_workers=cfg.n_workers, n_zones=cfg.n_zones,
+                      graph=names.index(c["graph"]), **golden["knobs"])
+             for c in golden["cases"]]
+    sq.reset_launches()
+    res = sweep.run_cases(graphs, specs, cfg=cfg, strategy=strategy)
+    assert res.completed.all()
+    for i, c in enumerate(golden["cases"]):
+        label = (strategy, c["graph"], c["mode"])
+        assert int(res.time_ns[i]) == c["time_ns"], label
+        assert int(res.steps[i]) == c["steps"], label
+        for name in CTR_NAMES:
+            assert int(res.counters[name][i]) == c["counters"].get(name, 0), \
+                (*label, name)
+    n_chunks = len({c["mode"] for c in golden["cases"]})
+    want = len(specs) if strategy == "serial" else n_chunks
+    assert sq.KERNELS["sched_step"].launches == want

@@ -56,9 +56,14 @@ def test_import_and_cpu_run_leave_jax_and_repro_unloaded():
         "import sys\n"
         "from repro_torch.core import run_schedule, taskgraph, SimConfig\n"
         "import repro_torch.apps, repro_torch.kernels.sched_queue\n"
+        "import repro_torch.kernels.sched_step\n"
+        "from repro_torch.core import CaseSpec, run_cases\n"
         "r = run_schedule(taskgraph.fib(6), cfg=SimConfig(n_workers=4, "
         "n_zones=2), device='cpu')\n"
         "assert r.completed, r\n"
+        "s = run_cases(taskgraph.fib(5), [CaseSpec(n_workers=4)], "
+        "strategy='batched', backend='cuda_fused', device='cpu')\n"
+        "assert s.completed.all(), s\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -5,9 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 In order, it
 1. prints the card's name and power limit (nvidia-smi), then builds the
-   port's CUDA sources from ``src/repro_torch/kernels/csrc`` with nvcc, one
-   process per source, all started together, timing the build and printing
-   the compiler's register report;
+   port's three CUDA sources from ``src/repro_torch/kernels/csrc`` with
+   nvcc, one process per source, all started together, timing the build and
+   printing the compiler's register report;
 2. reproduces the 10 cases of ``tests/golden_modes.json`` bitwise on the
    card: through ``run_schedule`` on the ``cuda`` and the ``cuda_fused``
    backends, and through ``run_cases`` on ``cuda_fused`` with the serial,
@@ -31,7 +31,18 @@ In order, it
    gomp states, flat, NUMA and cluster) and times kernel, twin and, where
    one exists, the one PyTorch call computing the same function, with CUDA
    events;
-6. prints the ``kernels`` JSON line, the end-to-end rates, the card line
+6. runs the third slice's path, serving gemma2_2b at full width (26
+   layers, d_model 2304, vocab 256000, head dim 256, window 4096; random
+   bf16 weights made on the card from seed 0): ``repro_torch.launch.serve``
+   ``main`` with batch 4, prompt 1024, 32 new tokens, launch counts zeroed
+   just before and read just after (26 flash-attention launches in the
+   prefill, none while decoding), finite logits; then the same weights
+   timed warm, the bf16 greedy ids of the kernel against the plain path
+   (printed, not gated), the full model in float32 at batch 2 through the
+   kernel and through its plain twin (last-position logits within 1e-3),
+   the kernel against its twin per call at the serving shape and five
+   more, and its time beside the twin's and ``scaled_dot_product_attention``'s;
+7. prints the ``kernels`` JSON line, the end-to-end rates, the card line
    and last the device line.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
@@ -54,10 +65,14 @@ SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "golden_modes.json"
 
 #: H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): HBM3
-#: bytes/s, and the non-tensor float32 rate, used as the rate of the
-#: kernels' scalar int32 operations
+#: bytes/s, the non-tensor float32 rate, used as the rate of the
+#: simulator kernels' scalar int32 operations, and the dense bf16
+#: tensor-core rate, the bound of attention's bf16 products
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS = 989e12
+#: the simulator's kernels (the main path of phases 3-5)
+SIM_KERNELS = ("ctr_add", "push", "pop_first", "sched_step")
 
 
 class SmokeFailure(Exception):
@@ -112,11 +127,238 @@ def cuda_time_ms(fn, n: int, torch) -> float:
     return start.elapsed_time(stop) / n
 
 
-def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, nops: float,
+             ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+#: the serving run of phase 6: gemma2_2b at full width, batch 4, prompt
+#: 1024, 32 new tokens, as a user runs it
+SERVE_B, SERVE_S, SERVE_GEN = 4, 1024, 32
+SERVE_ARGV = ("--arch", "gemma2_2b", "--batch", str(SERVE_B), "--prompt-len",
+              str(SERVE_S), "--gen", str(SERVE_GEN), "--seed", "0")
+#: the flash kernel against its twin: (label, B, H, KV, S, Dh, dtype,
+#: window, softcap) — the serving shape (a local and a full layer), a
+#: window that bites, ragged sequences and a small head
+FLASH_CASES = (
+    ("serve_local", 4, 8, 4, 1024, 256, "bfloat16", 4096, 50.0),
+    ("serve_full", 4, 8, 4, 1024, 256, "bfloat16", 0, 50.0),
+    ("window_bf16", 1, 8, 4, 8192, 256, "bfloat16", 4096, 50.0),
+    ("window_f32", 1, 8, 4, 8192, 256, "float32", 4096, 50.0),
+    ("ragged_64", 2, 4, 2, 1000, 64, "bfloat16", 0, None),
+    ("ragged_128", 2, 4, 2, 1000, 128, "float32", 300, None),
+    ("small_f32", 2, 4, 4, 96, 16, "float32", 0, 20.0),
+)
+#: atol = rtol per output type: bf16 rounds at 2^-8, float32 only sums in
+#: another order
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: last-position logits of the float32 model, kernel against plain path
+F32_LOGITS_TOL = 1e-3
+
+
+def serve_phase(torch, dev, sq):
+    """Phase 6: serve gemma2_2b at full width through the flash kernel and
+    hold it against its plain twin.  Returns (the kernel's row, report)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as fref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cb.get("gemma2_2b")
+    B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    out = {}
+    t_phase = time.perf_counter()
+
+    # the path a user calls, with the launch counts zeroed just before and
+    # read just after
+    sq.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = serve.main(list(SERVE_ARGV))
+    torch.cuda.synchronize()
+    out["main_wall_s"] = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in sq.KERNELS.items()}
+    check(launches["flash_attention"] == cfg.n_layers == 26,
+          f"serving took {launches['flash_attention']} flash launches for "
+          f"{cfg.n_layers} attention layers")
+    check(g.launches == {"prefill": cfg.n_layers, "decode": 0},
+          f"flash launches by phase: {g.launches}")
+    check(not any(launches[k] for k in SIM_KERNELS),
+          f"a simulator kernel ran while serving: {launches}")
+    check(tuple(g.ids.shape) == (B, GEN)
+          and bool(((g.ids >= 0) & (g.ids < cfg.vocab)).all()),
+          f"generated ids of shape {tuple(g.ids.shape)} out of range")
+    check(bool(torch.isfinite(g.prefill_logits.float()).all()),
+          "non-finite prefill logits")
+    out.update(launches=launches, first_prefill_s=g.prefill_s,
+               first_decode_tok_per_s=B * (GEN - 1) / g.decode_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               ids_lane0=g.ids[0].tolist())
+    print(f"serve: gemma2_2b {B}x{S} + {GEN} tokens through serve.main: "
+          f"{launches['flash_attention']} flash launches (prefill "
+          f"{g.launches['prefill']}, decode {g.launches['decode']}); first "
+          f"prefill {g.prefill_s:.4f} s, decode "
+          f"{out['first_decode_tok_per_s']:.1f} tok/s; peak "
+          f"{out['peak_gib']:.2f} GiB; lane 0 ids {out['ids_lane0']}",
+          flush=True)
+    del g
+
+    # the same weights again, warm; then through the plain twin
+    params = tfm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.as_tensor(batch_for(cfg, 0, B, S)["tokens"], device=dev)
+    serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    warm = serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    check(bool(torch.isfinite(warm.prefill_logits.float()).all()),
+          "non-finite prefill logits (warm)")
+    ops.set_impl("ref")
+    try:
+        plain = serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    finally:
+        ops.set_impl(None)
+    out.update(
+        prefill_s=warm.prefill_s,
+        decode_tok_per_s=B * (GEN - 1) / warm.decode_s,
+        plain_prefill_s=plain.prefill_s,
+        greedy_agreement=float((plain.ids == warm.ids).float().mean()),
+        bf16_logits_max_abs_diff=float(
+            (plain.prefill_logits.float()
+             - warm.prefill_logits.float()).abs().max()))
+    print(f"serve (warm): prefill {out['prefill_s']:.4f} s, decode "
+          f"{out['decode_tok_per_s']:.1f} tok/s; plain path prefill "
+          f"{out['plain_prefill_s']:.4f} s; greedy bf16 ids agree on "
+          f"{100 * out['greedy_agreement']:.2f} % (not gated), last logits "
+          f"max abs diff {out['bf16_logits_max_abs_diff']:.4g}", flush=True)
+    # where the time goes: a traced prefill alone, then a prefill and 3
+    # decode steps (decoding is the difference)
+    def traced(gen):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run = serve.generate(params, cfg, {"tokens": tokens}, gen)
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kern)
+        wall_us = (run.prefill_s + run.decode_s) * 1e6
+        return dict(
+            wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+            device_busy_share=busy_us / wall_us,
+            launches=sum(e.count for e in kern),
+            top=[(e.key[:70], e.self_device_time_total, e.count)
+                 for e in sorted(kern,
+                                 key=lambda e: -e.self_device_time_total)
+                 [:8]])
+
+    out["traced"] = {"prefill": traced(1), "prefill_and_3_steps": traced(4)}
+    for k, t in out["traced"].items():
+        print(f"serve (traced, {k}): device busy {t['device_busy_ms']:.2f} "
+              f"ms of {t['wall_ms']:.2f} ms wall "
+              f"({100 * t['device_busy_share']:.1f} %), {t['launches']} "
+              f"kernel launches; top: {t['top'][:4]}", flush=True)
+    del params, warm, plain
+
+    # the full model in float32: kernel against the plain path
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params = tfm.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {"tokens": tokens[:2]}
+    with torch.inference_mode():
+        k_last, _ = tfm.prefill(params, cfg32, batch, S)
+        ops.set_impl("ref")
+        try:
+            r_last, _ = tfm.prefill(params, cfg32, batch, S)
+        finally:
+            ops.set_impl(None)
+    torch.cuda.synchronize()
+    err = float((k_last - r_last).abs().max())
+    out.update(f32_logits_max_abs_err=err,
+               f32_logits_max_abs=float(r_last.abs().max()),
+               f32_logits_share_below_29=float(
+                   (r_last.abs() < 29.0).float().mean()))
+    check(bool(torch.isfinite(k_last).all()) and err <= F32_LOGITS_TOL,
+          f"float32 gemma2_2b: kernel and plain last logits differ by "
+          f"{err} (> {F32_LOGITS_TOL})")
+    print(f"serve (float32, 2x{S}): last-position logits, kernel against "
+          f"plain path, max abs err {err:.3g} (<= {F32_LOGITS_TOL}; "
+          f"|logit| <= {out['f32_logits_max_abs']:.3f}, "
+          f"{100 * out['f32_logits_share_below_29']:.1f} % below 29)",
+          flush=True)
+    del params, k_last, r_last
+
+    # the kernel against its twin, call by call
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {}
+    for label, b, h, kv, s, dh, dtype, window, softcap in FLASH_CASES:
+        q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev
+                               ).to(getattr(torch, dtype))
+                   for n in (h, kv, kv))
+        got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
+        want = fref.flash_attention(q, k, v, True, window, softcap)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[dtype]
+        errs[label] = float(diff.max())
+        check(got.dtype == q.dtype and bool(
+            (diff <= tol + tol * want.float().abs()).all()),
+            f"flash_attention {label}: max abs err {errs[label]} beyond "
+            f"{tol}")
+        print(f"  flash {label:12s} B={b} H={h} KV={kv} S={s} Dh={dh} "
+              f"{dtype} window={window} softcap={softcap}: max abs err "
+              f"{errs[label]:.3g} (tol {tol})", flush=True)
+    out["flash_errors"] = errs
+
+    # its time at the serving shape (a full layer), beside the twin's and
+    # one library call's (no softcap, no window: a cheaper function)
+    b, h, kv, s, dh = 4, 8, 4, S, 256
+    q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev
+                           ).to(torch.bfloat16) for n in (h, kv, kv))
+    ms = cuda_time_ms(lambda i: fa.flash_attention(q, k, v, softcap=50.0),
+                      50, torch)
+    plain_ms = cuda_time_ms(
+        lambda i: fref.flash_attention(q, k, v, True, 0, 50.0), 10, torch)
+    ke, ve = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+    lib_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        q, ke, ve, is_causal=True), 50, torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fa.flash_attention(q, k, v, softcap=50.0)
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "device_time_total", 0)
+                 for e in prof.key_averages()
+                 if "flash_fwd_kernel" in e.key) / 5
+    flops = 4 * dh * b * h * s * (s + 1) / 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    out["flash_timed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              device_us=dev_us or None, flops=flops,
+                              bytes=nbytes, bound_ms=bnd, bound_by=by,
+                              tflops=flops / ms / 1e9)
+    print(f"flash_attention at 4x8x1024x256 bf16: {ms:.4f} ms a call "
+          f"({flops / ms / 1e9:.2f} TFLOP/s; device {dev_us:.1f} us), "
+          f"bound {bnd:.5f} ms ({by}), twin {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces=sq.KERNELS["flash_attention"].replaces,
+               launches=launches["flash_attention"],
+               max_abs_err=max(errs["serve_local"], errs["serve_full"]),
+               ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+               library_ms=lib_ms)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving phase took {out['phase_s']:.1f} s", flush=True)
+    return row, out
 
 
 def main() -> int:
@@ -144,6 +386,7 @@ def run(torch) -> int:
                                         make_params, stack, to_numpy,
                                         tree_map)
     from repro_torch.core.taskgraph import build as build_graph
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sched_queue as sq
     from repro_torch.kernels import sched_step as ss
 
@@ -155,15 +398,17 @@ def run(torch) -> int:
 
     # 1. build the kernels: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = {name: pool.submit(fn) for name, fn in
-                  (("sched_queue", sq.build), ("sched_step", ss.build))}
+                  (("sched_queue", sq.build), ("sched_step", ss.build),
+                   ("flash_attention", fa.build))}
         logs = {name: f.result() for name, f in builds.items()}
     report["build_s"] = time.perf_counter() - t0
     for name, (path, log) in logs.items():
         print(log.strip())
         print(f"built {path.name}", flush=True)
-    print(f"built both sources in {report['build_s']:.2f} s", flush=True)
+    print(f"built {len(logs)} sources in {report['build_s']:.2f} s",
+          flush=True)
 
     # 2. the goldens, bitwise: run_schedule on cuda and cuda_fused, then
     # run_cases on cuda_fused with every executor
@@ -261,7 +506,7 @@ def run(torch) -> int:
                   f"{b}={out[b + '_s']:.3f}s" for b in backends)
               + "  bitwise", flush=True)
     main_launches = {k: v.launches for k, v in sq.KERNELS.items()}
-    check(all(main_launches.values()),
+    check(all(main_launches[k] for k in SIM_KERNELS),
           f"a kernel never launched on the main path: {main_launches}")
     check(main_launches["sched_step"] == len(main_runs),
           f"cuda_fused took {main_launches['sched_step']} launches for "
@@ -533,6 +778,10 @@ def run(torch) -> int:
                  # kernels on phase 3's cuda runs, sched_step on the sweep
                  launches=(sweep_launches if k["name"] == "sched_step"
                            else main_launches)[k["name"]])
+
+    # 6. this slice's path: serving gemma2_2b at full width
+    flash_row, report["serve"] = serve_phase(torch, dev, sq)
+    kernels.append(flash_row)
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -546,6 +795,10 @@ def run(torch) -> int:
                       "launches": main_launches}))
     print(json.dumps({"sweep": {k: v for k, v in report["sweep"].items()
                                 if k != "rows"}}))
+    print(json.dumps({"serve": {k: report["serve"][k] for k in (
+        "prefill_s", "decode_tok_per_s", "first_prefill_s",
+        "first_decode_tok_per_s", "f32_logits_max_abs_err",
+        "greedy_agreement")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

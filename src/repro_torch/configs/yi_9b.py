@@ -1,0 +1,16 @@
+"""yi-9b — llama-arch dense GQA. [arXiv:2403.04652; hf]
+48L d_model=4096 32H (kv=4) d_ff=11008 vocab=64000."""
+
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="yi_9b",
+    family="dense",
+    n_layers=48,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab=64000,
+    rope_theta=10000.0,
+))

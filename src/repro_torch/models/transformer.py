@@ -1,0 +1,347 @@
+"""The dense decoder stack: the port of the dense part of the JAX package's
+``models/transformer.py``.
+
+Layers are grouped into a repeating *pattern* of P block kinds (gemma2:
+(local, full)); parameters are stacked per pattern position with a leading
+dim of ``n_layers / P``, as in the JAX package, and the stack is applied by
+a Python loop over that dim (the JAX package's ``lax.scan``).  There is no
+rematerialisation: that is for training.
+
+Parameters are a :class:`ParamTree`, an ``nn.Module`` whose parameters map
+one to one onto the JAX parameter tree's leaves (``embed``,
+``final_norm``, ``lm_head`` when the head is untied, and ``streams``: one
+tree per pattern position); ``params_from_numpy`` carries a JAX tree
+across leaf for leaf.
+
+Public API:
+  pattern(cfg)                              -> tuple of BlockKind
+  init_params(cfg, generator, device)       -> ParamTree
+  params_from_numpy(tree, cfg, device)      -> ParamTree
+  forward(params, cfg, batch)               -> (logits, aux)
+  prefill(params, cfg, batch, max_len)      -> (last logits, DecodeState)
+  init_decode_state(cfg, B, max_len, dev)   -> DecodeState (zeros)
+  decode_step(params, cfg, state, tokens)   -> (logits, DecodeState)
+
+Only dense attention stacks are ported: configs with MoE layers, RWKV
+blocks, SSM heads or a modality frontend raise ``NotImplementedError``
+naming the ROADMAP item that ports them.  ``loss_fn`` waits for training.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+AUX_KEYS = ("lb_loss", "ntasks_static", "ntasks_stolen_local",
+            "ntasks_stolen_remote", "ntasks_dropped", "max_load")
+CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+class BlockKind(NamedTuple):
+    attn: Optional[str]   # "full" | "local" | "bidir" | None (rwkv)
+    moe: bool
+    ssm: bool
+    rwkv: bool
+
+
+def pattern(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return (BlockKind(None, False, False, True),)
+    ilv = cfg.moe.interleave if cfg.moe else 1
+    P = math.lcm(len(cfg.attn_pattern), ilv)
+    return tuple(
+        BlockKind(attn=cfg.attn_pattern[i % len(cfg.attn_pattern)],
+                  moe=bool(cfg.moe) and (i % ilv == ilv - 1),
+                  ssm=cfg.parallel_ssm, rwkv=False)
+        for i in range(P))
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family this port does not run
+    yet."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: RWKV blocks are not ported yet (ROADMAP §1 item "
+            "6, rwkv6_1_6b serving)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP §1 item 7, "
+            "MoE serving)")
+    if cfg.ssm is not None or cfg.parallel_ssm:
+        raise NotImplementedError(
+            f"{cfg.name}: SSM heads are not ported yet (ROADMAP §1 item 9, "
+            "hybrid and frontend families)")
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
+            "(ROADMAP §1 item 9, hybrid and frontend families)")
+
+
+class ParamTree(nn.Module):
+    """A nested mapping of tensors as a module: a dict becomes a
+    ``ParamTree``, a tuple an ``nn.ModuleList``, a tensor a frozen
+    ``nn.Parameter``; ``named_parameters()`` paths are the JAX tree's key
+    paths (``streams.0.attn.wq``).  ``tree["key"]`` reads a child."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            elif isinstance(val, (tuple, list)):
+                self.add_module(key, nn.ModuleList(ParamTree(x)
+                                                   for x in val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+    def keys(self):
+        return list(self._parameters) + list(self._modules)
+
+
+def _index(tree, i: int) -> dict:
+    """Layer ``i`` of a stacked tree, as a dict of views."""
+    return {k: _index(tree[k], i) if isinstance(tree[k], (ParamTree, dict))
+            else tree[k][i] for k in tree.keys()}
+
+
+def _block_init(cfg: ModelConfig, kind: BlockKind, n: int, generator,
+                device):
+    D = cfg.d_model
+
+    def zeros():
+        return torch.zeros((n, D), dtype=cfg.pdtype, device=device)
+
+    p = {"ln1": zeros(), "ln2": zeros(),
+         "attn": layers.attn_init(cfg, generator, device, lead=(n,)),
+         "mlp": layers.mlp_init(cfg, cfg.d_ff, generator, device, lead=(n,))}
+    if cfg.post_block_norms:
+        p["pln1"] = zeros()
+        p["pln2"] = zeros()
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                device) -> ParamTree:
+    """Random weights drawn from ``generator`` (a ``torch.Generator`` on
+    ``device``) with the JAX package's scales: embeddings N(0, 1), dense
+    weights N(0, 1/fan_in), norm scales 0.  The JAX package draws other
+    numbers from its keys; tests carry its weights across with
+    :func:`params_from_numpy`."""
+    check_ported(cfg)
+    kinds = pattern(cfg)
+    P = len(kinds)
+    if cfg.n_layers % P:
+        raise ValueError(f"{cfg.n_layers} layers do not fill a pattern of "
+                         f"{P}")
+    n = cfg.n_layers // P
+    tree = {
+        "embed": torch.randn((cfg.vocab, cfg.d_model), generator=generator,
+                             device=device,
+                             dtype=torch.float32).to(cfg.pdtype),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
+                                  device=device),
+        "streams": tuple(_block_init(cfg, kind, n, generator, device)
+                         for kind in kinds),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = layers._dense_init(
+            (cfg.d_model, cfg.vocab), cfg.pdtype, generator, device)
+    return ParamTree(tree)
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu"
+                      ) -> ParamTree:
+    """The JAX parameter tree (``embed``, ``final_norm``, optional
+    ``lm_head``, ``streams``), given as numpy arrays, as the port's
+    parameters.  Both packages keep weights ``(in, out)``, so each leaf is
+    copied as it is, never transposed; its key path, shape and dtype must
+    be the ones :func:`init_params` makes for ``cfg``."""
+    want = init_params(cfg, None, "meta")
+
+    def conv(node, spec, path):
+        if isinstance(spec, (ParamTree, nn.ModuleList)):
+            keys = (list(range(len(spec))) if isinstance(spec, nn.ModuleList)
+                    else sorted(spec.keys()))
+            have = (list(range(len(node))) if isinstance(node, (tuple, list))
+                    else sorted(node.keys()))
+            if have != keys:
+                raise ValueError(f"{path or 'tree'}: keys {have}, expected "
+                                 f"{keys}")
+            out = [conv(node[k], spec[k], f"{path}.{k}".lstrip("."))
+                   for k in keys]
+            return (tuple(out) if isinstance(spec, nn.ModuleList)
+                    else dict(zip(keys, out)))
+        t = _tensor_from_numpy(node)
+        if tuple(t.shape) != tuple(spec.shape) or t.dtype != spec.dtype:
+            raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(spec.shape)} {spec.dtype}")
+        return t.to(device)
+
+    return ParamTree(conv(tree, want, ""))
+
+
+def _zero_aux(device):
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
+
+
+def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind):
+    """Prefill block.  Returns (x, cache_src): the k/v decode needs."""
+    h = layers.rmsnorm(bp["ln1"], x)
+    a, (kt, vt) = layers.attn_apply(bp["attn"], h, cfg, kind.attn)
+    if cfg.post_block_norms:
+        a = layers.rmsnorm(bp["pln1"], a)
+    x = x + a
+    h2 = layers.rmsnorm(bp["ln2"], x)
+    m = layers.mlp_apply(bp["mlp"], h2, cfg)
+    if cfg.post_block_norms:
+        m = layers.rmsnorm(bp["pln2"], m)
+    return x + m, {"k": kt, "v": vt}
+
+
+def _embed_tokens(params, cfg: ModelConfig, tok):
+    x = params["embed"][tok.long()].to(cfg.cdtype)
+    if cfg.tie_embeddings:
+        # the scale is rounded to the compute dtype first, as in JAX
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype,
+                             device=x.device)
+    return x
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    return _embed_tokens(params, cfg, batch["tokens"])
+
+
+def _logits(params, cfg: ModelConfig, x):
+    """Logits in the compute dtype, with the final softcap."""
+    x = layers.rmsnorm(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+def forward(params, cfg: ModelConfig, batch, *, collect_cache=False):
+    """Full-sequence forward.  Returns (logits, aux[, cache_srcs]): aux is
+    the JAX package's MoE counters, all zero for a dense stack; cache_srcs
+    holds per pattern position the stacked ``(n, B, KV, S, Dh)`` k and v."""
+    check_ported(cfg)
+    kinds = pattern(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    n = cfg.n_layers // len(kinds)
+    srcs = [[] for _ in kinds]
+    for idx in range(n):
+        for pidx, kind in enumerate(kinds):
+            x, src = _apply_block(_index(params["streams"][pidx], idx), x,
+                                  cfg, kind)
+            if collect_cache:
+                srcs[pidx].append(src)
+    logits = _logits(params, cfg, x)
+    aux = _zero_aux(logits.device)
+    if collect_cache:
+        return logits, aux, tuple(
+            {k: torch.stack([s[k] for s in per]) for k in ("k", "v")}
+            for per in srcs)
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    caches: tuple             # per pattern position: stacked (n, ...) caches
+    length: torch.Tensor      # (B,) int32 tokens already in cache
+
+
+def init_decode_state(cfg: ModelConfig, B: int, max_len: int,
+                      device="cpu") -> DecodeState:
+    check_ported(cfg)
+    kinds = pattern(cfg)
+    n = cfg.n_layers // len(kinds)
+    caches = []
+    for kind in kinds:
+        c = layers.attn_cache_init(cfg, kind.attn, B, max_len, device=device)
+        caches.append({f: getattr(c, f)[None].repeat(
+            (n,) + (1,) * getattr(c, f).dim()) for f in CACHE_KEYS})
+    return DecodeState(caches=tuple(caches),
+                       length=torch.zeros((B,), dtype=torch.int32,
+                                          device=device))
+
+
+def prefill(params, cfg: ModelConfig, batch, max_len: int):
+    """Run the full prompt, build the decode state.  Returns (logits of the
+    last position, state)."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
+    logits, _aux, srcs = forward(params, cfg, batch, collect_cache=True)
+    kinds = pattern(cfg)
+    S = batch["tokens"].shape[1]
+    caches = []
+    for kind, src in zip(kinds, srcs):
+        per_layer = [layers.attn_cache_from_prefill(
+            cfg, kind.attn, src["k"][i], src["v"][i], max_len)
+            for i in range(src["k"].shape[0])]
+        caches.append({f: torch.stack([getattr(c, f) for c in per_layer])
+                       for f in CACHE_KEYS})
+    B = logits.shape[0]
+    state = DecodeState(caches=tuple(caches),
+                        length=torch.full((B,), S, dtype=torch.int32,
+                                          device=logits.device))
+    return logits[:, -1], state
+
+
+def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length):
+    h = layers.rmsnorm(bp["ln1"], x)
+    ac = layers.AttnCache(*(cache[f] for f in CACHE_KEYS))
+    a, _ = layers.attn_decode(bp["attn"], h, cfg, kind.attn, ac, length)
+    if cfg.post_block_norms:
+        a = layers.rmsnorm(bp["pln1"], a)
+    x = x + a
+    h2 = layers.rmsnorm(bp["ln2"], x)
+    m = layers.mlp_apply(bp["mlp"], h2, cfg)
+    if cfg.post_block_norms:
+        m = layers.rmsnorm(bp["pln2"], m)
+    return x + m
+
+
+def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens):
+    """One autoregressive step.  tokens: (B,) int.  Returns (logits,
+    state).  The caches of ``state`` are updated in place (see
+    :func:`repro_torch.models.layers.attn_decode`); the returned state
+    holds the same cache tensors and the advanced lengths."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
+    check_ported(cfg)
+    kinds = pattern(cfg)
+    x = _embed_tokens(params, cfg, tokens)
+    n = cfg.n_layers // len(kinds)
+    for idx in range(n):
+        for pidx, kind in enumerate(kinds):
+            x = _decode_block(_index(params["streams"][pidx], idx), x,
+                              cfg, kind, _index(state.caches[pidx], idx),
+                              state.length)
+    logits = _logits(params, cfg, x)
+    return logits, DecodeState(caches=state.caches,
+                               length=state.length + 1)

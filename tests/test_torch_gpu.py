@@ -1,6 +1,7 @@
 """The port on a CUDA card: each hand-written kernel against its plain
-PyTorch twin at the main path's width, and the golden cases bitwise on the
-``cuda`` and ``cuda_fused`` backends and through the sweep service.  Every
+PyTorch twin at the main path's width, the golden cases bitwise on the
+``cuda`` and ``cuda_fused`` backends and through the sweep service, and
+smoke-config serving on the card against the CPU.  Every
 test skips without a card (the kernels have no CPU mode); on one, run them
 with
 
@@ -26,8 +27,13 @@ from repro_torch.core.state import (CTR_NAMES, SimConfig,  # noqa: E402
                                     batch_of_one, make_params, to_numpy,
                                     tree_map)
 from repro_torch.core.taskgraph import build as build_graph  # noqa: E402
+from repro_torch.configs import base as cb  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import sched_queue as sq  # noqa: E402
 from repro_torch.kernels import sched_step as ss  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 
 W, Q, NC = 64, 16, 18
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden_modes.json")
@@ -179,3 +185,60 @@ def test_goldens_through_run_cases_on_cuda_fused(strategy):
     n_chunks = len({c["mode"] for c in golden["cases"]})
     want = len(specs) if strategy == "serial" else n_chunks
     assert sq.KERNELS["sched_step"].launches == want
+
+
+#: (B, H, KV, S, Dh, dtype, window, softcap): the serving shape with and
+#: without its window, a window that bites, ragged sequences, a small head
+FLASH_SHAPES = {
+    "serve_local": (4, 8, 4, 1024, 256, "bfloat16", 4096, 50.0),
+    "serve_full": (4, 8, 4, 1024, 256, "bfloat16", 0, 50.0),
+    "window_bf16": (1, 8, 4, 8192, 256, "bfloat16", 4096, 50.0),
+    "window_f32": (1, 8, 4, 8192, 256, "float32", 4096, 50.0),
+    "ragged_64": (2, 4, 2, 1000, 64, "bfloat16", 0, None),
+    "ragged_128": (2, 4, 2, 1000, 128, "float32", 300, None),
+    "small_f32": (2, 4, 4, 96, 16, "float32", 0, 20.0),
+    "head_192": (1, 4, 1, 300, 192, "bfloat16", 100, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(FLASH_SHAPES))
+def test_flash_kernel_matches_its_twin(shape):
+    """The CUDA flash-attention forward against its plain twin, one
+    launch per call; 2e-2 (atol and rtol) on bf16 outputs, 1e-4 on f32."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, KV, S, Dh, dtype, window, softcap = FLASH_SHAPES[shape]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((B, n, S, Dh), generator=gen, device="cuda"
+                           ).to(getattr(torch, dtype)) for n in (H, KV, KV))
+    sq.reset_launches()
+    got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert sq.KERNELS["flash_attention"].launches == 1
+    want = ref.flash_attention(q, k, v, True, window, softcap)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_smoke_serving_on_the_card_matches_the_cpu():
+    """gemma2 smoke weights served on the card and on the CPU: the same
+    greedy ids and close prefill logits; one kernel launch per attention
+    layer of the prefill and none while decoding."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cb.smoke_config("gemma2_2b")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params.embed.mul_(0.02)   # greedy ids that vary (see test_torch_serve)
+    tok = torch.randint(0, cfg.vocab, (3, 40),
+                        generator=torch.Generator().manual_seed(1))
+    cpu = serve.generate(params, cfg, {"tokens": tok}, 12)
+    sq.reset_launches()
+    card = serve.generate(params.cuda(), cfg, {"tokens": tok.cuda()}, 12)
+    assert card.launches == {"prefill": cfg.n_layers, "decode": 0}
+    assert sq.KERNELS["flash_attention"].launches == cfg.n_layers
+    torch.testing.assert_close(card.prefill_logits.cpu(),
+                               cpu.prefill_logits, atol=1e-4, rtol=1e-4)
+    assert torch.equal(card.ids.cpu(), cpu.ids)

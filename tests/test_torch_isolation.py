@@ -64,6 +64,12 @@ def test_import_and_cpu_run_leave_jax_and_repro_unloaded():
         "s = run_cases(taskgraph.fib(5), [CaseSpec(n_workers=4)], "
         "strategy='batched', backend='cuda_fused', device='cpu')\n"
         "assert s.completed.all(), s\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.models.transformer\n"
+        "from repro_torch.launch import serve\n"
+        "g = serve.main(['--smoke', '--batch', '1', '--prompt-len', '8', "
+        "'--gen', '2', '--device', 'cpu'])\n"
+        "assert tuple(g.ids.shape) == (1, 2), g.ids\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -72,7 +78,7 @@ def test_import_and_cpu_run_leave_jax_and_repro_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith("ok"), proc.stdout
+    assert proc.stdout.splitlines()[-1].startswith("ok"), proc.stdout
 
 
 def test_no_device_means_an_error_not_a_cpu_run():

@@ -5,7 +5,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 In order, it
 1. prints the card's name and power limit (nvidia-smi), then builds the
-   port's three CUDA sources from ``src/repro_torch/kernels/csrc`` with
+   port's four CUDA sources from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together, timing the build and
    printing the compiler's register report;
 2. reproduces the 10 cases of ``tests/golden_modes.json`` bitwise on the
@@ -42,7 +42,19 @@ In order, it
    kernel and through its plain twin (last-position logits within 1e-3),
    the kernel against its twin per call at the serving shape and five
    more, and its time beside the twin's and ``scaled_dot_product_attention``'s;
-7. prints the ``kernels`` JSON line, the end-to-end rates, the card line
+7. runs the fourth slice's path, serving rwkv6_1_6b at full width (24
+   layers, d_model 2048, 32 heads of 64, d_ff 7168, vocab 65536; random
+   bf16 weights made on the card from seed 0): ``serve.main`` with batch 4,
+   prompt 1024, 32 new tokens, launch counts zeroed just before and read
+   just after (24 ``rwkv6_scan`` launches in the prefill, none while
+   decoding, no other kernel), finite logits; then the same weights timed
+   warm and through the plain path, a traced prefill and a traced prefill
+   with 3 decode steps, the full model in float32 at batch 2 through the
+   kernel and through its plain twin (last-position prefill logits, then 3
+   decode steps from each prefill's own state, within 1e-3), the kernel
+   against its twin per call (output and final state) at the serving shape
+   and six more, and its time beside the twin's and its bound;
+8. prints the ``kernels`` JSON line, the end-to-end rates, the card line
    and last the device line.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
@@ -127,6 +139,12 @@ def cuda_time_ms(fn, n: int, torch) -> float:
     return start.elapsed_time(stop) / n
 
 
+def within(got, want, tol: float) -> bool:
+    """Every element within ``tol + tol * |want|`` (atol = rtol = tol)."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
 def bound_ms(nbytes: float, nops: float,
              ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -157,6 +175,40 @@ FLASH_CASES = (
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: last-position logits of the float32 model, kernel against plain path
 F32_LOGITS_TOL = 1e-3
+
+
+def kernel_device_us(prof, key: str):
+    """Mean device microseconds per recorded launch of the kernel whose name
+    holds ``key`` (per recorded launch: the profiler may not record every
+    launch of a short window), or None when none was recorded."""
+    rows = [e for e in prof.key_averages() if key in e.key]
+    n = sum(e.count for e in rows)
+    return sum(e.device_time_total for e in rows) / n if n else None
+
+
+def traced_generate(torch, serve, params, cfg, tokens, gen, kernel_key):
+    """One ``serve.generate`` under the profiler: device busy time and
+    share of the wall time, kernel launches, the device time of the
+    kernel whose name holds ``kernel_key``, and the largest device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = serve.generate(params, cfg, {"tokens": tokens}, gen)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    mine_us = sum(e.self_device_time_total for e in kern
+                  if kernel_key in e.key)
+    wall_us = (run.prefill_s + run.decode_s) * 1e6
+    return dict(
+        wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / wall_us,
+        launches=sum(e.count for e in kern), kernel_ms=mine_us / 1e3,
+        kernel_share_of_device=mine_us / busy_us if busy_us else 0.0,
+        top=[(e.key[:70], e.self_device_time_total, e.count)
+             for e in sorted(kern, key=lambda e: -e.self_device_time_total)
+             [:8]])
 
 
 def serve_phase(torch, dev, sq):
@@ -192,8 +244,10 @@ def serve_phase(torch, dev, sq):
     check(launches["flash_attention"] == cfg.n_layers == 26,
           f"serving took {launches['flash_attention']} flash launches for "
           f"{cfg.n_layers} attention layers")
-    check(g.launches == {"prefill": cfg.n_layers, "decode": 0},
-          f"flash launches by phase: {g.launches}")
+    zero = dict.fromkeys(sq.KERNELS, 0)
+    check(g.launches == {"prefill": dict(zero, flash_attention=26),
+                         "decode": zero},
+          f"kernel launches by phase: {g.launches}")
     check(not any(launches[k] for k in SIM_KERNELS),
           f"a simulator kernel ran while serving: {launches}")
     check(tuple(g.ids.shape) == (B, GEN)
@@ -207,7 +261,8 @@ def serve_phase(torch, dev, sq):
                ids_lane0=g.ids[0].tolist())
     print(f"serve: gemma2_2b {B}x{S} + {GEN} tokens through serve.main: "
           f"{launches['flash_attention']} flash launches (prefill "
-          f"{g.launches['prefill']}, decode {g.launches['decode']}); first "
+          f"{g.launches['prefill']['flash_attention']}, decode "
+          f"{g.launches['decode']['flash_attention']}); first "
           f"prefill {g.prefill_s:.4f} s, decode "
           f"{out['first_decode_tok_per_s']:.1f} tok/s; peak "
           f"{out['peak_gib']:.2f} GiB; lane 0 ids {out['ids_lane0']}",
@@ -242,24 +297,10 @@ def serve_phase(torch, dev, sq):
           f"max abs diff {out['bf16_logits_max_abs_diff']:.4g}", flush=True)
     # where the time goes: a traced prefill alone, then a prefill and 3
     # decode steps (decoding is the difference)
-    def traced(gen):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run = serve.generate(params, cfg, {"tokens": tokens}, gen)
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kern)
-        wall_us = (run.prefill_s + run.decode_s) * 1e6
-        return dict(
-            wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-            device_busy_share=busy_us / wall_us,
-            launches=sum(e.count for e in kern),
-            top=[(e.key[:70], e.self_device_time_total, e.count)
-                 for e in sorted(kern,
-                                 key=lambda e: -e.self_device_time_total)
-                 [:8]])
-
-    out["traced"] = {"prefill": traced(1), "prefill_and_3_steps": traced(4)}
+    out["traced"] = {
+        k: traced_generate(torch, serve, params, cfg, tokens, gen,
+                           "flash_fwd_kernel")
+        for k, gen in (("prefill", 1), ("prefill_and_3_steps", 4))}
     for k, t in out["traced"].items():
         print(f"serve (traced, {k}): device busy {t['device_busy_ms']:.2f} "
               f"ms of {t['wall_ms']:.2f} ms wall "
@@ -306,13 +347,11 @@ def serve_phase(torch, dev, sq):
         got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
         want = fref.flash_attention(q, k, v, True, window, softcap)
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
         tol = FLASH_TOL[dtype]
-        errs[label] = float(diff.max())
-        check(got.dtype == q.dtype and bool(
-            (diff <= tol + tol * want.float().abs()).all()),
-            f"flash_attention {label}: max abs err {errs[label]} beyond "
-            f"{tol}")
+        errs[label] = float((got.float() - want.float()).abs().max())
+        check(got.dtype == q.dtype and within(got, want, tol),
+              f"flash_attention {label}: max abs err {errs[label]} beyond "
+              f"{tol}")
         print(f"  flash {label:12s} B={b} H={h} KV={kv} S={s} Dh={dh} "
               f"{dtype} window={window} softcap={softcap}: max abs err "
               f"{errs[label]:.3g} (tol {tol})", flush=True)
@@ -335,18 +374,17 @@ def serve_phase(torch, dev, sq):
         for _ in range(5):
             fa.flash_attention(q, k, v, softcap=50.0)
         torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "device_time_total", 0)
-                 for e in prof.key_averages()
-                 if "flash_fwd_kernel" in e.key) / 5
+    dev_us = kernel_device_us(prof, "flash_fwd_kernel")
     flops = 4 * dh * b * h * s * (s + 1) / 2
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
     out["flash_timed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              device_us=dev_us or None, flops=flops,
+                              device_us=dev_us, flops=flops,
                               bytes=nbytes, bound_ms=bnd, bound_by=by,
                               tflops=flops / ms / 1e9)
     print(f"flash_attention at 4x8x1024x256 bf16: {ms:.4f} ms a call "
-          f"({flops / ms / 1e9:.2f} TFLOP/s; device {dev_us:.1f} us), "
+          f"({flops / ms / 1e9:.2f} TFLOP/s; device "
+          f"{f'{dev_us:.1f} us' if dev_us else 'time not measured'}), "
           f"bound {bnd:.5f} ms ({by}), twin {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
     row = dict(name="flash_attention", route="cuda",
@@ -358,6 +396,270 @@ def serve_phase(torch, dev, sq):
                library_ms=lib_ms)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"serving phase took {out['phase_s']:.1f} s", flush=True)
+    return row, out
+
+
+#: the serving run of phase 7: rwkv6_1_6b at full width, the same batch and
+#: lengths as gemma2_2b's
+RWKV_ARGV = ("--arch", "rwkv6_1_6b", "--batch", str(SERVE_B),
+             "--prompt-len", str(SERVE_S), "--gen", str(SERVE_GEN),
+             "--seed", "0")
+#: the RWKV6 kernel against its twin: (label, B, H, T, Dh, dtype, nonzero
+#: initial state, layout) — the serving shape in the model's layout and
+#: packed, float32 from a nonzero state, a ragged T (the twin is
+#: rwkv6_naive there), one step, the small heads and a long sequence.
+#: "model": (B, T, H, Dh) buffers viewed as (B, H, T, Dh), as time_mix
+#: hands them over; "packed": contiguous (B, H, T, Dh)
+RWKV_CASES = (
+    ("serve_model", 4, 32, 1024, 64, "bfloat16", False, "model"),
+    ("serve_bf16", 4, 32, 1024, 64, "bfloat16", False, "packed"),
+    ("f32_state", 2, 32, 1024, 64, "float32", True, "packed"),
+    ("ragged_1000", 1, 32, 1000, 64, "bfloat16", True, "packed"),
+    ("one_step", 4, 32, 1, 64, "float32", True, "packed"),
+    ("dh16", 2, 4, 256, 16, "float32", True, "packed"),
+    ("dh32", 2, 8, 512, 32, "bfloat16", True, "model"),
+    ("long_8192", 1, 32, 8192, 64, "bfloat16", False, "packed"),
+)
+#: atol = rtol on the output by its type (as FLASH_TOL), and on every final
+#: state, which is float32 whatever the inputs
+RWKV_STATE_TOL = 1e-4
+#: the float32 rwkv6_1_6b, kernel against plain path: prefill logits and
+#: 3 decode steps, atol = rtol
+RWKV_F32_TOL = 1e-3
+
+
+def rwkv_inputs(torch, B, H, T, Dh, dtype, nonzero_state, gen, dev,
+                layout="packed"):
+    """r, k, v, w, u, state drawn as the JAX package's kernel test draws
+    them: k and v by 0.3, sigmoid decays, u and the state by 0.1.  In the
+    "model" layout r, k, v, w are (B, T, H, Dh) buffers viewed as
+    (B, H, T, Dh)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt = getattr(torch, dtype)
+    r = randn(B, H, T, Dh).to(dt)
+    k = (randn(B, H, T, Dh) * 0.3).to(dt)
+    v = (randn(B, H, T, Dh) * 0.3).to(dt)
+    w = torch.sigmoid(randn(B, H, T, Dh)).to(dt)
+    u = randn(H, Dh) * 0.1
+    state = randn(B, H, Dh, Dh) * 0.1 if nonzero_state else \
+        torch.zeros((B, H, Dh, Dh), device=dev)
+    if layout == "model":
+        r, k, v, w = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                      for x in (r, k, v, w))
+    return r, k, v, w, u, state
+
+
+def rwkv_phase(torch, dev, sq):
+    """Phase 7: serve rwkv6_1_6b at full width through the RWKV6 kernel and
+    hold it against its plain twin.  Returns (the kernel's row, report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as rk
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cb.get("rwkv6_1_6b")
+    B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    out = {}
+    t_phase = time.perf_counter()
+
+    # the path a user calls, with the launch counts zeroed just before and
+    # read just after
+    sq.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = serve.main(list(RWKV_ARGV))
+    torch.cuda.synchronize()
+    out["main_wall_s"] = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in sq.KERNELS.items()}
+    zero = dict.fromkeys(sq.KERNELS, 0)
+    check(launches == dict(zero, rwkv6_scan=cfg.n_layers),
+          f"serving rwkv6_1_6b launched {launches} for {cfg.n_layers} RWKV "
+          "layers")
+    check(g.launches == {"prefill": dict(zero, rwkv6_scan=cfg.n_layers),
+                         "decode": zero},
+          f"kernel launches by phase: {g.launches}")
+    check(tuple(g.ids.shape) == (B, GEN)
+          and bool(((g.ids >= 0) & (g.ids < cfg.vocab)).all()),
+          f"generated ids of shape {tuple(g.ids.shape)} out of range")
+    check(bool(torch.isfinite(g.prefill_logits.float()).all()),
+          "non-finite prefill logits")
+    out.update(launches=launches, first_prefill_s=g.prefill_s,
+               first_decode_tok_per_s=B * (GEN - 1) / g.decode_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               ids_lane0=g.ids[0].tolist())
+    print(f"serve_rwkv: rwkv6_1_6b {B}x{S} + {GEN} tokens through "
+          f"serve.main: {launches['rwkv6_scan']} rwkv6_scan launches "
+          f"(prefill {g.launches['prefill']['rwkv6_scan']}, decode "
+          f"{g.launches['decode']['rwkv6_scan']}); first prefill "
+          f"{g.prefill_s:.4f} s, decode {out['first_decode_tok_per_s']:.1f} "
+          f"tok/s; peak {out['peak_gib']:.2f} GiB; lane 0 ids "
+          f"{out['ids_lane0']}", flush=True)
+    del g
+
+    # the same weights again, warm; then through the plain twin
+    params = tfm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.as_tensor(batch_for(cfg, 0, B, S)["tokens"], device=dev)
+    serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    warm = serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    check(bool(torch.isfinite(warm.prefill_logits.float()).all()),
+          "non-finite prefill logits (warm)")
+    ops.set_impl("ref")
+    try:
+        plain = serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    finally:
+        ops.set_impl(None)
+    out.update(
+        prefill_s=warm.prefill_s,
+        decode_tok_per_s=B * (GEN - 1) / warm.decode_s,
+        plain_prefill_s=plain.prefill_s,
+        greedy_agreement=float((plain.ids == warm.ids).float().mean()),
+        bf16_logits_max_abs_diff=float(
+            (plain.prefill_logits.float()
+             - warm.prefill_logits.float()).abs().max()))
+    print(f"serve_rwkv (warm): prefill {out['prefill_s']:.4f} s, decode "
+          f"{out['decode_tok_per_s']:.1f} tok/s; plain path prefill "
+          f"{out['plain_prefill_s']:.4f} s; greedy bf16 ids agree on "
+          f"{100 * out['greedy_agreement']:.2f} % (not gated), last logits "
+          f"max abs diff {out['bf16_logits_max_abs_diff']:.4g}", flush=True)
+    out["traced"] = {
+        k: traced_generate(torch, serve, params, cfg, tokens, gen,
+                           "rwkv6_kernel")
+        for k, gen in (("prefill", 1), ("prefill_and_3_steps", 4))}
+    for k, t in out["traced"].items():
+        print(f"serve_rwkv (traced, {k}): device busy "
+              f"{t['device_busy_ms']:.2f} ms of {t['wall_ms']:.2f} ms wall "
+              f"({100 * t['device_busy_share']:.1f} %), {t['launches']} "
+              f"kernel launches, rwkv6_scan {t['kernel_ms']:.3f} ms "
+              f"({100 * t['kernel_share_of_device']:.1f} % of device "
+              f"time); top: {t['top'][:5]}", flush=True)
+    del params, warm, plain
+
+    # the full model in float32 at batch 2: kernel against the plain path,
+    # the prefill, then 3 decode steps from each prefill's own state
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params = tfm.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {"tokens": tokens[:2]}
+    steps = torch.as_tensor(batch_for(cfg, 1, 2, 3)["tokens"], device=dev)
+    logits = {}
+    with torch.inference_mode():
+        for impl in (None, "ref"):
+            ops.set_impl(impl)
+            try:
+                last, state = tfm.prefill(params, cfg32, batch, S + 3)
+                seq = [last]
+                for t in range(3):
+                    step, state = tfm.decode_step(params, cfg32, state,
+                                                  steps[:, t])
+                    seq.append(step)
+            finally:
+                ops.set_impl(None)
+            logits[impl] = (seq, state)
+    torch.cuda.synchronize()
+    (k_seq, k_state), (r_seq, r_state) = logits[None], logits["ref"]
+    errs = [float((a - b).abs().max()) for a, b in zip(k_seq, r_seq)]
+    out.update(f32_logits_max_abs_err=errs[0],
+               f32_decode_max_abs_err=max(errs[1:]),
+               f32_logits_max_abs=float(r_seq[0].abs().max()),
+               f32_state_max_abs_err=float(
+                   (k_state.caches[0]["rwkv_state"]
+                    - r_state.caches[0]["rwkv_state"]).abs().max()))
+    check(all(bool(torch.isfinite(a).all()) and within(a, b, RWKV_F32_TOL)
+              for a, b in zip(k_seq, r_seq)),
+          f"float32 rwkv6_1_6b: kernel and plain logits differ by {errs} "
+          f"(prefill, 3 decode steps; beyond {RWKV_F32_TOL})")
+    print(f"serve_rwkv (float32, 2x{S}): kernel against plain path, "
+          f"last-position logits max abs err {errs[0]:.3g}, 3 decode steps "
+          f"{max(errs[1:]):.3g} (atol = rtol = {RWKV_F32_TOL}; |logit| <= "
+          f"{out['f32_logits_max_abs']:.3f}); state after decoding "
+          f"{out['f32_state_max_abs_err']:.3g}", flush=True)
+    del params, logits, k_seq, r_seq, k_state, r_state
+
+    # the kernel against its twin, call by call, output and final state
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {}
+    for label, b, h, t, dh, dtype, nonzero, layout in RWKV_CASES:
+        args = rwkv_inputs(torch, b, h, t, dh, dtype, nonzero, gen, dev,
+                           layout)
+        got, got_state = rk.rwkv6(*args)
+        want, want_state = rk.plain(*args)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        errs[label] = float((got.float() - want.float()).abs().max())
+        state_err = float((got_state - want_state).abs().max())
+        check(got.dtype == args[0].dtype
+              and got.stride() == args[0].stride()
+              and within(got, want, tol)
+              and within(got_state, want_state, RWKV_STATE_TOL),
+              f"rwkv6_scan {label}: max abs err {errs[label]} (tol {tol}), "
+              f"state {state_err} (tol {RWKV_STATE_TOL}), out strides "
+              f"{got.stride()} for input strides {args[0].stride()}")
+        print(f"  rwkv6 {label:12s} B={b} H={h} T={t} Dh={dh} {dtype} "
+              f"{layout} state={'random' if nonzero else 'zero'}: max abs err "
+              f"{errs[label]:.3g} (tol {tol}), state {state_err:.3g} (tol "
+              f"{RWKV_STATE_TOL})", flush=True)
+    out["rwkv_errors"] = errs
+
+    # its time at the serving shape, in the model's layout (the main
+    # path's) and packed, beside the twin's; no single PyTorch call
+    # computes the recurrence, so there is no library time
+    b, h, t, dh = B, cfg.n_heads, S, cfg.head_dim
+    timed = {}
+    for layout in ("model", "packed"):
+        args = rwkv_inputs(torch, b, h, t, dh, "bfloat16", False, gen, dev,
+                           layout)
+        ms = cuda_time_ms(lambda i: rk.rwkv6(*args), 50, torch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                rk.rwkv6(*args)
+            torch.cuda.synchronize()
+        timed[layout] = dict(ms=ms,
+                             device_us=kernel_device_us(prof, "rwkv6_kernel"))
+    plain_ms = cuda_time_ms(lambda i: rk.plain(*args), 3, torch)
+    # per (b, h, t), an FMA counted as two: out_d = sum_k r_k S_kd
+    # + v_d a_t and S_kd <- w_k S_kd + k_k v_d take 5 Dh^2 operations, the
+    # scalar a_t = sum_k r_k u_k k_k and its term of out 5 Dh more; r, k,
+    # v, w read and out written once, u read, the state in and out
+    ops_n = (5 * dh * dh + 5 * dh) * b * h * t
+    nbytes = (5 * args[0].numel() * args[0].element_size()
+              + args[4].numel() * 4 + 2 * args[5].numel() * 4)
+    bnd, by = bound_ms(nbytes, ops_n)
+    ms, dev_us = timed["model"]["ms"], timed["model"]["device_us"]
+    out["rwkv_timed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                             device_us=dev_us,
+                             packed_ms=timed["packed"]["ms"],
+                             packed_device_us=timed["packed"]["device_us"],
+                             ops=ops_n, bytes=nbytes, bound_ms=bnd,
+                             bound_by=by, gops=ops_n / ms / 1e6)
+    for layout, tm in timed.items():
+        du = tm["device_us"]
+        print(f"rwkv6_scan at {b}x{h}x{t}x{dh} bf16, {layout} layout: "
+              f"{tm['ms']:.4f} ms a call ({ops_n / tm['ms'] / 1e9:.3f} "
+              f"TFLOP/s, {tm['ms'] / bnd:.2f}x its bound; device "
+              f"{f'{du:.1f} us' if du else 'time not measured'})",
+              flush=True)
+    print(f"rwkv6_scan bound {bnd:.5f} ms ({by}; {ops_n} operations, "
+          f"{nbytes} bytes), twin {plain_ms:.4f} ms, no library call",
+          flush=True)
+    row = dict(name="rwkv6_scan", route="cuda",
+               source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+               replaces=sq.KERNELS["rwkv6_scan"].replaces,
+               launches=launches["rwkv6_scan"],
+               max_abs_err=errs["serve_model"], ms=ms, plain_ms=plain_ms,
+               bound_ms=bnd, bound_by=by, library_ms=None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"rwkv serving phase took {out['phase_s']:.1f} s", flush=True)
     return row, out
 
 
@@ -387,6 +689,7 @@ def run(torch) -> int:
                                         tree_map)
     from repro_torch.core.taskgraph import build as build_graph
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rk
     from repro_torch.kernels import sched_queue as sq
     from repro_torch.kernels import sched_step as ss
 
@@ -398,10 +701,10 @@ def run(torch) -> int:
 
     # 1. build the kernels: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(fn) for name, fn in
                   (("sched_queue", sq.build), ("sched_step", ss.build),
-                   ("flash_attention", fa.build))}
+                   ("flash_attention", fa.build), ("rwkv6_scan", rk.build))}
         logs = {name: f.result() for name, f in builds.items()}
     report["build_s"] = time.perf_counter() - t0
     for name, (path, log) in logs.items():
@@ -782,6 +1085,10 @@ def run(torch) -> int:
     # 6. this slice's path: serving gemma2_2b at full width
     flash_row, report["serve"] = serve_phase(torch, dev, sq)
     kernels.append(flash_row)
+
+    # 7. this slice's path: serving rwkv6_1_6b at full width
+    rwkv_row, report["serve_rwkv"] = rwkv_phase(torch, dev, sq)
+    kernels.append(rwkv_row)
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -799,6 +1106,11 @@ def run(torch) -> int:
         "prefill_s", "decode_tok_per_s", "first_prefill_s",
         "first_decode_tok_per_s", "f32_logits_max_abs_err",
         "greedy_agreement")}}))
+    print(json.dumps({"serve_rwkv": {k: report["serve_rwkv"][k] for k in (
+        "prefill_s", "decode_tok_per_s", "first_prefill_s",
+        "first_decode_tok_per_s", "plain_prefill_s",
+        "f32_logits_max_abs_err", "f32_decode_max_abs_err",
+        "greedy_agreement", "peak_gib")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

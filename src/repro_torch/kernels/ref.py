@@ -1,5 +1,6 @@
-"""Plain PyTorch references (oracles) for the model stack's attention: the
-port of the attention part of the JAX package's ``kernels/ref.py``.
+"""Plain PyTorch references (oracles) for the model stack's kernels: the
+port of the attention and RWKV6 parts of the JAX package's
+``kernels/ref.py``.
 
 ``flash_attention`` is the plain twin of the hand-written CUDA kernel of
 :mod:`repro_torch.kernels.flash_attention`: the CPU path, and what the
@@ -13,6 +14,13 @@ Layout: q ``(B, H, S, Dh)``; k, v ``(B, KV, S, Dh)``; GQA via
 
 The chunked backward (the reference's ``_attn_bwd``) belongs to training
 and is not ported yet.
+
+``rwkv6_chunked`` is the plain twin of the RWKV6-recurrence kernel of
+:mod:`repro_torch.kernels.rwkv6_scan`; ``rwkv6_naive`` is the step-by-step
+oracle and ``rwkv6_decode`` the one-token step (no kernel in either
+package).  All three compute in float32 and return ``out`` in ``r.dtype``
+and the state in float32.  Layout: r, k, v, w ``(B, H, T, Dh)``; u
+``(H, Dh)``; the state ``(B, H, Dh, Dh)`` maps key dim to value dim.
 """
 
 from __future__ import annotations
@@ -125,3 +133,62 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=0, softcap=None):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrk,bgkd->bgrd", p, v_cache.float())
     return out.reshape(B, H, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): data-dependent per-channel decay linear attention
+# ---------------------------------------------------------------------------
+
+def _rwkv6_step(s, rt, kt, vt, wt, u):
+    """One step on (B, H, Dh) float32 rows: ``out = r (S + diag(u) k^T v)``,
+    ``S <- diag(w) S + k^T v``.  Returns (S, out)."""
+    kv = kt[..., :, None] * vt[..., None, :]               # (B, H, Dh, Dh)
+    out = torch.einsum("bhk,bhkd->bhd", rt, s + u[None, :, :, None] * kv)
+    return wt[..., :, None] * s + kv, out
+
+
+def _rwkv6_steps(rf, kf, vf, wf, uf, s):
+    outs = []
+    for t in range(rf.shape[2]):
+        s, out = _rwkv6_step(s, rf[:, :, t], kf[:, :, t], vf[:, :, t],
+                             wf[:, :, t], uf)
+        outs.append(out)
+    return s, torch.stack(outs, dim=2)
+
+
+def rwkv6_naive(r, k, v, w, u, state):
+    """Step-by-step oracle, any T.  Returns (out (B, H, T, Dh) in
+    ``r.dtype``, state (B, H, Dh, Dh) float32)."""
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    state, out = _rwkv6_steps(rf, kf, vf, wf, u.float(), state.float())
+    return out.to(r.dtype), state
+
+
+def rwkv6_chunked(r, k, v, w, u, state, chunk=64):
+    """The recurrence in ``T // C`` chunks of ``C = min(chunk, T)`` steps,
+    as the reference chunks it (the sequential form inside each chunk, so
+    it equals ``rwkv6_naive``).  A T that is longer than the chunk and not
+    a multiple of it raises ``ValueError`` (the reference fails on a
+    reshape there)."""
+    T = r.shape[2]
+    C = min(chunk, T)
+    if C < 1 or T % C:
+        raise ValueError(f"T = {T} is not a multiple of the chunk {C}")
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    s = state.float()
+    outs = []
+    for i in range(T // C):
+        part = slice(i * C, (i + 1) * C)
+        s, out = _rwkv6_steps(rf[:, :, part], kf[:, :, part],
+                              vf[:, :, part], wf[:, :, part], uf, s)
+        outs.append(out)
+    return torch.cat(outs, dim=2).to(r.dtype), s
+
+
+def rwkv6_decode(r, k, v, w, u, state):
+    """One-token RWKV6 step.  r/k/v/w: (B, H, Dh); state: (B, H, Dh, Dh).
+    Returns (out in ``r.dtype``, new state float32)."""
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    new, out = _rwkv6_step(state.float(), rf, kf, vf, wf, u.float())
+    return out.to(r.dtype), new

@@ -62,14 +62,16 @@ class Kernel:
 
 
 #: every hand-written kernel of the package, with its launch count (the
-#: fused step of :mod:`repro_torch.kernels.sched_step` and the attention
-#: forward of :mod:`repro_torch.kernels.flash_attention` included)
+#: fused step of :mod:`repro_torch.kernels.sched_step`, the attention
+#: forward of :mod:`repro_torch.kernels.flash_attention` and the RWKV6
+#: recurrence of :mod:`repro_torch.kernels.rwkv6_scan` included)
 KERNELS = {k.name: k for k in (
     Kernel("ctr_add", "src/repro/kernels/sched_queue.py:54"),
     Kernel("push", "src/repro/kernels/sched_queue.py:108"),
     Kernel("pop_first", "src/repro/kernels/sched_queue.py:144"),
     Kernel("sched_step", "src/repro/kernels/sched_step.py:121"),
     Kernel("flash_attention", "src/repro/kernels/flash_attention.py:105"),
+    Kernel("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:67"),
 )}
 #: the three kernels of this module's source
 QUEUE_KERNELS = ("ctr_add", "push", "pop_first")

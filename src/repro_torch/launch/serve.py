@@ -1,15 +1,21 @@
-"""Serving driver: prefill a batch of prompts, then greedy KV-cache decode.
-The port of the JAX package's ``launch/serve.py`` (its single-replica loop;
-the ``--production`` mesh is distributed work and is not ported).
+"""Serving driver: prefill a batch of prompts, then greedy decode (KV
+caches for attention stacks, the O(1) state for RWKV6).  The port of the
+JAX package's ``launch/serve.py`` (its single-replica loop; the
+``--production`` mesh is distributed work and is not ported).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_2b \\
       --smoke --batch 4 --prompt-len 48 --gen 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1_6b \\
+      --smoke --device cpu
 
 Without ``--device`` it runs on the CUDA device and raises when there is
-none.  On the card, every attention layer of the prefill goes through the
-hand-written flash-attention kernel (``kernels/csrc/flash_attention.cu``);
-decoding uses the plain ``decode_attention`` op, as in the JAX package.
-Weights are random, drawn from ``--seed``.
+none.  On the card, the prefill goes through the hand-written kernels:
+every attention layer through the flash-attention kernel
+(``kernels/csrc/flash_attention.cu``), every RWKV layer through the
+RWKV6-recurrence kernel (``kernels/csrc/rwkv6_scan.cu``).  Decoding uses
+the plain ops (``decode_attention``, ``rwkv6_decode``), as in the JAX
+package.  ``Generation.launches`` counts every kernel of the package, by
+name, in each phase.  Weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,11 @@ class Generation(NamedTuple):
     prefill_logits: torch.Tensor  # (B, vocab) logits of the last prompt slot
     prefill_s: float              # wall seconds of prefill + first argmax
     decode_s: float               # wall seconds of the gen - 1 decode steps
-    launches: dict                # flash-attention launches per phase
+    launches: dict                # {phase: {kernel name: launches}}
+
+
+def _launches() -> dict:
+    return {name: k.launches for name, k in sq.KERNELS.items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -47,15 +57,14 @@ def generate(params, cfg: cb.ModelConfig, batch: dict, gen: int
     steps: ``gen`` new tokens per lane, the first from the prefill."""
     tokens = batch["tokens"]
     device = tokens.device
-    flash = sq.KERNELS["flash_attention"]
-    n0 = flash.launches
+    n0 = _launches()
     _sync(device)
     t0 = time.perf_counter()
     logits, state = tfm.prefill(params, cfg, batch, tokens.shape[1] + gen)
     tok = torch.argmax(logits, -1).to(torch.int32)
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    n1 = flash.launches
+    n1 = _launches()
     outs = [tok]
     t0 = time.perf_counter()
     for _ in range(gen - 1):
@@ -64,10 +73,11 @@ def generate(params, cfg: cb.ModelConfig, batch: dict, gen: int
         outs.append(tok)
     _sync(device)
     decode_s = time.perf_counter() - t0
+    n2 = _launches()
     return Generation(ids=torch.stack(outs, dim=1), prefill_logits=logits,
                       prefill_s=prefill_s, decode_s=decode_s,
-                      launches={"prefill": n1 - n0,
-                                "decode": flash.launches - n1})
+                      launches={"prefill": {k: n1[k] - n0[k] for k in n0},
+                                "decode": {k: n2[k] - n1[k] for k in n0}})
 
 
 def main(argv=None) -> Generation:

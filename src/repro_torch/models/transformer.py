@@ -1,5 +1,5 @@
-"""The dense decoder stack: the port of the dense part of the JAX package's
-``models/transformer.py``.
+"""The decoder stack: the port of the dense and RWKV parts of the JAX
+package's ``models/transformer.py``.
 
 Layers are grouped into a repeating *pattern* of P block kinds (gemma2:
 (local, full)); parameters are stacked per pattern position with a leading
@@ -22,8 +22,9 @@ Public API:
   init_decode_state(cfg, B, max_len, dev)   -> DecodeState (zeros)
   decode_step(params, cfg, state, tokens)   -> (logits, DecodeState)
 
-Only dense attention stacks are ported: configs with MoE layers, RWKV
-blocks, SSM heads or a modality frontend raise ``NotImplementedError``
+Dense attention stacks and RWKV6 stacks (``family == "ssm"``: one block
+kind, time mix and channel mix, O(1) decode state) are ported; configs with
+MoE layers, SSM heads or a modality frontend raise ``NotImplementedError``
 naming the ROADMAP item that ports them.  ``loss_fn`` waits for training.
 """
 
@@ -37,7 +38,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, rwkv
 
 AUX_KEYS = ("lb_loss", "ntasks_static", "ntasks_stolen_local",
             "ntasks_stolen_remote", "ntasks_dropped", "max_load")
@@ -66,10 +67,6 @@ def pattern(cfg: ModelConfig):
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family this port does not run
     yet."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: RWKV blocks are not ported yet (ROADMAP §1 item "
-            "6, rwkv6_1_6b serving)")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP §1 item 7, "
@@ -122,9 +119,12 @@ def _block_init(cfg: ModelConfig, kind: BlockKind, n: int, generator,
     def zeros():
         return torch.zeros((n, D), dtype=cfg.pdtype, device=device)
 
-    p = {"ln1": zeros(), "ln2": zeros(),
-         "attn": layers.attn_init(cfg, generator, device, lead=(n,)),
-         "mlp": layers.mlp_init(cfg, cfg.d_ff, generator, device, lead=(n,))}
+    p = {"ln1": zeros(), "ln2": zeros()}
+    if kind.rwkv:
+        p["rwkv"] = rwkv.rwkv_init(cfg, generator, device, lead=(n,))
+        return p
+    p["attn"] = layers.attn_init(cfg, generator, device, lead=(n,))
+    p["mlp"] = layers.mlp_init(cfg, cfg.d_ff, generator, device, lead=(n,))
     if cfg.post_block_norms:
         p["pln1"] = zeros()
         p["pln2"] = zeros()
@@ -204,8 +204,19 @@ def _zero_aux(device):
 
 
 def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind):
-    """Prefill block.  Returns (x, cache_src): the k/v decode needs."""
+    """Prefill block.  Returns (x, cache_src): what decode needs (k/v, or
+    the RWKV state and token-shift tails, already final)."""
     h = layers.rmsnorm(bp["ln1"], x)
+    if kind.rwkv:
+        state0 = torch.zeros((x.shape[0], cfg.n_heads, cfg.head_dim,
+                              cfg.head_dim), dtype=torch.float32,
+                             device=x.device)
+        a, state, tail = rwkv.time_mix(bp["rwkv"], h, cfg, state0)
+        x = x + a
+        m, tail2 = rwkv.channel_mix(bp["rwkv"],
+                                    layers.rmsnorm(bp["ln2"], x))
+        return x + m, {"rwkv_state": state, "tm_last": tail,
+                       "cm_last": tail2}
     a, (kt, vt) = layers.attn_apply(bp["attn"], h, cfg, kind.attn)
     if cfg.post_block_norms:
         a = layers.rmsnorm(bp["pln1"], a)
@@ -245,7 +256,8 @@ def _logits(params, cfg: ModelConfig, x):
 def forward(params, cfg: ModelConfig, batch, *, collect_cache=False):
     """Full-sequence forward.  Returns (logits, aux[, cache_srcs]): aux is
     the JAX package's MoE counters, all zero for a dense stack; cache_srcs
-    holds per pattern position the stacked ``(n, B, KV, S, Dh)`` k and v."""
+    holds per pattern position the stacked ``(n, B, KV, S, Dh)`` k and v,
+    or the stacked RWKV states and tails."""
     check_ported(cfg)
     kinds = pattern(cfg)
     x = _embed_inputs(params, cfg, batch)
@@ -261,7 +273,7 @@ def forward(params, cfg: ModelConfig, batch, *, collect_cache=False):
     aux = _zero_aux(logits.device)
     if collect_cache:
         return logits, aux, tuple(
-            {k: torch.stack([s[k] for s in per]) for k in ("k", "v")}
+            {k: torch.stack([s[k] for s in per]) for k in per[0]}
             for per in srcs)
     return logits, aux
 
@@ -282,6 +294,16 @@ def init_decode_state(cfg: ModelConfig, B: int, max_len: int,
     n = cfg.n_layers // len(kinds)
     caches = []
     for kind in kinds:
+        if kind.rwkv:
+            H, dh, D = cfg.n_heads, cfg.head_dim, cfg.d_model
+            caches.append({
+                "rwkv_state": torch.zeros((n, B, H, dh, dh),
+                                          dtype=torch.float32, device=device),
+                "tm_last": torch.zeros((n, B, D), dtype=cfg.cdtype,
+                                       device=device),
+                "cm_last": torch.zeros((n, B, D), dtype=cfg.cdtype,
+                                       device=device)})
+            continue
         c = layers.attn_cache_init(cfg, kind.attn, B, max_len, device=device)
         caches.append({f: getattr(c, f)[None].repeat(
             (n,) + (1,) * getattr(c, f).dim()) for f in CACHE_KEYS})
@@ -300,6 +322,9 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int):
     S = batch["tokens"].shape[1]
     caches = []
     for kind, src in zip(kinds, srcs):
+        if kind.rwkv:
+            caches.append(src)    # the states are already final
+            continue
         per_layer = [layers.attn_cache_from_prefill(
             cfg, kind.attn, src["k"][i], src["v"][i], max_len)
             for i in range(src["k"].shape[0])]
@@ -314,6 +339,17 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int):
 
 def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length):
     h = layers.rmsnorm(bp["ln1"], x)
+    if kind.rwkv:
+        a, st, tail = rwkv.time_mix_decode(bp["rwkv"], h, cfg,
+                                           cache["rwkv_state"],
+                                           cache["tm_last"])
+        x = x + a
+        h2 = layers.rmsnorm(bp["ln2"], x)
+        m, tail2 = rwkv.channel_mix_decode(bp["rwkv"], h2, cache["cm_last"])
+        cache["rwkv_state"].copy_(st)
+        cache["tm_last"].copy_(tail)
+        cache["cm_last"].copy_(tail2)
+        return x + m
     ac = layers.AttnCache(*(cache[f] for f in CACHE_KEYS))
     a, _ = layers.attn_decode(bp["attn"], h, cfg, kind.attn, ac, length)
     if cfg.post_block_norms:
@@ -329,8 +365,9 @@ def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length):
 def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens):
     """One autoregressive step.  tokens: (B,) int.  Returns (logits,
     state).  The caches of ``state`` are updated in place (see
-    :func:`repro_torch.models.layers.attn_decode`); the returned state
-    holds the same cache tensors and the advanced lengths."""
+    :func:`repro_torch.models.layers.attn_decode`; RWKV states and tails
+    alike); the returned state holds the same cache tensors and the
+    advanced lengths."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
     check_ported(cfg)

@@ -1,7 +1,7 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 PyTorch twin at the main path's width, the golden cases bitwise on the
 ``cuda`` and ``cuda_fused`` backends and through the sweep service, and
-smoke-config serving on the card against the CPU.  Every
+smoke-config serving (gemma2 and rwkv6) on the card against the CPU.  Every
 test skips without a card (the kernels have no CPU mode); on one, run them
 with
 
@@ -30,6 +30,7 @@ from repro_torch.core.taskgraph import build as build_graph  # noqa: E402
 from repro_torch.configs import base as cb  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
 from repro_torch.kernels import sched_queue as sq  # noqa: E402
 from repro_torch.kernels import sched_step as ss  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -237,8 +238,126 @@ def test_smoke_serving_on_the_card_matches_the_cpu():
     cpu = serve.generate(params, cfg, {"tokens": tok}, 12)
     sq.reset_launches()
     card = serve.generate(params.cuda(), cfg, {"tokens": tok.cuda()}, 12)
-    assert card.launches == {"prefill": cfg.n_layers, "decode": 0}
+    assert card.launches["prefill"] == dict(
+        dict.fromkeys(sq.KERNELS, 0), flash_attention=cfg.n_layers)
+    assert card.launches["decode"] == dict.fromkeys(sq.KERNELS, 0)
     assert sq.KERNELS["flash_attention"].launches == cfg.n_layers
+    torch.testing.assert_close(card.prefill_logits.cpu(),
+                               cpu.prefill_logits, atol=1e-4, rtol=1e-4)
+    assert torch.equal(card.ids.cpu(), cpu.ids)
+
+
+#: (B, H, T, Dh, dtype, initial state): the serving shape, a float32 run
+#: from a nonzero state with sigmoid decays, a ragged T, one step, the
+#: small heads and a long sequence
+RWKV_SHAPES = {
+    "serve_bf16": (1, 32, 1024, 64, "bfloat16", False),
+    "f32_state": (2, 4, 256, 64, "float32", True),
+    "ragged_1000": (1, 8, 1000, 64, "bfloat16", True),
+    "one_step": (2, 8, 1, 64, "float32", True),
+    "dh16": (2, 4, 96, 16, "float32", True),
+    "dh32": (2, 2, 128, 32, "bfloat16", True),
+    "long_8192": (1, 4, 8192, 64, "bfloat16", False),
+}
+
+
+def rwkv_inputs(B, H, T, Dh, dtype, nonzero_state, device, seed=0):
+    """r, k, v, w, u, state as the JAX package's kernel test draws them:
+    k and v scaled by 0.3, sigmoid decays, u and the state by 0.1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    dt = getattr(torch, dtype)
+    r = randn(B, H, T, Dh).to(dt)
+    k = (randn(B, H, T, Dh) * 0.3).to(dt)
+    v = (randn(B, H, T, Dh) * 0.3).to(dt)
+    w = torch.sigmoid(randn(B, H, T, Dh)).to(dt)
+    u = randn(H, Dh) * 0.1
+    state = randn(B, H, Dh, Dh) * 0.1 if nonzero_state else \
+        torch.zeros((B, H, Dh, Dh), device=device)
+    return r, k, v, w, u, state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(RWKV_SHAPES))
+def test_rwkv6_kernel_matches_its_twin(shape):
+    """The CUDA RWKV6 recurrence against its plain twin, output and final
+    state, one launch per call; 2e-2 (atol and rtol) on bf16 outputs,
+    1e-4 on float32 outputs and on every final state."""
+    _need_card()
+    B, H, T, Dh, dtype, nonzero = RWKV_SHAPES[shape]
+    args = rwkv_inputs(B, H, T, Dh, dtype, nonzero, "cuda")
+    sq.reset_launches()
+    out, state = rk.rwkv6(*args)
+    torch.cuda.synchronize()
+    assert sq.KERNELS["rwkv6_scan"].launches == 1
+    want, want_state = rk.plain(*args)      # rwkv6_naive on the ragged T
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    assert out.dtype == args[0].dtype and state.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 8, 200, 64), (2, 32, 1024, 64)])
+def test_rwkv6_kernel_reads_the_models_layout(shape):
+    """(B, T, H, Dh) buffers viewed as (B, H, T, Dh) go through the kernel
+    as they lie, and out comes back in the same layout, equal to the run
+    on packed copies and within 2e-2 of the twin."""
+    _need_card()
+    B, H, T, Dh = shape
+    r, k, v, w, u, state = rwkv_inputs(B, H, T, Dh, "bfloat16", True, "cuda")
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (r, k, v, w)]
+    assert not views[0].is_contiguous()
+    out, s = rk.rwkv6(*views, u, state)
+    packed, s_packed = rk.rwkv6(r, k, v, w, u, state)
+    want, want_state = rk.plain(*views, u, state)
+    torch.cuda.synchronize()
+    assert out.stride() == views[0].stride()
+    assert torch.equal(out, packed) and torch.equal(s, s_packed)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(s, want_state, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="one layout"):
+        rk.rwkv6(views[0], k, v, w, u, state)
+
+
+def _rwkv_smoke_params(cfg):
+    """Smoke rwkv6 weights with the token-shift mixes, norms and decay base
+    drawn away from their zero / constant init, so that every path of the
+    block is exercised."""
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(7)
+    for name, p in params.named_parameters():
+        leaf = name.split(".")[-1]
+        if leaf.startswith("mu_") or leaf in ("cm_mu", "ln_x", "ln1", "ln2"):
+            p.copy_(torch.rand(p.shape, generator=gen))
+        elif leaf == "w_base":
+            p.add_(torch.randn(p.shape, generator=gen))
+    return params
+
+
+@pytest.mark.gpu
+def test_smoke_rwkv_serving_on_the_card_matches_the_cpu():
+    """rwkv6 smoke weights served on the card and on the CPU: the same
+    greedy ids and close prefill logits; one kernel launch per RWKV layer
+    of the prefill and none while decoding."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cb.smoke_config("rwkv6_1_6b")
+    params = _rwkv_smoke_params(cfg)
+    tok = torch.randint(0, cfg.vocab, (3, 40),
+                        generator=torch.Generator().manual_seed(1))
+    cpu = serve.generate(params, cfg, {"tokens": tok}, 12)
+    sq.reset_launches()
+    card = serve.generate(params.cuda(), cfg, {"tokens": tok.cuda()}, 12)
+    assert cfg.n_layers == 2
+    assert card.launches["prefill"] == dict(
+        dict.fromkeys(sq.KERNELS, 0), rwkv6_scan=2)
+    assert card.launches["decode"] == dict.fromkeys(sq.KERNELS, 0)
     torch.testing.assert_close(card.prefill_logits.cpu(),
                                cpu.prefill_logits, atol=1e-4, rtol=1e-4)
     assert torch.equal(card.ids.cpu(), cpu.ids)

@@ -66,6 +66,7 @@ def test_import_and_cpu_run_leave_jax_and_repro_unloaded():
         "assert s.completed.all(), s\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.models.transformer\n"
+        "import repro_torch.models.rwkv, repro_torch.kernels.rwkv6_scan\n"
         "from repro_torch.launch import serve\n"
         "g = serve.main(['--smoke', '--batch', '1', '--prompt-len', '8', "
         "'--gen', '2', '--device', 'cpu'])\n"

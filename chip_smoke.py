@@ -5,7 +5,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 In order, it
 1. prints the card's name and power limit (nvidia-smi), then builds the
-   port's four CUDA sources from ``src/repro_torch/kernels/csrc`` with
+   port's five CUDA sources from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together, timing the build and
    printing the compiler's register report;
 2. reproduces the 10 cases of ``tests/golden_modes.json`` bitwise on the
@@ -54,7 +54,22 @@ In order, it
    decode steps from each prefill's own state, within 1e-3), the kernel
    against its twin per call (output and final state) at the serving shape
    and six more, and its time beside the twin's and its bound;
-8. prints the ``kernels`` JSON line, the end-to-end rates, the card line
+8. runs the fifth slice's path, serving moonshot_v1_16b_a3b at full width
+   (48 MoE layers of 64 experts, top-6, NA-RP routing, d_model 2048, 16
+   heads of 128, vocab 163840, int8 KV cache; random bf16 weights made on
+   the card from seed 0, every earlier model freed first): ``serve.main``
+   with batch 4, prompt 1024, 32 new tokens, launch counts zeroed just
+   before and read just after (48 ``flash_attention`` and 48
+   ``moe_dispatch`` launches in the prefill, 48 ``moe_dispatch`` a decode
+   step, no other kernel), finite logits, the peak memory; then the same
+   weights timed warm, a traced prefill and a traced prefill with 3 decode
+   steps, the routing counters of the prefill's layers, the prefill logits
+   and 3 decode steps with only the dispatch swapped for its plain twin
+   (bitwise equal: the kernel only moves data), the kernel against its
+   twin per call, bitwise, at the model's own layer-0 routing and seven
+   more shapes, and its time beside the twin's, one ``index_put_`` call's
+   and its bound;
+9. prints the ``kernels`` JSON line, the end-to-end rates, the card line
    and last the device line.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
@@ -169,6 +184,7 @@ FLASH_CASES = (
     ("ragged_64", 2, 4, 2, 1000, 64, "bfloat16", 0, None),
     ("ragged_128", 2, 4, 2, 1000, 128, "float32", 300, None),
     ("small_f32", 2, 4, 4, 96, 16, "float32", 0, 20.0),
+    ("moonshot", 4, 16, 16, 1024, 128, "bfloat16", 0, None),
 )
 #: atol = rtol per output type: bf16 rounds at 2^-8, float32 only sums in
 #: another order
@@ -189,7 +205,8 @@ def kernel_device_us(prof, key: str):
 def traced_generate(torch, serve, params, cfg, tokens, gen, kernel_key):
     """One ``serve.generate`` under the profiler: device busy time and
     share of the wall time, kernel launches, the device time of the
-    kernel whose name holds ``kernel_key``, and the largest device ops."""
+    kernels whose names hold ``kernel_key`` (one string or a tuple), and
+    the largest device ops."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -198,8 +215,9 @@ def traced_generate(torch, serve, params, cfg, tokens, gen, kernel_key):
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
+    keys = (kernel_key,) if isinstance(kernel_key, str) else kernel_key
     mine_us = sum(e.self_device_time_total for e in kern
-                  if kernel_key in e.key)
+                  if any(k in e.key for k in keys))
     wall_us = (run.prefill_s + run.decode_s) * 1e6
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
@@ -211,7 +229,7 @@ def traced_generate(torch, serve, params, cfg, tokens, gen, kernel_key):
              [:8]])
 
 
-def serve_phase(torch, dev, sq):
+def serve_phase(torch, dev, reg):
     """Phase 6: serve gemma2_2b at full width through the flash kernel and
     hold it against its plain twin.  Returns (the kernel's row, report)."""
     import torch.nn.functional as F
@@ -234,17 +252,17 @@ def serve_phase(torch, dev, sq):
 
     # the path a user calls, with the launch counts zeroed just before and
     # read just after
-    sq.reset_launches()
+    reg.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     g = serve.main(list(SERVE_ARGV))
     torch.cuda.synchronize()
     out["main_wall_s"] = time.perf_counter() - t0
-    launches = {k: v.launches for k, v in sq.KERNELS.items()}
+    launches = reg.launch_counts()
     check(launches["flash_attention"] == cfg.n_layers == 26,
           f"serving took {launches['flash_attention']} flash launches for "
           f"{cfg.n_layers} attention layers")
-    zero = dict.fromkeys(sq.KERNELS, 0)
+    zero = dict.fromkeys(reg.KERNELS, 0)
     check(g.launches == {"prefill": dict(zero, flash_attention=26),
                          "decode": zero},
           f"kernel launches by phase: {g.launches}")
@@ -389,7 +407,7 @@ def serve_phase(torch, dev, sq):
           f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-               replaces=sq.KERNELS["flash_attention"].replaces,
+               replaces=reg.KERNELS["flash_attention"].replaces,
                launches=launches["flash_attention"],
                max_abs_err=max(errs["serve_local"], errs["serve_full"]),
                ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
@@ -451,7 +469,7 @@ def rwkv_inputs(torch, B, H, T, Dh, dtype, nonzero_state, gen, dev,
     return r, k, v, w, u, state
 
 
-def rwkv_phase(torch, dev, sq):
+def rwkv_phase(torch, dev, reg):
     """Phase 7: serve rwkv6_1_6b at full width through the RWKV6 kernel and
     hold it against its plain twin.  Returns (the kernel's row, report)."""
     from torch.profiler import ProfilerActivity, profile
@@ -472,14 +490,14 @@ def rwkv_phase(torch, dev, sq):
 
     # the path a user calls, with the launch counts zeroed just before and
     # read just after
-    sq.reset_launches()
+    reg.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     g = serve.main(list(RWKV_ARGV))
     torch.cuda.synchronize()
     out["main_wall_s"] = time.perf_counter() - t0
-    launches = {k: v.launches for k, v in sq.KERNELS.items()}
-    zero = dict.fromkeys(sq.KERNELS, 0)
+    launches = reg.launch_counts()
+    zero = dict.fromkeys(reg.KERNELS, 0)
     check(launches == dict(zero, rwkv6_scan=cfg.n_layers),
           f"serving rwkv6_1_6b launched {launches} for {cfg.n_layers} RWKV "
           "layers")
@@ -654,12 +672,276 @@ def rwkv_phase(torch, dev, sq):
           flush=True)
     row = dict(name="rwkv6_scan", route="cuda",
                source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
-               replaces=sq.KERNELS["rwkv6_scan"].replaces,
+               replaces=reg.KERNELS["rwkv6_scan"].replaces,
                launches=launches["rwkv6_scan"],
                max_abs_err=errs["serve_model"], ms=ms, plain_ms=plain_ms,
                bound_ms=bnd, bound_by=by, library_ms=None)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"rwkv serving phase took {out['phase_s']:.1f} s", flush=True)
+    return row, out
+
+
+#: the serving run of phase 8: moonshot_v1_16b_a3b at full width, the same
+#: batch and lengths as gemma2_2b's and rwkv6_1_6b's
+MOE_ARGV = ("--arch", "moonshot_v1_16b_a3b", "--batch", str(SERVE_B),
+            "--prompt-len", str(SERVE_S), "--gen", str(SERVE_GEN),
+            "--seed", "0")
+#: the dispatch kernel against its twin beside the model's own layer-0
+#: routing: (label, T, D, k, E, C, dtype, token groups) — the decode shape,
+#: the prefill shape in float32, a T that is not a multiple of 256, top-1,
+#: a capacity small enough that most slots drop, two token groups (G * E =
+#: 128 buffers) and an odd row of 13 bf16 values (2-byte copies)
+MOE_CASES = (
+    ("decode", 4, 2048, 6, 64, 8, "bfloat16", 1),
+    ("f32", 4096, 2048, 6, 64, 480, "float32", 1),
+    ("ragged_1000", 1000, 2048, 6, 64, 120, "bfloat16", 1),
+    ("top1", 4096, 2048, 1, 64, 80, "bfloat16", 1),
+    ("tight", 4096, 2048, 6, 64, 48, "bfloat16", 1),
+    ("groups_2", 4096, 2048, 6, 64, 240, "bfloat16", 2),
+    ("odd_row", 1000, 13, 6, 64, 120, "bfloat16", 1),
+)
+#: the dispatch kernel's two CUDA kernels, as the profiler names them
+MOE_KERNEL_KEYS = ("map_rows", "copy_rows")
+
+
+def moe_inputs(torch, balance, T, D, k, E, C, dtype, G, gen, dev):
+    """x and the (virtual expert, pos) tables of an NA-RP routing of random
+    logits, as ``models.moe`` hands them to the dispatch."""
+    x = torch.randn((T, D), generator=gen, device=dev).to(
+        getattr(torch, dtype))
+    logits = torch.randn((T, E), generator=gen, device=dev) * 2.0
+    tg = torch.arange(T, dtype=torch.int32, device=dev) // (T // G)
+    r = balance.route(logits, k, C, balance.default_expert_groups(E, 16, dev),
+                      token_group=tg, n_token_groups=G)
+    ve = torch.where(r.expert >= 0, tg[:, None] * E + r.expert, -1)
+    return x, ve, r.pos
+
+
+def moe_phase(torch, dev, reg):
+    """Phase 8: serve moonshot_v1_16b_a3b at full width through the flash
+    and MoE-dispatch kernels and hold the dispatch against its plain twin.
+    Returns (the dispatch kernel's row, report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import base as cb
+    from repro_torch.core import balance
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as mref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cb.get("moonshot_v1_16b_a3b")
+    L = cfg.n_layers
+    B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["free_gib_at_start"] = torch.cuda.mem_get_info()[0] / 2**30
+
+    # the path a user calls, with the launch counts zeroed just before and
+    # read just after
+    reg.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = serve.main(list(MOE_ARGV))
+    torch.cuda.synchronize()
+    out["main_wall_s"] = time.perf_counter() - t0
+    launches = reg.launch_counts()
+    zero = dict.fromkeys(reg.KERNELS, 0)
+    check(launches == dict(zero, flash_attention=L,
+                           moe_dispatch=L * GEN),
+          f"serving moonshot launched {launches} for {L} MoE layers, "
+          f"{GEN - 1} decode steps")
+    check(g.launches == {
+        "prefill": dict(zero, flash_attention=L, moe_dispatch=L),
+        "decode": dict(zero, moe_dispatch=L * (GEN - 1))},
+          f"kernel launches by phase: {g.launches}")
+    check(tuple(g.ids.shape) == (B, GEN)
+          and bool(((g.ids >= 0) & (g.ids < cfg.vocab)).all()),
+          f"generated ids of shape {tuple(g.ids.shape)} out of range")
+    check(bool(torch.isfinite(g.prefill_logits.float()).all()),
+          "non-finite prefill logits")
+    out.update(launches=launches, first_prefill_s=g.prefill_s,
+               first_decode_tok_per_s=B * (GEN - 1) / g.decode_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               ids_lane0=g.ids[0].tolist())
+    check(out["peak_gib"] * 2**30 < 80e9,
+          f"peak memory {out['peak_gib']:.2f} GiB")
+    print(f"serve_moe: moonshot_v1_16b_a3b {B}x{S} + {GEN} tokens through "
+          f"serve.main: prefill {g.launches['prefill']['flash_attention']} "
+          f"flash + {g.launches['prefill']['moe_dispatch']} moe_dispatch "
+          f"launches, decode {g.launches['decode']['moe_dispatch']} "
+          f"moe_dispatch; first prefill {g.prefill_s:.4f} s, decode "
+          f"{out['first_decode_tok_per_s']:.1f} tok/s; peak "
+          f"{out['peak_gib']:.2f} GiB ({out['free_gib_at_start']:.2f} GiB "
+          f"free before); lane 0 ids {out['ids_lane0']}", flush=True)
+    del g
+
+    # the same weights again, warm, and traced
+    params = tfm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.as_tensor(batch_for(cfg, 0, B, S)["tokens"], device=dev)
+    serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    warm = serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    check(bool(torch.isfinite(warm.prefill_logits.float()).all()),
+          "non-finite prefill logits (warm)")
+    out.update(prefill_s=warm.prefill_s,
+               decode_tok_per_s=B * (GEN - 1) / warm.decode_s,
+               decode_step_s=warm.decode_s / (GEN - 1))
+    print(f"serve_moe (warm): prefill {out['prefill_s']:.4f} s, decode "
+          f"{out['decode_tok_per_s']:.1f} tok/s "
+          f"({1e3 * out['decode_step_s']:.1f} ms a step)", flush=True)
+    del warm
+    out["traced"] = {
+        k: traced_generate(torch, serve, params, cfg, tokens, gen,
+                           MOE_KERNEL_KEYS)
+        for k, gen in (("prefill", 1), ("prefill_and_3_steps", 4))}
+    for k, t in out["traced"].items():
+        print(f"serve_moe (traced, {k}): device busy "
+              f"{t['device_busy_ms']:.2f} ms of {t['wall_ms']:.2f} ms wall "
+              f"({100 * t['device_busy_share']:.1f} %), {t['launches']} "
+              f"kernel launches, moe_dispatch {t['kernel_ms']:.3f} ms "
+              f"({100 * t['kernel_share_of_device']:.1f} % of device "
+              f"time); top: {t['top'][:6]}", flush=True)
+
+    # the routing counters of the prefill's layers, and layer 0's dispatch
+    # inputs, taken as the model hands them over
+    layer0 = []
+    dispatch = ops.moe_dispatch
+
+    def first_dispatch(x, expert, pos, **kw):
+        if not layer0:
+            layer0.append((x.clone(), expert.clone(), pos.clone(), kw))
+        return dispatch(x, expert, pos, **kw)
+
+    ops.moe_dispatch = first_dispatch
+    try:
+        with torch.inference_mode():
+            _, aux = tfm.forward(params, cfg, {"tokens": tokens})
+    finally:
+        ops.moe_dispatch = dispatch
+    counters = {k: int(v) for k, v in aux.items() if k != "lb_loss"}
+    out.update(routing=counters, lb_loss_sum=float(aux["lb_loss"]))
+    slots = L * B * S * cfg.moe.top_k
+    check(counters["ntasks_static"] + counters["ntasks_stolen_local"]
+          + counters["ntasks_stolen_remote"] + counters["ntasks_dropped"]
+          == slots, f"routing counters {counters} do not add up to {slots}")
+    print(f"serve_moe routing, summed over the prefill's {L} layers "
+          f"({slots} slots): {counters}, lb_loss {out['lb_loss_sum']:.4f}",
+          flush=True)
+
+    # the kernel in the model: prefill and 3 decode steps with only the
+    # dispatch swapped for its plain twin, bit for bit
+    steps = torch.as_tensor(batch_for(cfg, 1, B, 3)["tokens"], device=dev)
+    seqs = {}
+    with torch.inference_mode():
+        for impl in (None, "ref"):
+            ops.set_impl(impl, "moe_dispatch")
+            try:
+                last, state = tfm.prefill(params, cfg, {"tokens": tokens},
+                                          S + 3)
+                seq = [last]
+                for t in range(3):
+                    step, state = tfm.decode_step(params, cfg, state,
+                                                  steps[:, t])
+                    seq.append(step)
+            finally:
+                ops.set_impl(None)
+            seqs[impl] = seq
+            del state
+    torch.cuda.synchronize()
+    diffs = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(seqs[None], seqs["ref"])]
+    out["model_bitwise"] = all(torch.equal(a, b)
+                               for a, b in zip(seqs[None], seqs["ref"]))
+    check(out["model_bitwise"], f"moonshot with the dispatch kernel and with "
+          f"its twin: logits differ by {diffs} (prefill, 3 decode steps)")
+    print(f"serve_moe: prefill logits and 3 decode steps bitwise equal with "
+          f"the dispatch kernel and with its plain twin (|logit| <= "
+          f"{float(seqs[None][0].float().abs().max()):.3f})", flush=True)
+    del params, seqs
+
+    # the kernel against its twin, call by call, bit for bit
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x0, e0, p0, kw0 = layer0[0]
+    cases = [("serve_layer0", x0, e0, p0, kw0["n_experts"],
+              kw0["capacity"])]
+    for label, T, D, k, E, C, dtype, G in MOE_CASES:
+        x, ve, pos = moe_inputs(torch, balance, T, D, k, E, C, dtype, G, gen,
+                                dev)
+        cases.append((label, x, ve, pos, G * E, C))
+    errs = {}
+    for label, x, ve, pos, E, C in cases:
+        got = md.moe_dispatch(x, ve, pos, n_experts=E, capacity=C)
+        want = mref.moe_dispatch(x, ve, pos, E, C)
+        torch.cuda.synchronize()
+        errs[label] = float((got.float() - want.float()).abs().max())
+        check(got.dtype == x.dtype and torch.equal(got, want),
+              f"moe_dispatch {label}: max abs err {errs[label]}")
+        print(f"  moe_dispatch {label:12s} T={x.shape[0]} D={x.shape[1]} "
+              f"k={ve.shape[1]} buffers={E}x{C} {str(x.dtype)[6:]}: kept "
+              f"{int((ve >= 0).sum())} of {ve.numel()} slots, bitwise "
+              "equal", flush=True)
+    out["moe_errors"] = errs
+    check(tuple(x0.shape) == (B * S, cfg.d_model)
+          and (kw0["n_experts"], kw0["capacity"]) == (64, 480),
+          f"layer 0 dispatched {tuple(x0.shape)} into {kw0}")
+
+    # its time at the prefill shape (layer 0's own routing), beside the
+    # twin's and one library call's; and at the decode shape
+    E, C = kw0["n_experts"], kw0["capacity"]
+    ms = cuda_time_ms(lambda i: md.moe_dispatch(x0, e0, p0, n_experts=E,
+                                                capacity=C), 50, torch)
+    plain_ms = cuda_time_ms(lambda i: mref.moe_dispatch(x0, e0, p0, E, C),
+                            20, torch)
+    flat = (e0.long() * C + p0.long()).reshape(-1)
+    keep = (e0 >= 0).reshape(-1)
+    idx = torch.where(keep, flat, E * C)
+    src = torch.repeat_interleave(x0, e0.shape[1], dim=0)
+    lib_ms = cuda_time_ms(lambda i: torch.zeros(
+        (E * C + 1, x0.shape[1]), dtype=x0.dtype, device=dev).index_put_(
+        (idx,), src, accumulate=True), 20, torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            md.moe_dispatch(x0, e0, p0, n_experts=E, capacity=C)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if any(k in e.key for k in MOE_KERNEL_KEYS)]
+    n_calls = sum(e.count for e in rows if "copy_rows" in e.key)
+    dev_us = (sum(e.device_time_total for e in rows) / n_calls
+              if n_calls else None)
+    _, xd, ed, pd, _, _ = cases[1]
+    decode_ms = cuda_time_ms(lambda i: md.moe_dispatch(
+        xd, ed, pd, n_experts=64, capacity=8), 200, torch)
+    # x read once, the two tables read once, the buffer written once; no
+    # arithmetic
+    nbytes = (x0.numel() * x0.element_size() + 2 * e0.numel() * 4
+              + E * C * x0.shape[1] * x0.element_size())
+    bnd, by = bound_ms(nbytes, 0)
+    out["moe_timed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            device_us=dev_us, bytes=nbytes, bound_ms=bnd,
+                            bound_by=by, decode_ms=decode_ms,
+                            gb_per_s=nbytes / ms / 1e6)
+    print(f"moe_dispatch at T={x0.shape[0]} D={x0.shape[1]} k={e0.shape[1]} "
+          f"-> {E}x{C} bf16: {ms:.4f} ms a call ({nbytes / ms / 1e6:.1f} "
+          f"GB/s, {ms / bnd:.2f}x its bound; device "
+          f"{f'{dev_us:.1f} us' if dev_us else 'time not measured'}), bound "
+          f"{bnd:.5f} ms ({by}; {nbytes} bytes), twin {plain_ms:.4f} ms, "
+          f"index_put_ {lib_ms:.4f} ms; decode shape {decode_ms:.4f} ms",
+          flush=True)
+    row = dict(name="moe_dispatch", route="cuda",
+               source="src/repro_torch/kernels/csrc/moe_dispatch.cu",
+               replaces=reg.KERNELS["moe_dispatch"].replaces,
+               launches=launches["moe_dispatch"],
+               max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+               bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"moe serving phase took {out['phase_s']:.1f} s", flush=True)
     return row, out
 
 
@@ -689,6 +971,8 @@ def run(torch) -> int:
                                         tree_map)
     from repro_torch.core.taskgraph import build as build_graph
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import registry as reg
     from repro_torch.kernels import rwkv6_scan as rk
     from repro_torch.kernels import sched_queue as sq
     from repro_torch.kernels import sched_step as ss
@@ -701,10 +985,11 @@ def run(torch) -> int:
 
     # 1. build the kernels: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         builds = {name: pool.submit(fn) for name, fn in
                   (("sched_queue", sq.build), ("sched_step", ss.build),
-                   ("flash_attention", fa.build), ("rwkv6_scan", rk.build))}
+                   ("flash_attention", fa.build), ("rwkv6_scan", rk.build),
+                   ("moe_dispatch", md.build))}
         logs = {name: f.result() for name, f in builds.items()}
     report["build_s"] = time.perf_counter() - t0
     for name, (path, log) in logs.items():
@@ -777,7 +1062,7 @@ def run(torch) -> int:
     steps = 0
     cases = []
     main_results = {}
-    sq.reset_launches()
+    reg.reset_launches()
     for name, mode, spec, cfg, topo in main_runs:
         out = {}
         for backend in backends:
@@ -808,7 +1093,7 @@ def run(torch) -> int:
               f" steps={res.steps} " + " ".join(
                   f"{b}={out[b + '_s']:.3f}s" for b in backends)
               + "  bitwise", flush=True)
-    main_launches = {k: v.launches for k, v in sq.KERNELS.items()}
+    main_launches = reg.launch_counts()
     check(all(main_launches[k] for k in SIM_KERNELS),
           f"a kernel never launched on the main path: {main_launches}")
     check(main_launches["sched_step"] == len(main_runs),
@@ -827,13 +1112,13 @@ def run(torch) -> int:
     scfg = SimConfig(backend="cuda_fused")
     executors.reset_engine_stats()
     torch.cuda.synchronize()
-    sq.reset_launches()
+    reg.reset_launches()
     t0 = time.perf_counter()
     swept = sweep.run_cases(sweep_graphs, sweep_specs, cfg=scfg,
                             strategy="batched", device=dev)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    sweep_launches = {k: v.launches for k, v in sq.KERNELS.items()}
+    sweep_launches = reg.launch_counts()
     sweep_stats = dict(executors.ENGINE_STATS)
     check(bool(swept.completed.all()), "the sweep left cases incomplete")
     n_chunks = len({s.spec for s in sweep_specs})
@@ -1076,19 +1361,23 @@ def run(torch) -> int:
         src = "sched_step.cu" if k["name"] == "sched_step" else \
             "sched_queue.cu"
         k.update(route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
-                 replaces=sq.KERNELS[k["name"]].replaces,
+                 replaces=reg.KERNELS[k["name"]].replaces,
                  # each kernel's launches on the path it serves: the queue
                  # kernels on phase 3's cuda runs, sched_step on the sweep
                  launches=(sweep_launches if k["name"] == "sched_step"
                            else main_launches)[k["name"]])
 
     # 6. this slice's path: serving gemma2_2b at full width
-    flash_row, report["serve"] = serve_phase(torch, dev, sq)
+    flash_row, report["serve"] = serve_phase(torch, dev, reg)
     kernels.append(flash_row)
 
     # 7. this slice's path: serving rwkv6_1_6b at full width
-    rwkv_row, report["serve_rwkv"] = rwkv_phase(torch, dev, sq)
+    rwkv_row, report["serve_rwkv"] = rwkv_phase(torch, dev, reg)
     kernels.append(rwkv_row)
+
+    # 8. this slice's path: serving moonshot_v1_16b_a3b at full width
+    moe_row, report["serve_moe"] = moe_phase(torch, dev, reg)
+    kernels.append(moe_row)
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -1111,6 +1400,10 @@ def run(torch) -> int:
         "first_decode_tok_per_s", "plain_prefill_s",
         "f32_logits_max_abs_err", "f32_decode_max_abs_err",
         "greedy_agreement", "peak_gib")}}))
+    print(json.dumps({"serve_moe": {k: report["serve_moe"][k] for k in (
+        "prefill_s", "decode_tok_per_s", "first_prefill_s",
+        "first_decode_tok_per_s", "peak_gib", "routing",
+        "model_bitwise")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,9 @@ causal / sliding-window attention forward with an online softmax, float32
 accumulators and a tanh softcap, written by hand in CUDA C++ for Hopper
 (``csrc/flash_attention.cu``; the source says what bounds it and what its
 design does about it).  It is built and bound the way every kernel of the
-package is (:func:`repro_torch.kernels.sched_queue.build`: nvcc into
+package is (:mod:`repro_torch.kernels.registry`: nvcc into
 ``build/repro_torch_kernels/<hash>/``, ``ctypes``, the current stream) and
-counted in the package's one registry, ``sched_queue.KERNELS``.
+counted in the package's one registry, ``registry.KERNELS``.
 
 :func:`flash_attention` checks its inputs, then dispatches on where they
 lie: a CUDA tensor launches the kernel (one added to its ``launches``
@@ -31,7 +31,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels import sched_queue as sq
+from repro_torch.kernels import registry as reg
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 #: head dims the kernel is instantiated for (multiples of 16 up to 256:
@@ -42,8 +42,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build() -> tuple[Path, str]:
-    """Build ``csrc/flash_attention.cu`` (see :func:`sched_queue.build`)."""
-    return sq.build(SOURCE)
+    """Build ``csrc/flash_attention.cu`` (see :func:`registry.build`)."""
+    return reg.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=1)
@@ -93,8 +93,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {Dh} is not one of {HEAD_DIMS}")
     out = torch.empty_like(q)
     err = _library().fa_forward(
-        sq._p(q), sq._p(k), sq._p(v), sq._p(out), B, H, k.shape[1], S, Dh,
+        *map(reg.ptr, (q, k, v, out)), B, H, k.shape[1], S, Dh,
         DTYPES[q.dtype], int(causal), int(window), int(softcap is not None),
-        float(softcap or 0.0), float(Dh ** -0.5), sq._stream())
-    sq._launched("flash_attention", err)
+        float(softcap or 0.0), float(Dh ** -0.5), reg.stream())
+    reg.launched("flash_attention", err)
     return out

@@ -1,5 +1,5 @@
 """Plain PyTorch references (oracles) for the model stack's kernels: the
-port of the attention and RWKV6 parts of the JAX package's
+port of the attention, RWKV6 and MoE parts of the JAX package's
 ``kernels/ref.py``.
 
 ``flash_attention`` is the plain twin of the hand-written CUDA kernel of
@@ -21,6 +21,10 @@ oracle and ``rwkv6_decode`` the one-token step (no kernel in either
 package).  All three compute in float32 and return ``out`` in ``r.dtype``
 and the state in float32.  Layout: r, k, v, w ``(B, H, T, Dh)``; u
 ``(H, Dh)``; the state ``(B, H, Dh, Dh)`` maps key dim to value dim.
+
+``moe_dispatch`` is the plain twin of the MoE-dispatch kernel of
+:mod:`repro_torch.kernels.moe_dispatch` (the reference's scatter, with the
+duplicates summed); ``moe_combine`` has no kernel in either package.
 """
 
 from __future__ import annotations
@@ -192,3 +196,48 @@ def rwkv6_decode(r, k, v, w, u, state):
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     new, out = _rwkv6_step(state.float(), rf, kf, vf, wf, u.float())
     return out.to(r.dtype), new
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch / combine (the XQueue push / pop analogue)
+# ---------------------------------------------------------------------------
+
+def moe_dispatch(x, expert, pos, n_experts: int, capacity: int):
+    """Scatter token rows into per-expert buffers.  x: (T, D); expert/pos:
+    (T, k), -1 for a dropped slot.  Returns ``(E, C, D)`` in ``x.dtype``:
+    row ``expert * C + pos`` holds ``x[t]`` for each kept slot ``(t, kk)``,
+    every other row is zero.
+
+    As in the reference, a slot with ``expert < 0`` or ``pos < 0`` is
+    dropped, and so is a flat row past ``E * C`` (a sink row, sliced off:
+    PyTorch raises where JAX's ``mode="drop"`` drops); slots that share a
+    row are summed."""
+    T, D = x.shape
+    k = expert.shape[1]
+    E, C = n_experts, capacity
+    flat_e = expert.reshape(-1).long()
+    flat_p = pos.reshape(-1).long()
+    idx = flat_e * C + flat_p
+    ok = (flat_e >= 0) & (flat_p >= 0) & (idx < E * C)
+    idx = torch.where(ok, idx, E * C)
+    src = torch.repeat_interleave(x, k, dim=0)
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf.index_put_((idx,), src, accumulate=True)
+    return buf[:E * C].reshape(E, C, D)
+
+
+def moe_combine(y, expert, pos, weight, n_tokens: int):
+    """Gather expert outputs back to tokens with their combine weights.
+    y: (E, C, D); expert/pos/weight: (T, k).  Returns (T, D) in
+    ``y.dtype``: the weights are cast to ``y.dtype`` before the product and
+    the k products summed in float32, as ``jnp.sum`` sums a bf16 array."""
+    E, C, D = y.shape
+    k = expert.shape[1]
+    flat_e = expert.reshape(-1).long()
+    flat_p = pos.reshape(-1).long()
+    ok = (flat_e >= 0) & (flat_p >= 0)
+    idx = torch.where(ok, flat_e * C + flat_p, 0)
+    gathered = y.reshape(E * C, D)[idx]
+    w = torch.where(ok, weight.reshape(-1), 0.0).to(y.dtype)
+    gathered = gathered * w[:, None]
+    return gathered.reshape(n_tokens, k, D).float().sum(dim=1).to(y.dtype)

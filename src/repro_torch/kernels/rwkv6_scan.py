@@ -6,9 +6,9 @@ RWKV6 recurrence with its ``(Dh, Dh)`` float32 state kept on chip for the
 whole sequence, written by hand in CUDA C++ for Hopper
 (``csrc/rwkv6_scan.cu``; the source says what bounds it and what its design
 does about it).  It is built and bound the way every kernel of the package
-is (:func:`repro_torch.kernels.sched_queue.build`: nvcc into
+is (:mod:`repro_torch.kernels.registry`: nvcc into
 ``build/repro_torch_kernels/<hash>/``, ``ctypes``, the current stream) and
-counted in the package's one registry, ``sched_queue.KERNELS``.
+counted in the package's one registry, ``registry.KERNELS``.
 
 :func:`rwkv6` checks its inputs, then dispatches on where they lie: a CUDA
 tensor launches the kernel (one added to its ``launches`` count; a refused
@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels import sched_queue as sq
+from repro_torch.kernels import registry as reg
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
 #: head dims the kernel is instantiated for: the smoke config (16), the JAX
@@ -43,8 +43,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build() -> tuple[Path, str]:
-    """Build ``csrc/rwkv6_scan.cu`` (see :func:`sched_queue.build`)."""
-    return sq.build(SOURCE)
+    """Build ``csrc/rwkv6_scan.cu`` (see :func:`registry.build`)."""
+    return reg.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=1)
@@ -116,9 +116,8 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(r)     # r's layout when r is dense, else packed
     s_out = torch.empty_like(state)
     err = _library().rwkv6_forward(
-        sq._p(r), sq._p(k), sq._p(v), sq._p(w), sq._p(u), sq._p(state),
-        sq._p(out), sq._p(s_out), B, H, T, Dh, DTYPES[r.dtype],
-        r.stride(0), r.stride(1), r.stride(2), out.stride(0), out.stride(1),
-        out.stride(2), sq._stream())
-    sq._launched("rwkv6_scan", err)
+        *map(reg.ptr, (r, k, v, w, u, state, out, s_out)), B, H, T, Dh,
+        DTYPES[r.dtype], r.stride(0), r.stride(1), r.stride(2),
+        out.stride(0), out.stride(1), out.stride(2), reg.stream())
+    reg.launched("rwkv6_scan", err)
     return out, s_out

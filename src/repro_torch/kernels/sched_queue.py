@@ -3,15 +3,10 @@
 The port of the JAX package's Pallas kernel set
 (``src/repro/kernels/sched_queue.py``): the XQueue SPSC push, the rotated
 pop scan and the counter-column bump, written by hand in CUDA C++ for
-Hopper (``csrc/sched_queue.cu``) and bound through a plain C interface:
-
-* at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` builds the
-  source into ``build/repro_torch_kernels/<hash>/`` at the repository root,
-  keyed by a hash of the source and the flags;
-* the library is loaded with ``ctypes``; every pointer and the stream pass
-  as ``c_void_p``; kernels launch on ``torch.cuda.current_stream()``;
-* each C entry point returns ``cudaGetLastError()`` and the wrapper raises
-  if it is not 0.  A missing ``nvcc`` or a failed build raises too.
+Hopper (``csrc/sched_queue.cu``), built and bound as every kernel of the
+package is (:mod:`repro_torch.kernels.registry`: nvcc into
+``build/repro_torch_kernels/<hash>/``, a plain C interface through
+``ctypes``, the current stream; a failed build or launch raises).
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches on
 where its tensors lie: a CUDA tensor launches the kernel (and adds one to
@@ -28,12 +23,7 @@ one-thread-per-row / one-warp-per-row designs are kept for correctness.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
@@ -41,76 +31,18 @@ import torch
 from repro_torch.core import xqueue
 from repro_torch.core.phases import StepOps, ctr_add_ref
 from repro_torch.core.xqueue import XQ
+from repro_torch.kernels import registry as reg
 
 I32 = torch.int32
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_queue.cu"
-#: build output root: ``build/`` at the repository root (git-ignored)
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
-    "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-
-
-@dataclasses.dataclass
-class Kernel:
-    """One hand-written kernel: its name, the TPU kernel it replaces, and
-    how many times its wrapper launched it."""
-    name: str
-    replaces: str
-    launches: int = 0
-
-
-#: every hand-written kernel of the package, with its launch count (the
-#: fused step of :mod:`repro_torch.kernels.sched_step`, the attention
-#: forward of :mod:`repro_torch.kernels.flash_attention` and the RWKV6
-#: recurrence of :mod:`repro_torch.kernels.rwkv6_scan` included)
-KERNELS = {k.name: k for k in (
-    Kernel("ctr_add", "src/repro/kernels/sched_queue.py:54"),
-    Kernel("push", "src/repro/kernels/sched_queue.py:108"),
-    Kernel("pop_first", "src/repro/kernels/sched_queue.py:144"),
-    Kernel("sched_step", "src/repro/kernels/sched_step.py:121"),
-    Kernel("flash_attention", "src/repro/kernels/flash_attention.py:105"),
-    Kernel("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:67"),
-)}
-#: the three kernels of this module's source
+#: the three kernels of this module's source (counted in
+#: :data:`repro_torch.kernels.registry.KERNELS`)
 QUEUE_KERNELS = ("ctr_add", "push", "pop_first")
 
 
-def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
-
-
-def _nvcc(source: Path) -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{source.name}")
-
-
-def build(source: Path = SOURCE) -> tuple[Path, str]:
-    """Compile one CUDA source into its own shared library if this
-    source/flag hash has none yet.  Returns ``(library path, compiler
-    log)`` (the log is empty when the library was already built)."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_ROOT / digest / f"lib{source.stem}.so"
-    if lib.exists():
-        return lib, ""
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(source), *NVCC_FLAGS, "-o", str(tmp),
-                           str(source)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+def build() -> tuple[Path, str]:
+    """Build ``csrc/sched_queue.cu`` (see :func:`registry.build`)."""
+    return reg.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=1)
@@ -138,21 +70,6 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
-                           f"{err} ({torch.cuda.get_device_name()})")
-    KERNELS[name].launches += 1
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _p(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 # ---------------- counter bump ----------------
 def ctr_add(ctr: torch.Tensor, col: int, val: torch.Tensor) -> torch.Tensor:
     """``ctr[:, col] += val`` — in place on the card, plain on the CPU."""
@@ -163,8 +80,9 @@ def ctr_add(ctr: torch.Tensor, col: int, val: torch.Tensor) -> torch.Tensor:
         raise IndexError(f"counter column {col} out of range [0, {nc})")
     if not ctr.is_cuda:
         return ctr_add_ref(ctr, col, val)
-    err = _library().sq_ctr_add(_p(ctr), _p(val), W, nc, col, _stream())
-    _launched("ctr_add", err)
+    err = _library().sq_ctr_add(reg.ptr(ctr), reg.ptr(val), W, nc, col,
+                                reg.stream())
+    reg.launched("ctr_add", err)
     return ctr
 
 
@@ -188,9 +106,9 @@ def push(xq: XQ, producer: torch.Tensor, consumer: torch.Tensor,
         return xqueue.push(xq, producer, consumer, task, ts, mask)
     ok = torch.empty(W, dtype=torch.bool, device=dev)
     err = _library().sq_push(
-        _p(xq.buf), _p(xq.ts), _p(xq.head), _p(xq.tail), _p(producer),
-        _p(consumer), _p(task), _p(ts), _p(mask), _p(ok), W, Q, _stream())
-    _launched("push", err)
+        *map(reg.ptr, (xq.buf, xq.ts, xq.head, xq.tail, producer, consumer,
+                       task, ts, mask, ok)), W, Q, reg.stream())
+    reg.launched("push", err)
     return xq, ok
 
 
@@ -220,10 +138,9 @@ def pop_first(xq: XQ, rot: torch.Tensor, mask: torch.Tensor, n_active=None):
     found = torch.empty(W, dtype=torch.bool, device=dev)
     checked = torch.empty(W, dtype=I32, device=dev)
     err = _library().sq_pop_first(
-        _p(xq.buf), _p(xq.ts), _p(xq.head), _p(xq.tail), _p(rot), _p(mask),
-        _p(n_active), _p(task), _p(ts), _p(src), _p(found), _p(checked),
-        W, Q, _stream())
-    _launched("pop_first", err)
+        *map(reg.ptr, (xq.buf, xq.ts, xq.head, xq.tail, rot, mask, n_active,
+                       task, ts, src, found, checked)), W, Q, reg.stream())
+    reg.launched("pop_first", err)
     return xq, task, ts, src, found, checked
 
 

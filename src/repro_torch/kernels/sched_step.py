@@ -21,10 +21,10 @@ ops lane by lane, and returns a new state.  Either way the caller uses the
 returned state.  A failed build or launch raises; nothing falls back to
 the twin on the card.
 
-Build and binding are :mod:`repro_torch.kernels.sched_queue`'s: nvcc into
+Build and binding are :mod:`repro_torch.kernels.registry`'s: nvcc into
 ``build/repro_torch_kernels/<hash>/libsched_step.so``, ``ctypes``, the
 current stream, and one ``StepArgs`` struct (every pointer and scalar)
-passed by value.  The launch adds one to ``KERNELS["sched_step"]``.
+passed by value.  The launch adds one to ``registry.KERNELS["sched_step"]``.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from repro_torch.core.phases import REFERENCE_OPS, StepOps
 from repro_torch.core.state import (NC, GraphArrays, SimState, SweepCase,
                                     lane, leaves, stack)
 from repro_torch.core.topology import DMAX
+from repro_torch.kernels import registry as reg
 from repro_torch.kernels import sched_queue as sq
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_step.cu"
@@ -99,7 +100,7 @@ class StepArgs(ctypes.Structure):
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    path, _ = sq.build(SOURCE)
+    path, _ = reg.build(SOURCE)
     lib = ctypes.CDLL(str(path))
     lib.ss_run.argtypes = [StepArgs, ctypes.c_void_p]
     lib.ss_run.restype = ctypes.c_int
@@ -107,8 +108,8 @@ def _library() -> ctypes.CDLL:
 
 
 def build() -> tuple[Path, str]:
-    """Build ``csrc/sched_step.cu`` (see :func:`sched_queue.build`)."""
-    return sq.build(SOURCE)
+    """Build ``csrc/sched_step.cu`` (see :func:`registry.build`)."""
+    return reg.build(SOURCE)
 
 
 # ---------------- the plain twin ----------------
@@ -183,8 +184,8 @@ def sched_step(st: SimState, g: GraphArrays, case: SweepCase, *,
     args = StepArgs(*[t.data_ptr() for t in ptrs],
                     *[int(ints[k]) for k in _INTS],
                     *[float(floats[k]) for k in _FLOATS])
-    err = _library().ss_run(args, sq._stream())
-    sq._launched("sched_step", err)
+    err = _library().ss_run(args, reg.stream())
+    reg.launched("sched_step", err)
     return st
 
 

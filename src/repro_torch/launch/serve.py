@@ -7,15 +7,21 @@ JAX package's ``launch/serve.py`` (its single-replica loop; the
       --smoke --batch 4 --prompt-len 48 --gen 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1_6b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch moonshot_v1_16b_a3b --smoke --device cpu
 
 Without ``--device`` it runs on the CUDA device and raises when there is
 none.  On the card, the prefill goes through the hand-written kernels:
 every attention layer through the flash-attention kernel
 (``kernels/csrc/flash_attention.cu``), every RWKV layer through the
-RWKV6-recurrence kernel (``kernels/csrc/rwkv6_scan.cu``).  Decoding uses
-the plain ops (``decode_attention``, ``rwkv6_decode``), as in the JAX
-package.  ``Generation.launches`` counts every kernel of the package, by
-name, in each phase.  Weights are random, drawn from ``--seed``.
+RWKV6-recurrence kernel (``kernels/csrc/rwkv6_scan.cu``), every MoE layer
+through the MoE-dispatch kernel (``kernels/csrc/moe_dispatch.cu``).
+Decoding uses the plain attention and RWKV6 ops (``decode_attention``,
+``rwkv6_decode``), as in the JAX package, and the MoE-dispatch kernel in
+every MoE layer of every step.  MoE layers route with the JAX package's
+defaults (``PRNGKey(0)``, 16 expert groups).  ``Generation.launches``
+counts every kernel of the package, by name, in each phase.  Weights are
+random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 from repro_torch.configs import base as cb
 from repro_torch.core.scheduler import resolve_device
 from repro_torch.data.pipeline import batch_for
-from repro_torch.kernels import sched_queue as sq
+from repro_torch.kernels import registry
 from repro_torch.models import transformer as tfm
 
 
@@ -39,10 +45,6 @@ class Generation(NamedTuple):
     prefill_s: float              # wall seconds of prefill + first argmax
     decode_s: float               # wall seconds of the gen - 1 decode steps
     launches: dict                # {phase: {kernel name: launches}}
-
-
-def _launches() -> dict:
-    return {name: k.launches for name, k in sq.KERNELS.items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -57,14 +59,14 @@ def generate(params, cfg: cb.ModelConfig, batch: dict, gen: int
     steps: ``gen`` new tokens per lane, the first from the prefill."""
     tokens = batch["tokens"]
     device = tokens.device
-    n0 = _launches()
+    n0 = registry.launch_counts()
     _sync(device)
     t0 = time.perf_counter()
     logits, state = tfm.prefill(params, cfg, batch, tokens.shape[1] + gen)
     tok = torch.argmax(logits, -1).to(torch.int32)
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    n1 = _launches()
+    n1 = registry.launch_counts()
     outs = [tok]
     t0 = time.perf_counter()
     for _ in range(gen - 1):
@@ -73,7 +75,7 @@ def generate(params, cfg: cb.ModelConfig, batch: dict, gen: int
         outs.append(tok)
     _sync(device)
     decode_s = time.perf_counter() - t0
-    n2 = _launches()
+    n2 = registry.launch_counts()
     return Generation(ids=torch.stack(outs, dim=1), prefill_logits=logits,
                       prefill_s=prefill_s, decode_s=decode_s,
                       launches={"prefill": {k: n1[k] - n0[k] for k in n0},

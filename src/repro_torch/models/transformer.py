@@ -1,11 +1,11 @@
-"""The decoder stack: the port of the dense and RWKV parts of the JAX
+"""The decoder stack: the port of the dense, MoE and RWKV parts of the JAX
 package's ``models/transformer.py``.
 
 Layers are grouped into a repeating *pattern* of P block kinds (gemma2:
-(local, full)); parameters are stacked per pattern position with a leading
-dim of ``n_layers / P``, as in the JAX package, and the stack is applied by
-a Python loop over that dim (the JAX package's ``lax.scan``).  There is no
-rematerialisation: that is for training.
+(local, full); llama4: (dense, moe)); parameters are stacked per pattern
+position with a leading dim of ``n_layers / P``, as in the JAX package,
+and the stack is applied by a Python loop over that dim (the JAX package's
+``lax.scan``).  There is no rematerialisation: that is for training.
 
 Parameters are a :class:`ParamTree`, an ``nn.Module`` whose parameters map
 one to one onto the JAX parameter tree's leaves (``embed``,
@@ -17,15 +17,24 @@ Public API:
   pattern(cfg)                              -> tuple of BlockKind
   init_params(cfg, generator, device)       -> ParamTree
   params_from_numpy(tree, cfg, device)      -> ParamTree
-  forward(params, cfg, batch)               -> (logits, aux)
-  prefill(params, cfg, batch, max_len)      -> (last logits, DecodeState)
+  forward(params, cfg, batch, rng)          -> (logits, aux)
+  prefill(params, cfg, batch, max_len, rng) -> (last logits, DecodeState)
   init_decode_state(cfg, B, max_len, dev)   -> DecodeState (zeros)
-  decode_step(params, cfg, state, tokens)   -> (logits, DecodeState)
+  decode_step(params, cfg, state, tokens, rng) -> (logits, DecodeState)
 
-Dense attention stacks and RWKV6 stacks (``family == "ssm"``: one block
-kind, time mix and channel mix, O(1) decode state) are ported; configs with
-MoE layers, SSM heads or a modality frontend raise ``NotImplementedError``
-naming the ROADMAP item that ports them.  ``loss_fn`` waits for training.
+Dense attention stacks, MoE stacks (an MoE block every ``interleave``-th
+layer, routed by :mod:`repro_torch.models.moe`) and RWKV6 stacks
+(``family == "ssm"``: one block kind, time mix and channel mix, O(1)
+decode state) are ported; configs with SSM heads or a modality frontend
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``loss_fn`` waits for training.
+
+The routing key ``rng`` is a pair of uint32 words
+(:mod:`repro_torch.core.prng`), ``PRNGKey(0)`` by default as in the JAX
+package; layer ``idx`` of pattern position ``pidx`` routes with
+``fold_in(rng, idx * P + pidx)``, derived on the host.  ``ep_groups`` (16 by
+default, as in the JAX package) is the expert-group count of the routing's
+locality bonus.
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, rwkv
+from repro_torch.core import prng
+from repro_torch.models import layers, moe, rwkv
 
 AUX_KEYS = ("lb_loss", "ntasks_static", "ntasks_stolen_local",
             "ntasks_stolen_remote", "ntasks_dropped", "max_load")
@@ -67,10 +77,6 @@ def pattern(cfg: ModelConfig):
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family this port does not run
     yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP §1 item 7, "
-            "MoE serving)")
     if cfg.ssm is not None or cfg.parallel_ssm:
         raise NotImplementedError(
             f"{cfg.name}: SSM heads are not ported yet (ROADMAP §1 item 9, "
@@ -124,7 +130,9 @@ def _block_init(cfg: ModelConfig, kind: BlockKind, n: int, generator,
         p["rwkv"] = rwkv.rwkv_init(cfg, generator, device, lead=(n,))
         return p
     p["attn"] = layers.attn_init(cfg, generator, device, lead=(n,))
-    p["mlp"] = layers.mlp_init(cfg, cfg.d_ff, generator, device, lead=(n,))
+    p["mlp"] = (moe.moe_init(cfg, generator, device, lead=(n,)) if kind.moe
+                else layers.mlp_init(cfg, cfg.d_ff, generator, device,
+                                     lead=(n,)))
     if cfg.post_block_norms:
         p["pln1"] = zeros()
         p["pln2"] = zeros()
@@ -135,8 +143,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device) -> ParamTree:
     """Random weights drawn from ``generator`` (a ``torch.Generator`` on
     ``device``) with the JAX package's scales: embeddings N(0, 1), dense
-    weights N(0, 1/fan_in), norm scales 0.  The JAX package draws other
-    numbers from its keys; tests carry its weights across with
+    weights N(0, 1/fan_in), norm scales 0.  The MoE experts' leaves are
+    drawn one layer at a time (see :func:`repro_torch.models.moe.moe_init`);
+    every other leaf in one draw per stacked leaf.  The JAX package draws
+    other numbers from its keys; tests carry its weights across with
     :func:`params_from_numpy`."""
     check_ported(cfg)
     kinds = pattern(cfg)
@@ -203,9 +213,10 @@ def _zero_aux(device):
             for k in AUX_KEYS}
 
 
-def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind):
-    """Prefill block.  Returns (x, cache_src): what decode needs (k/v, or
-    the RWKV state and token-shift tails, already final)."""
+def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups):
+    """Prefill block.  Returns (x, cache_src, aux): what decode needs (k/v,
+    or the RWKV state and token-shift tails, already final), and the MoE
+    layer's counters (None for other blocks)."""
     h = layers.rmsnorm(bp["ln1"], x)
     if kind.rwkv:
         state0 = torch.zeros((x.shape[0], cfg.n_heads, cfg.head_dim,
@@ -216,16 +227,21 @@ def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind):
         m, tail2 = rwkv.channel_mix(bp["rwkv"],
                                     layers.rmsnorm(bp["ln2"], x))
         return x + m, {"rwkv_state": state, "tm_last": tail,
-                       "cm_last": tail2}
+                       "cm_last": tail2}, None
     a, (kt, vt) = layers.attn_apply(bp["attn"], h, cfg, kind.attn)
     if cfg.post_block_norms:
         a = layers.rmsnorm(bp["pln1"], a)
     x = x + a
     h2 = layers.rmsnorm(bp["ln2"], x)
-    m = layers.mlp_apply(bp["mlp"], h2, cfg)
+    aux = None
+    if kind.moe:
+        m, aux = moe.moe_apply(bp["mlp"], h2, cfg, ep_groups=ep_groups,
+                               rng=rng)
+    else:
+        m = layers.mlp_apply(bp["mlp"], h2, cfg)
     if cfg.post_block_norms:
         m = layers.rmsnorm(bp["pln2"], m)
-    return x + m, {"k": kt, "v": vt}
+    return x + m, {"k": kt, "v": vt}, aux
 
 
 def _embed_tokens(params, cfg: ModelConfig, tok):
@@ -253,24 +269,42 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
-def forward(params, cfg: ModelConfig, batch, *, collect_cache=False):
+def _layer_keys(rng, cfg: ModelConfig):
+    """The routing key of every MoE layer, ``[idx][pidx]``: ``fold_in(rng,
+    idx * P + pidx)`` (host integers; ``rng`` None is ``PRNGKey(0)``); None
+    for the other layers."""
+    rng = prng.PRNGKey(0) if rng is None else prng.as_key(rng)
+    kinds = pattern(cfg)
+    P = len(kinds)
+    return [[prng.fold_in(rng, idx * P + pidx) if kind.moe else None
+             for pidx, kind in enumerate(kinds)]
+            for idx in range(cfg.n_layers // P)]
+
+
+def forward(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
+            collect_cache=False):
     """Full-sequence forward.  Returns (logits, aux[, cache_srcs]): aux is
-    the JAX package's MoE counters, all zero for a dense stack; cache_srcs
-    holds per pattern position the stacked ``(n, B, KV, S, Dh)`` k and v,
-    or the stacked RWKV states and tails."""
+    the JAX package's MoE counters summed over the layers (all zero for a
+    stack without MoE layers); cache_srcs holds per pattern position the
+    stacked ``(n, B, KV, S, Dh)`` k and v, or the stacked RWKV states and
+    tails."""
     check_ported(cfg)
     kinds = pattern(cfg)
+    keys = _layer_keys(rng, cfg)
     x = _embed_inputs(params, cfg, batch)
     n = cfg.n_layers // len(kinds)
+    aux = _zero_aux(x.device)
     srcs = [[] for _ in kinds]
     for idx in range(n):
         for pidx, kind in enumerate(kinds):
-            x, src = _apply_block(_index(params["streams"][pidx], idx), x,
-                                  cfg, kind)
+            x, src, layer_aux = _apply_block(
+                _index(params["streams"][pidx], idx), x, cfg, kind,
+                keys[idx][pidx], ep_groups)
+            if layer_aux is not None:
+                aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
             if collect_cache:
                 srcs[pidx].append(src)
     logits = _logits(params, cfg, x)
-    aux = _zero_aux(logits.device)
     if collect_cache:
         return logits, aux, tuple(
             {k: torch.stack([s[k] for s in per]) for k in per[0]}
@@ -312,12 +346,14 @@ def init_decode_state(cfg: ModelConfig, B: int, max_len: int,
                                           device=device))
 
 
-def prefill(params, cfg: ModelConfig, batch, max_len: int):
+def prefill(params, cfg: ModelConfig, batch, max_len: int, rng=None, *,
+            ep_groups=16):
     """Run the full prompt, build the decode state.  Returns (logits of the
     last position, state)."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
-    logits, _aux, srcs = forward(params, cfg, batch, collect_cache=True)
+    logits, _aux, srcs = forward(params, cfg, batch, rng,
+                                 ep_groups=ep_groups, collect_cache=True)
     kinds = pattern(cfg)
     S = batch["tokens"].shape[1]
     caches = []
@@ -337,7 +373,8 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int):
     return logits[:, -1], state
 
 
-def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length):
+def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length,
+                  rng, ep_groups):
     h = layers.rmsnorm(bp["ln1"], x)
     if kind.rwkv:
         a, st, tail = rwkv.time_mix_decode(bp["rwkv"], h, cfg,
@@ -356,13 +393,19 @@ def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length):
         a = layers.rmsnorm(bp["pln1"], a)
     x = x + a
     h2 = layers.rmsnorm(bp["ln2"], x)
-    m = layers.mlp_apply(bp["mlp"], h2, cfg)
+    if kind.moe:
+        m, _aux = moe.moe_apply(bp["mlp"], h2[:, None], cfg,
+                                ep_groups=ep_groups, rng=rng)
+        m = m[:, 0]
+    else:
+        m = layers.mlp_apply(bp["mlp"], h2, cfg)
     if cfg.post_block_norms:
         m = layers.rmsnorm(bp["pln2"], m)
     return x + m
 
 
-def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens):
+def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens,
+                rng=None, *, ep_groups=16):
     """One autoregressive step.  tokens: (B,) int.  Returns (logits,
     state).  The caches of ``state`` are updated in place (see
     :func:`repro_torch.models.layers.attn_decode`; RWKV states and tails
@@ -372,13 +415,14 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens):
         raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
     check_ported(cfg)
     kinds = pattern(cfg)
+    keys = _layer_keys(rng, cfg)
     x = _embed_tokens(params, cfg, tokens)
     n = cfg.n_layers // len(kinds)
     for idx in range(n):
         for pidx, kind in enumerate(kinds):
             x = _decode_block(_index(params["streams"][pidx], idx), x,
                               cfg, kind, _index(state.caches[pidx], idx),
-                              state.length)
+                              state.length, keys[idx][pidx], ep_groups)
     logits = _logits(params, cfg, x)
     return logits, DecodeState(caches=state.caches,
                                length=state.length + 1)

@@ -23,7 +23,7 @@ from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro_torch.kernels import flash_attention as t_fa  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
-from repro_torch.kernels import sched_queue as t_sq  # noqa: E402
+from repro_torch.kernels import registry as t_reg  # noqa: E402
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -118,7 +118,7 @@ def test_plain_twin_takes_a_ragged_sequence():
 def test_ops_dispatch_on_the_cpu():
     (tq, tk, tv), (jq, jk, jv) = both(qkv(2, 1, 2, 2, 32, 16))
     want = j_ref.flash_attention(jq, jk, jv, True, 0, 20.0)
-    t_sq.reset_launches()
+    t_reg.reset_launches()
     try:
         for impl in (None, "ref"):
             t_ops.set_impl(impl)
@@ -131,7 +131,7 @@ def test_ops_dispatch_on_the_cpu():
             t_ops.set_impl("pallas")
     finally:
         t_ops.set_impl(None)
-    assert t_sq.KERNELS["flash_attention"].launches == 0
+    assert t_reg.KERNELS["flash_attention"].launches == 0
 
 
 def test_wrapper_checks_its_inputs():
@@ -147,5 +147,5 @@ def test_wrapper_checks_its_inputs():
         t_fa.flash_attention(tq.double(), tk.double(), tv.double())
     with pytest.raises(ValueError):
         t_fa.flash_attention(tq, tk[:, :, :8].contiguous(), tv)
-    assert t_sq.KERNELS["flash_attention"].replaces == \
+    assert t_reg.KERNELS["flash_attention"].replaces == \
         "src/repro/kernels/flash_attention.py:105"

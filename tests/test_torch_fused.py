@@ -39,7 +39,7 @@ from repro_torch.core.state import (GraphArrays, SimConfig,  # noqa: E402
                                     from_numpy, graph_arrays, init_batch,
                                     init_state, lane, leaves, make_params,
                                     stack, to_numpy)
-from repro_torch.kernels import sched_queue as sq  # noqa: E402
+from repro_torch.kernels import registry as reg  # noqa: E402
 from repro_torch.kernels import sched_step as ss  # noqa: E402
 
 C = DEFAULT_COSTS
@@ -202,7 +202,7 @@ def test_cuda_fused_on_cpu_takes_the_twin(monkeypatch):
         raise AssertionError("the CPU path must not build the kernel")
 
     monkeypatch.setattr(ss, "_library", no_build)
-    sq.reset_launches()
+    reg.reset_launches()
     g = t_tg.uts(150)
     cfg = SimConfig(n_workers=8, n_zones=2, max_steps=MAX_STEPS)
     runs = {b: scheduler.run(g, spec=MODE_SPECS["na_ws"],
@@ -211,7 +211,7 @@ def test_cuda_fused_on_cpu_takes_the_twin(monkeypatch):
             for b in ("reference", "cuda_fused")}
     assert runs["cuda_fused"].cfg.backend == "cuda_fused"
     assert_same(runs["cuda_fused"].state, runs["reference"].state, "run")
-    assert all(k.launches == 0 for k in sq.KERNELS.values())
+    assert all(k.launches == 0 for k in reg.KERNELS.values())
 
 
 def test_step_args_follow_the_state_layout():

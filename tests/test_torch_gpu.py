@@ -1,7 +1,8 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 PyTorch twin at the main path's width, the golden cases bitwise on the
 ``cuda`` and ``cuda_fused`` backends and through the sweep service, and
-smoke-config serving (gemma2 and rwkv6) on the card against the CPU.  Every
+smoke-config serving (gemma2, rwkv6 and moonshot) on the card against
+the CPU.  Every
 test skips without a card (the kernels have no CPU mode); on one, run them
 with
 
@@ -28,9 +29,12 @@ from repro_torch.core.state import (CTR_NAMES, SimConfig,  # noqa: E402
                                     tree_map)
 from repro_torch.core.taskgraph import build as build_graph  # noqa: E402
 from repro_torch.configs import base as cb  # noqa: E402
+from repro_torch.core import balance  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
+from repro_torch.kernels import registry as reg  # noqa: E402
 from repro_torch.kernels import sched_queue as sq  # noqa: E402
 from repro_torch.kernels import sched_step as ss  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -72,7 +76,7 @@ def test_cuda_kernels_match_plain(seed):
     counting one launch per call."""
     _need_card()
     rs = np.random.default_rng(seed)
-    sq.reset_launches()
+    reg.reset_launches()
     cpu = _queues(rs, "cpu")
 
     def card():
@@ -100,7 +104,7 @@ def test_cuda_kernels_match_plain(seed):
     _equal(sq.ctr_add(ctr.cuda(), 5, val.cuda()),
            sq.ctr_add_ref(ctr, 5, val), "ctr_add")
     torch.cuda.synchronize()
-    assert [sq.KERNELS[k].launches for k in sq.QUEUE_KERNELS] == [1, 1, 1]
+    assert [reg.KERNELS[k].launches for k in sq.QUEUE_KERNELS] == [1, 1, 1]
 
 
 @pytest.mark.gpu
@@ -111,7 +115,7 @@ def test_goldens_bitwise_on_the_card():
     with open(GOLDEN_PATH) as f:
         golden = json.load(f)
     cfg = dataclasses.replace(SimConfig(**golden["cfg"]), backend="cuda")
-    sq.reset_launches()
+    reg.reset_launches()
     for c in golden["cases"]:
         family, kw = golden["graphs"][c["graph"]]
         r = scheduler.run_schedule(
@@ -123,7 +127,7 @@ def test_goldens_bitwise_on_the_card():
         for name in CTR_NAMES:
             assert r.counters[name] == c["counters"].get(name, 0), \
                 (*label, name)
-    assert all(sq.KERNELS[k].launches > 0 for k in sq.QUEUE_KERNELS)
+    assert all(reg.KERNELS[k].launches > 0 for k in sq.QUEUE_KERNELS)
 
 
 def _golden():
@@ -173,7 +177,7 @@ def test_goldens_through_run_cases_on_cuda_fused(strategy):
                       n_workers=cfg.n_workers, n_zones=cfg.n_zones,
                       graph=names.index(c["graph"]), **golden["knobs"])
              for c in golden["cases"]]
-    sq.reset_launches()
+    reg.reset_launches()
     res = sweep.run_cases(graphs, specs, cfg=cfg, strategy=strategy)
     assert res.completed.all()
     for i, c in enumerate(golden["cases"]):
@@ -185,7 +189,7 @@ def test_goldens_through_run_cases_on_cuda_fused(strategy):
                 (*label, name)
     n_chunks = len({c["mode"] for c in golden["cases"]})
     want = len(specs) if strategy == "serial" else n_chunks
-    assert sq.KERNELS["sched_step"].launches == want
+    assert reg.KERNELS["sched_step"].launches == want
 
 
 #: (B, H, KV, S, Dh, dtype, window, softcap): the serving shape with and
@@ -213,10 +217,10 @@ def test_flash_kernel_matches_its_twin(shape):
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn((B, n, S, Dh), generator=gen, device="cuda"
                            ).to(getattr(torch, dtype)) for n in (H, KV, KV))
-    sq.reset_launches()
+    reg.reset_launches()
     got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
-    assert sq.KERNELS["flash_attention"].launches == 1
+    assert reg.KERNELS["flash_attention"].launches == 1
     want = ref.flash_attention(q, k, v, True, window, softcap)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     assert got.dtype == q.dtype
@@ -236,12 +240,12 @@ def test_smoke_serving_on_the_card_matches_the_cpu():
     tok = torch.randint(0, cfg.vocab, (3, 40),
                         generator=torch.Generator().manual_seed(1))
     cpu = serve.generate(params, cfg, {"tokens": tok}, 12)
-    sq.reset_launches()
+    reg.reset_launches()
     card = serve.generate(params.cuda(), cfg, {"tokens": tok.cuda()}, 12)
     assert card.launches["prefill"] == dict(
-        dict.fromkeys(sq.KERNELS, 0), flash_attention=cfg.n_layers)
-    assert card.launches["decode"] == dict.fromkeys(sq.KERNELS, 0)
-    assert sq.KERNELS["flash_attention"].launches == cfg.n_layers
+        dict.fromkeys(reg.KERNELS, 0), flash_attention=cfg.n_layers)
+    assert card.launches["decode"] == dict.fromkeys(reg.KERNELS, 0)
+    assert reg.KERNELS["flash_attention"].launches == cfg.n_layers
     torch.testing.assert_close(card.prefill_logits.cpu(),
                                cpu.prefill_logits, atol=1e-4, rtol=1e-4)
     assert torch.equal(card.ids.cpu(), cpu.ids)
@@ -289,10 +293,10 @@ def test_rwkv6_kernel_matches_its_twin(shape):
     _need_card()
     B, H, T, Dh, dtype, nonzero = RWKV_SHAPES[shape]
     args = rwkv_inputs(B, H, T, Dh, dtype, nonzero, "cuda")
-    sq.reset_launches()
+    reg.reset_launches()
     out, state = rk.rwkv6(*args)
     torch.cuda.synchronize()
-    assert sq.KERNELS["rwkv6_scan"].launches == 1
+    assert reg.KERNELS["rwkv6_scan"].launches == 1
     want, want_state = rk.plain(*args)      # rwkv6_naive on the ragged T
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     assert out.dtype == args[0].dtype and state.dtype == torch.float32
@@ -352,12 +356,121 @@ def test_smoke_rwkv_serving_on_the_card_matches_the_cpu():
     tok = torch.randint(0, cfg.vocab, (3, 40),
                         generator=torch.Generator().manual_seed(1))
     cpu = serve.generate(params, cfg, {"tokens": tok}, 12)
-    sq.reset_launches()
+    reg.reset_launches()
     card = serve.generate(params.cuda(), cfg, {"tokens": tok.cuda()}, 12)
     assert cfg.n_layers == 2
     assert card.launches["prefill"] == dict(
-        dict.fromkeys(sq.KERNELS, 0), rwkv6_scan=2)
-    assert card.launches["decode"] == dict.fromkeys(sq.KERNELS, 0)
+        dict.fromkeys(reg.KERNELS, 0), rwkv6_scan=2)
+    assert card.launches["decode"] == dict.fromkeys(reg.KERNELS, 0)
+    torch.testing.assert_close(card.prefill_logits.cpu(),
+                               cpu.prefill_logits, atol=1e-4, rtol=1e-4)
+    assert torch.equal(card.ids.cpu(), cpu.ids)
+
+
+#: (T, D, k, E, C, dtype, token groups): moonshot's prefill and decode
+#: shapes, float32, a T that is not a multiple of 256, top-1, a capacity
+#: that drops most slots, two token groups (G * E = 128 buffers), an odd row
+MOE_SHAPES = {
+    "prefill": (4096, 2048, 6, 64, 480, "bfloat16", 1),
+    "decode": (4, 2048, 6, 64, 8, "bfloat16", 1),
+    "f32": (512, 256, 2, 16, 80, "float32", 1),
+    "ragged_1000": (1000, 2048, 6, 64, 120, "bfloat16", 1),
+    "top1": (256, 512, 1, 8, 40, "bfloat16", 1),
+    "tight": (1024, 1024, 6, 64, 16, "bfloat16", 1),
+    "groups_2": (2048, 2048, 6, 64, 240, "bfloat16", 2),
+    "odd_row": (100, 13, 2, 8, 32, "bfloat16", 1),
+}
+
+
+def moe_inputs(T, D, k, E, C, dtype, G, device, seed=0):
+    """x and the (virtual expert, pos) tables of the port's own NA-RP
+    routing of random logits, as ``models.moe`` hands them to the
+    dispatch."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((T, D), generator=gen, device=device).to(
+        getattr(torch, dtype))
+    logits = torch.randn((T, E), generator=gen, device=device) * 2.0
+    tg = torch.arange(T, dtype=torch.int32, device=device) // (T // G)
+    r = balance.route(logits, k, C, balance.default_expert_groups(
+        E, min(E, 16), device), token_group=tg, n_token_groups=G)
+    ve = torch.where(r.expert >= 0, tg[:, None] * E + r.expert, -1)
+    return x, ve, r.pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(MOE_SHAPES))
+def test_moe_dispatch_kernel_matches_its_twin(shape):
+    """The CUDA MoE dispatch against its plain twin, bit for bit (the
+    kernel only moves data), one launch per call."""
+    _need_card()
+    T, D, k, E, C, dtype, G = MOE_SHAPES[shape]
+    x, ve, pos = moe_inputs(T, D, k, E, C, dtype, G, "cuda")
+    reg.reset_launches()
+    got = md.moe_dispatch(x, ve, pos, n_experts=G * E, capacity=C)
+    torch.cuda.synchronize()
+    assert reg.KERNELS["moe_dispatch"].launches == 1
+    want = ref.moe_dispatch(x, ve, pos, G * E, C)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    if shape == "tight":
+        assert int((ve < 0).sum()) > ve.numel() // 2
+
+
+@pytest.mark.gpu
+def test_moe_dispatch_kernel_keeps_the_highest_token_of_a_shared_row():
+    """Off the routing path: of slots that share a row the kernel keeps the
+    highest token's row (the Pallas kernel's last write), where the twin
+    sums them; negative and out-of-range slots are dropped by both; an
+    offset view of x is copied in narrower units."""
+    _need_card()
+    T, D, E, C = 8, 64, 2, 4
+    x = torch.randn((T + 1, D), device="cuda")[1:]
+    ve = torch.tensor([[0, 1], [0, -1], [1, 2], [-1, 0], [1, 1], [0, 0],
+                       [2, 1], [1, 0]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([[0, 0], [1, 0], [3, 0], [2, -1], [0, 9], [1, 2],
+                        [0, 1], [3, 3]], dtype=torch.int32, device="cuda")
+    got = md.moe_dispatch(x, ve, pos, n_experts=E, capacity=C).reshape(
+        E * C, D)
+    want = torch.zeros((E * C, D), device="cuda")
+    # row -> the highest token among its slots; row 6 has none, and the
+    # slots of rows past E * C - 1 are dropped
+    for row, t in {0: 0, 1: 5, 2: 5, 3: 7, 4: 4, 5: 6, 7: 7}.items():
+        want[row] = x[t]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert md.vec_bytes(x.data_ptr(), got.data_ptr(), D * 4) == 16
+    # rows of 12 bytes from an address 4 bytes past a 16-byte boundary:
+    # copied 4 bytes at a time; equal to the twin on the rows of one slot
+    odd = x.reshape(-1)[1:1 + T * 3].reshape(T, 3)
+    assert md.vec_bytes(odd.data_ptr(), 0, 12) == 4
+    clamped = pos.clamp(max=C - 1)
+    got = md.moe_dispatch(odd, ve, clamped, n_experts=E, capacity=C)
+    twin = ref.moe_dispatch(odd, ve, clamped, E, C)
+    one_slot = torch.tensor([0, 2, 3, 5, 6], device="cuda")
+    assert torch.equal(got.reshape(-1, 3)[one_slot],
+                       twin.reshape(-1, 3)[one_slot])
+
+
+@pytest.mark.gpu
+def test_smoke_moe_serving_on_the_card_matches_the_cpu():
+    """moonshot smoke weights served on the card and on the CPU: the same
+    greedy ids and close prefill logits; per MoE layer one dispatch launch
+    in the prefill and one in every decode step, and one flash launch per
+    attention layer of the prefill."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cb.smoke_config("moonshot_v1_16b_a3b")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.randint(0, cfg.vocab, (3, 40),
+                        generator=torch.Generator().manual_seed(1))
+    cpu = serve.generate(params, cfg, {"tokens": tok}, 12)
+    reg.reset_launches()
+    card = serve.generate(params.cuda(), cfg, {"tokens": tok.cuda()}, 12)
+    n = cfg.n_layers
+    zero = dict.fromkeys(reg.KERNELS, 0)
+    assert card.launches["prefill"] == dict(zero, flash_attention=n,
+                                            moe_dispatch=n)
+    assert card.launches["decode"] == dict(zero, moe_dispatch=n * 11)
     torch.testing.assert_close(card.prefill_logits.cpu(),
                                cpu.prefill_logits, atol=1e-4, rtol=1e-4)
     assert torch.equal(card.ids.cpu(), cpu.ids)

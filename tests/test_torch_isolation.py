@@ -67,9 +67,16 @@ def test_import_and_cpu_run_leave_jax_and_repro_unloaded():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.models.transformer\n"
         "import repro_torch.models.rwkv, repro_torch.kernels.rwkv6_scan\n"
+        "import repro_torch.kernels.registry, repro_torch.core.prng\n"
+        "import repro_torch.core.balance, repro_torch.models.moe\n"
+        "import repro_torch.kernels.moe_dispatch\n"
         "from repro_torch.launch import serve\n"
         "g = serve.main(['--smoke', '--batch', '1', '--prompt-len', '8', "
         "'--gen', '2', '--device', 'cpu'])\n"
+        "assert tuple(g.ids.shape) == (1, 2), g.ids\n"
+        "g = serve.main(['--arch', 'moonshot_v1_16b_a3b', '--smoke', "
+        "'--batch', '1', '--prompt-len', '8', '--gen', '2', '--device', "
+        "'cpu'])\n"
         "assert tuple(g.ids.shape) == (1, 2), g.ids\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"

@@ -18,6 +18,7 @@ from repro.core import xqueue as j_xq  # noqa: E402
 from repro.kernels import sched_queue as j_sq  # noqa: E402
 from repro_torch.core import xqueue as t_xq  # noqa: E402
 from repro_torch.core.state import to_numpy  # noqa: E402
+from repro_torch.kernels import registry as t_reg  # noqa: E402
 from repro_torch.kernels import sched_queue as t_sq  # noqa: E402
 
 W, Q, NC = 8, 4, 18
@@ -93,7 +94,7 @@ def test_pop_first_matches_pallas(seed):
 
 
 def test_cpu_wrappers_check_arguments_and_never_count():
-    t_sq.reset_launches()
+    t_reg.reset_launches()
     rs = np.random.default_rng(0)
     ctr = torch.zeros((W, NC), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -113,4 +114,4 @@ def test_cpu_wrappers_check_arguments_and_never_count():
         t_sq.pop_first(q, lane, lane.bool(), torch.tensor([W]).int())
     t_sq.ctr_add(ctr, 0, torch.ones(W, dtype=torch.int32))
     t_sq.pop_first(q, lane, lane.bool())
-    assert all(k.launches == 0 for k in t_sq.KERNELS.values())
+    assert all(k.launches == 0 for k in t_reg.KERNELS.values())

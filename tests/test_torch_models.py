@@ -300,9 +300,8 @@ def test_local_decode_cache_is_a_ring_of_the_window():
     assert np.array_equal(got.k[0, :, 40 % 32].numpy(), kt[0, :, 40 - 32])
 
 
-@pytest.mark.parametrize("arch", ("moonshot_v1_16b_a3b",
-                                  "llama4_maverick_400b_a17b", "hymba_1_5b",
-                                  "hubert_xlarge", "pixtral_12b"))
+@pytest.mark.parametrize("arch", ("hymba_1_5b", "hubert_xlarge",
+                                  "pixtral_12b"))
 def test_families_not_ported_raise(arch):
     cfg = t_cb.smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -35,7 +35,7 @@ from repro_torch.data import pipeline as t_pipe  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as t_rk  # noqa: E402
-from repro_torch.kernels import sched_queue as t_sq  # noqa: E402
+from repro_torch.kernels import registry as t_reg  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import rwkv as t_rwkv  # noqa: E402
 from repro_torch.models import transformer as t_tfm  # noqa: E402
@@ -115,13 +115,13 @@ def test_plain_path_matches_the_pallas_kernel(B, H, T, dh, bt):
     kernel in interpret mode, on the JAX package's kernel-test shapes."""
     (tr, tk, tv, tw, tu, ts), (jr, jk, jv, jw, ju, js) = both(
         recurrence_inputs(T + dh, B, H, T, dh))
-    t_sq.reset_launches()
+    t_reg.reset_launches()
     out, state = t_rk.rwkv6(tr, tk, tv, tw, tu, ts)
     j_out, j_state = rwkv6_pallas(jr, jk, jv, jw, ju, js, block_t=bt,
                                   interpret=True)
     close(out, j_out, PALLAS_TOL, "out")
     close(state, j_state, PALLAS_TOL, "state")
-    assert t_sq.KERNELS["rwkv6_scan"].launches == 0     # CPU: the twin
+    assert t_reg.KERNELS["rwkv6_scan"].launches == 0     # CPU: the twin
 
 
 def test_chunked_refuses_a_ragged_T_and_naive_takes_any():
@@ -164,7 +164,7 @@ def test_ops_dispatch_and_the_kernel_row():
     (tr, tk, tv, tw, tu, ts), (jr, jk, jv, jw, ju, js) = both(
         recurrence_inputs(4, 1, 2, 32, 16))
     want = j_ref.rwkv6_naive(jr, jk, jv, jw, ju, js)
-    t_sq.reset_launches()
+    t_reg.reset_launches()
     try:
         for impl in (None, "ref"):
             t_ops.set_impl(impl)
@@ -183,8 +183,8 @@ def test_ops_dispatch_and_the_kernel_row():
                                ju, js)
     close(got[0], j_got[0], REF_TOL["float32"])
     close(got[1], j_got[1], REF_TOL["float32"])
-    assert t_sq.KERNELS["rwkv6_scan"].launches == 0
-    row = t_sq.KERNELS["rwkv6_scan"].replaces
+    assert t_reg.KERNELS["rwkv6_scan"].launches == 0
+    row = t_reg.KERNELS["rwkv6_scan"].replaces
     assert row == "src/repro/kernels/rwkv6_scan.py:67"
     path, line = row.rsplit(":", 1)
     root = os.path.join(os.path.dirname(__file__), "..")
@@ -556,7 +556,7 @@ def test_serve_main_gives_the_jax_greedy_ids():
     assert len(np.unique(want)) > 10
     assert np.array_equal(out.ids.numpy(), want), (out.ids, want)
     assert tuple(out.prefill_logits.shape) == (4, tcfg.vocab)
-    zero = dict.fromkeys(t_sq.KERNELS, 0)
+    zero = dict.fromkeys(t_reg.KERNELS, 0)
     assert out.launches == {"prefill": zero, "decode": zero}   # CPU: twins
 
 

@@ -16,7 +16,7 @@ from repro.data import pipeline as j_pipe  # noqa: E402
 from repro.models import transformer as j_tfm  # noqa: E402
 from repro_torch.configs import base as t_cb  # noqa: E402
 from repro_torch.data import pipeline as t_pipe  # noqa: E402
-from repro_torch.kernels import sched_queue as t_sq  # noqa: E402
+from repro_torch.kernels import registry as t_reg  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as t_tfm  # noqa: E402
 
@@ -66,7 +66,7 @@ def test_generate_gives_the_jax_greedy_ids(arch):
     assert out.ids.dtype == torch.int32 and tuple(out.ids.shape) == (B, GEN)
     assert np.array_equal(out.ids.numpy(), want), (out.ids, want)
     assert tuple(out.prefill_logits.shape) == (B, tcfg.vocab)
-    zero = dict.fromkeys(t_sq.KERNELS, 0)
+    zero = dict.fromkeys(t_reg.KERNELS, 0)
     assert out.launches == {"prefill": zero, "decode": zero}   # CPU: twins
 
 
@@ -110,5 +110,4 @@ def test_main_without_a_device_needs_a_gpu():
 
 def test_main_refuses_a_family_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "moonshot_v1_16b_a3b", "--smoke", "--device",
-                    "cpu"])
+        serve.main(["--arch", "hymba_1_5b", "--smoke", "--device", "cpu"])

@@ -7,7 +7,10 @@ In order, it
 1. prints the card's name and power limit (nvidia-smi), then builds the
    port's five CUDA sources from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together, timing the build and
-   printing the compiler's register report;
+   printing the compiler's register report; then each flash kernel
+   instantiation's registers and spills and its HGMMA and UTMALDG count in
+   the SASS (cuobjdump), failing if a bf16 (wgmma) instantiation spills or
+   lacks either;
 2. reproduces the 10 cases of ``tests/golden_modes.json`` bitwise on the
    card: through ``run_schedule`` on the ``cuda`` and the ``cuda_fused``
    backends, and through ``run_cases`` on ``cuda_fused`` with the serial,
@@ -38,10 +41,16 @@ In order, it
    just before and read just after (26 flash-attention launches in the
    prefill, none while decoding), finite logits; then the same weights
    timed warm, the bf16 greedy ids of the kernel against the plain path
-   (printed, not gated), the full model in float32 at batch 2 through the
-   kernel and through its plain twin (last-position logits within 1e-3),
-   the kernel against its twin per call at the serving shape and five
-   more, and its time beside the twin's and ``scaled_dot_product_attention``'s;
+   (printed, not gated), a traced prefill (flash's device time), the full
+   model in float32 at batch 2 through the kernel and through its plain
+   twin (last-position logits within 1e-3), the kernels against their twin
+   per call on the 16 ``FLASH_CASES`` (bf16 on the wgmma kernel at every
+   head dim, S = 1, 129, 1000 and 8192, windows that bite; float32 on the
+   FMA kernel), a poisoned neighbour (KV head 1's V all inf: head 0 finite
+   and bitwise what it gives alone) at every head dim, two calls bitwise
+   equal, and the time at gemma2_2b's and moonshot_v1_16b_a3b's prefill
+   shapes beside the twin's, ``scaled_dot_product_attention``'s and the
+   bound;
 7. runs the fourth slice's path, serving rwkv6_1_6b at full width (24
    layers, d_model 2048, 32 heads of 64, d_ff 7168, vocab 65536; random
    bf16 weights made on the card from seed 0): ``serve.main`` with batch 4,
@@ -63,7 +72,8 @@ In order, it
    ``moe_dispatch`` launches in the prefill, 48 ``moe_dispatch`` a decode
    step, no other kernel), finite logits, the peak memory; then the same
    weights timed warm, a traced prefill and a traced prefill with 3 decode
-   steps, the routing counters of the prefill's layers, the prefill logits
+   steps (the dispatch's and flash's device time), the routing counters of
+   the prefill's layers, the prefill logits
    and 3 decode steps with only the dispatch swapped for its plain twin
    (bitwise equal: the kernel only moves data), the kernel against its
    twin per call, bitwise, at the model's own layer-0 routing and seven
@@ -175,7 +185,8 @@ SERVE_ARGV = ("--arch", "gemma2_2b", "--batch", str(SERVE_B), "--prompt-len",
               str(SERVE_S), "--gen", str(SERVE_GEN), "--seed", "0")
 #: the flash kernel against its twin: (label, B, H, KV, S, Dh, dtype,
 #: window, softcap) — the serving shape (a local and a full layer), a
-#: window that bites, ragged sequences and a small head
+#: window that bites, ragged sequences and a small head; the bf16 path at
+#: every head dim, S = 1, 129 and 1000, and a window of 200 over S = 1000
 FLASH_CASES = (
     ("serve_local", 4, 8, 4, 1024, 256, "bfloat16", 4096, 50.0),
     ("serve_full", 4, 8, 4, 1024, 256, "bfloat16", 0, 50.0),
@@ -185,7 +196,22 @@ FLASH_CASES = (
     ("ragged_128", 2, 4, 2, 1000, 128, "float32", 300, None),
     ("small_f32", 2, 4, 4, 96, 16, "float32", 0, 20.0),
     ("moonshot", 4, 16, 16, 1024, 128, "bfloat16", 0, None),
+    ("s1_256", 1, 2, 1, 1, 256, "bfloat16", 0, 50.0),
+    ("s129_256", 1, 4, 2, 129, 256, "bfloat16", 0, 50.0),
+    ("s1000_256", 2, 4, 2, 1000, 256, "bfloat16", 0, 50.0),
+    ("window_mid", 1, 4, 2, 1000, 256, "bfloat16", 200, 50.0),
+    ("window_128", 1, 4, 2, 1000, 128, "bfloat16", 100, None),
+    ("head_192", 1, 4, 1, 300, 192, "bfloat16", 100, None),
+    ("dh32_bf16", 2, 4, 4, 300, 32, "bfloat16", 0, None),
+    ("dh16_bf16", 2, 4, 2, 200, 16, "bfloat16", 0, 20.0),
 )
+#: the two flash kernels as the profiler names them (the wrapper's
+#: ``KERNEL_NAMES``): bf16 on the tensor cores, float32 on FMAs
+FLASH_KERNEL_KEYS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")
+#: the poisoned-neighbour check: (B, H, KV, S) at each head dim of the bf16
+#: path; KV head 1's V is all inf, so head 0's rows must never read it
+POISON_SHAPE = (1, 4, 2, 1000)
+POISON_HEAD_DIMS = (256, 192, 128, 64, 32, 16)
 #: atol = rtol per output type: bf16 rounds at 2^-8, float32 only sums in
 #: another order
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -193,11 +219,13 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 F32_LOGITS_TOL = 1e-3
 
 
-def kernel_device_us(prof, key: str):
-    """Mean device microseconds per recorded launch of the kernel whose name
-    holds ``key`` (per recorded launch: the profiler may not record every
-    launch of a short window), or None when none was recorded."""
-    rows = [e for e in prof.key_averages() if key in e.key]
+def kernel_device_us(prof, key):
+    """Mean device microseconds per recorded launch of the kernels whose
+    names hold ``key`` (one string or a tuple; per recorded launch: the
+    profiler may not record every launch of a short window), or None when
+    none was recorded."""
+    keys = (key,) if isinstance(key, str) else key
+    rows = [e for e in prof.key_averages() if any(k in e.key for k in keys)]
     n = sum(e.count for e in rows)
     return sum(e.device_time_total for e in rows) / n if n else None
 
@@ -205,8 +233,8 @@ def kernel_device_us(prof, key: str):
 def traced_generate(torch, serve, params, cfg, tokens, gen, kernel_key):
     """One ``serve.generate`` under the profiler: device busy time and
     share of the wall time, kernel launches, the device time of the
-    kernels whose names hold ``kernel_key`` (one string or a tuple), and
-    the largest device ops."""
+    kernels whose names hold ``kernel_key`` (one string or a tuple) and of
+    the flash kernels, and the largest device ops."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -218,28 +246,179 @@ def traced_generate(torch, serve, params, cfg, tokens, gen, kernel_key):
     keys = (kernel_key,) if isinstance(kernel_key, str) else kernel_key
     mine_us = sum(e.self_device_time_total for e in kern
                   if any(k in e.key for k in keys))
+    flash_us = sum(e.self_device_time_total for e in kern
+                   if any(k in e.key for k in FLASH_KERNEL_KEYS))
     wall_us = (run.prefill_s + run.decode_s) * 1e6
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_busy_share=busy_us / wall_us,
         launches=sum(e.count for e in kern), kernel_ms=mine_us / 1e3,
         kernel_share_of_device=mine_us / busy_us if busy_us else 0.0,
+        flash_ms=flash_us / 1e3,
         top=[(e.key[:70], e.self_device_time_total, e.count)
              for e in sorted(kern, key=lambda e: -e.self_device_time_total)
              [:8]])
 
 
-def serve_phase(torch, dev, reg):
-    """Phase 6: serve gemma2_2b at full width through the flash kernel and
-    hold it against its plain twin.  Returns (the kernel's row, report)."""
+def flash_checks(torch, dev):
+    """The flash kernels against their plain twin, call by call
+    (``FLASH_CASES``: bf16 within 2e-2, float32 within 1e-4); the poisoned
+    neighbour (finite, and bitwise what the head gives alone); two calls
+    bitwise equal; then the time at gemma2_2b's and moonshot_v1_16b_a3b's
+    prefill shapes beside the twin's, ``scaled_dot_product_attention``'s
+    and the bound.  Returns ``{"flash_errors", "flash_timed"}``."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as fref
+
+    check(set(fa.KERNEL_NAMES.values()) == set(FLASH_KERNEL_KEYS),
+          f"flash kernels {fa.KERNEL_NAMES} are not {FLASH_KERNEL_KEYS}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(b, h, kv, s, dh, dtype):
+        return tuple(torch.randn((b, n, s, dh), generator=gen, device=dev
+                                 ).to(dtype) for n in (h, kv, kv))
+
+    errs = {}
+    for label, b, h, kv, s, dh, dtype, window, softcap in FLASH_CASES:
+        q, k, v = qkv(b, h, kv, s, dh, getattr(torch, dtype))
+        got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
+        want = fref.flash_attention(q, k, v, True, window, softcap)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        errs[label] = float((got.float() - want.float()).abs().max())
+        check(got.dtype == q.dtype and within(got, want, tol),
+              f"flash_attention {label}: max abs err {errs[label]} beyond "
+              f"{tol}")
+        print(f"  flash {label:12s} B={b} H={h} KV={kv} S={s} Dh={dh} "
+              f"{dtype} window={window} softcap={softcap} "
+              f"({fa.KERNEL_NAMES[q.dtype]}): max abs err "
+              f"{errs[label]:.3g} (tol {tol})", flush=True)
+
+    # KV head 1's V all inf: query heads of KV head 0 stay finite and equal
+    # to what they give alone (no tile reads past S into the next head)
+    b, h, kv, s = POISON_SHAPE
+    rep = h // kv
+    for dh, dtype in ([(d, torch.bfloat16) for d in POISON_HEAD_DIMS]
+                      + [(256, torch.float32)]):
+        q, k, v = qkv(b, h, kv, s, dh, dtype)
+        v[:, 1] = float("inf")
+        got = fa.flash_attention(q, k, v, softcap=50.0)[:, :rep]
+        alone = fa.flash_attention(q[:, :rep].contiguous(),
+                                   k[:, :1].contiguous(),
+                                   v[:, :1].contiguous(), softcap=50.0)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()) and torch.equal(got, alone),
+              f"poisoned neighbour Dh={dh} {dtype}: head 0 is not finite "
+              "or differs from head 0 alone")
+        print(f"  poisoned neighbour Dh={dh} S={s} {str(dtype)[6:]}: KV "
+              "head 0 finite and bitwise equal to it alone", flush=True)
+
+    timed = {}
+    for name, (b, h, kv, s, dh), softcap in (
+            ("gemma2_2b", (SERVE_B, 8, 4, SERVE_S, 256), 50.0),
+            ("moonshot_v1_16b_a3b", (SERVE_B, 16, 16, SERVE_S, 128), None)):
+        q, k, v = qkv(b, h, kv, s, dh, torch.bfloat16)
+        first = fa.flash_attention(q, k, v, softcap=softcap)
+        second = fa.flash_attention(q, k, v, softcap=softcap)
+        torch.cuda.synchronize()
+        check(torch.equal(first, second),
+              f"two flash calls at the {name} shape differ")
+        ms = cuda_time_ms(
+            lambda i: fa.flash_attention(q, k, v, softcap=softcap), 50,
+            torch)
+        plain_ms = cuda_time_ms(
+            lambda i: fref.flash_attention(q, k, v, True, 0, softcap), 10,
+            torch)
+        ke, ve = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+        lib_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True), 50, torch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fa.flash_attention(q, k, v, softcap=softcap)
+            torch.cuda.synchronize()
+        dev_us = kernel_device_us(prof, FLASH_KERNEL_KEYS)
+        flops = 4 * dh * b * h * s * (s + 1) / 2
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           device_us=dev_us, flops=flops, bytes=nbytes,
+                           bound_ms=bnd, bound_by=by,
+                           tflops=flops / ms / 1e9)
+        print(f"flash_attention at {name}'s {b}x{h}/{kv}x{s}x{dh} bf16 "
+              f"(softcap {softcap}): {ms:.4f} ms a call "
+              f"({flops / ms / 1e9:.2f} TFLOP/s, {ms / bnd:.2f}x its bound; "
+              f"device {f'{dev_us:.1f} us' if dev_us else 'not measured'}), "
+              f"bound {bnd:.5f} ms ({by}), twin {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.2f}x its time); two calls bitwise equal",
+              flush=True)
+    return dict(flash_errors=errs, flash_timed=timed)
+
+
+def flash_build_report(lib, log: str) -> dict:
+    """Registers and spills of each flash kernel instantiation from the
+    ptxas report in the build log, and its wgmma / TMA instructions in the
+    SASS (cuobjdump, where the toolkit has it).  Fails if a bf16
+    instantiation spills or has no HGMMA or UTMALDG."""
+    import os
+    import re
+    import shutil
+
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(flash_fwd_\w*?kernel)"
+                      r"I\w*?Li(\d+)E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+            found[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            found[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found[name]["registers"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = {}
+    if os.path.exists(tool):
+        dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300).stdout
+        for part in dump.split("Function : ")[1:]:
+            m = re.match(r"\w*?(flash_fwd_\w*?kernel)I\w*?Li(\d+)E", part)
+            if m:
+                sass[f"{m.group(1)}<{m.group(2)}>"] = {
+                    op: len(re.findall(rf"\b{op}\b", part))
+                    for op in ("HGMMA", "UTMALDG")}
+    for name, info in found.items():
+        print(f"  {name}: {info.get('registers')} registers, "
+              f"{info.get('spill_stores')} / {info.get('spill_loads')} bytes "
+              f"spilled (stores / loads); SASS "
+              f"{sass.get(name, 'not read (no cuobjdump)')}", flush=True)
+        if "wgmma" in name:
+            check(info.get("spill_stores") == 0
+                  and info.get("spill_loads") == 0,
+                  f"{name} spills: {info}")
+            check(not sass or (sass[name]["HGMMA"] > 0
+                               and sass[name]["UTMALDG"] > 0),
+                  f"{name} has no HGMMA or UTMALDG: {sass.get(name)}")
+    check(not log or sum("wgmma" in n for n in found) == 6,
+          f"ptxas reported {sorted(found)}")
+    return dict(ptxas=found, sass=sass)
+
+
+def serve_phase(torch, dev, reg):
+    """Phase 6: serve gemma2_2b at full width through the flash kernel and
+    hold it against its plain twin.  Returns (the kernel's row, report)."""
     from repro_torch.configs import base as cb
     from repro_torch.data.pipeline import batch_for
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ref as fref
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
 
@@ -317,13 +496,15 @@ def serve_phase(torch, dev, reg):
     # decode steps (decoding is the difference)
     out["traced"] = {
         k: traced_generate(torch, serve, params, cfg, tokens, gen,
-                           "flash_fwd_kernel")
+                           FLASH_KERNEL_KEYS)
         for k, gen in (("prefill", 1), ("prefill_and_3_steps", 4))}
     for k, t in out["traced"].items():
         print(f"serve (traced, {k}): device busy {t['device_busy_ms']:.2f} "
               f"ms of {t['wall_ms']:.2f} ms wall "
               f"({100 * t['device_busy_share']:.1f} %), {t['launches']} "
-              f"kernel launches; top: {t['top'][:4]}", flush=True)
+              f"kernel launches, flash {t['flash_ms']:.3f} ms "
+              f"({100 * t['kernel_share_of_device']:.1f} % of device "
+              f"time); top: {t['top'][:4]}", flush=True)
     del params, warm, plain
 
     # the full model in float32: kernel against the plain path
@@ -355,56 +536,12 @@ def serve_phase(torch, dev, reg):
           flush=True)
     del params, k_last, r_last
 
-    # the kernel against its twin, call by call
-    gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {}
-    for label, b, h, kv, s, dh, dtype, window, softcap in FLASH_CASES:
-        q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev
-                               ).to(getattr(torch, dtype))
-                   for n in (h, kv, kv))
-        got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
-        want = fref.flash_attention(q, k, v, True, window, softcap)
-        torch.cuda.synchronize()
-        tol = FLASH_TOL[dtype]
-        errs[label] = float((got.float() - want.float()).abs().max())
-        check(got.dtype == q.dtype and within(got, want, tol),
-              f"flash_attention {label}: max abs err {errs[label]} beyond "
-              f"{tol}")
-        print(f"  flash {label:12s} B={b} H={h} KV={kv} S={s} Dh={dh} "
-              f"{dtype} window={window} softcap={softcap}: max abs err "
-              f"{errs[label]:.3g} (tol {tol})", flush=True)
-    out["flash_errors"] = errs
-
-    # its time at the serving shape (a full layer), beside the twin's and
-    # one library call's (no softcap, no window: a cheaper function)
-    b, h, kv, s, dh = 4, 8, 4, S, 256
-    q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev
-                           ).to(torch.bfloat16) for n in (h, kv, kv))
-    ms = cuda_time_ms(lambda i: fa.flash_attention(q, k, v, softcap=50.0),
-                      50, torch)
-    plain_ms = cuda_time_ms(
-        lambda i: fref.flash_attention(q, k, v, True, 0, 50.0), 10, torch)
-    ke, ve = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
-    lib_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        q, ke, ve, is_causal=True), 50, torch)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fa.flash_attention(q, k, v, softcap=50.0)
-        torch.cuda.synchronize()
-    dev_us = kernel_device_us(prof, "flash_fwd_kernel")
-    flops = 4 * dh * b * h * s * (s + 1) / 2
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-    out["flash_timed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              device_us=dev_us, flops=flops,
-                              bytes=nbytes, bound_ms=bnd, bound_by=by,
-                              tflops=flops / ms / 1e9)
-    print(f"flash_attention at 4x8x1024x256 bf16: {ms:.4f} ms a call "
-          f"({flops / ms / 1e9:.2f} TFLOP/s; device "
-          f"{f'{dev_us:.1f} us' if dev_us else 'time not measured'}), "
-          f"bound {bnd:.5f} ms ({by}), twin {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
+    # the kernel against its twin, call by call, and its time
+    out.update(flash_checks(torch, dev))
+    t = out["flash_timed"]["gemma2_2b"]
+    ms, plain_ms, lib_ms, bnd, by = (t[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
+    errs = out["flash_errors"]
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces=reg.KERNELS["flash_attention"].replaces,
@@ -806,7 +943,8 @@ def moe_phase(torch, dev, reg):
               f"({100 * t['device_busy_share']:.1f} %), {t['launches']} "
               f"kernel launches, moe_dispatch {t['kernel_ms']:.3f} ms "
               f"({100 * t['kernel_share_of_device']:.1f} % of device "
-              f"time); top: {t['top'][:6]}", flush=True)
+              f"time), flash {t['flash_ms']:.3f} ms; top: {t['top'][:6]}",
+              flush=True)
 
     # the routing counters of the prefill's layers, and layer 0's dispatch
     # inputs, taken as the model hands them over
@@ -997,6 +1135,7 @@ def run(torch) -> int:
         print(f"built {path.name}", flush=True)
     print(f"built {len(logs)} sources in {report['build_s']:.2f} s",
           flush=True)
+    report["flash_build"] = flash_build_report(*logs["flash_attention"])
 
     # 2. the goldens, bitwise: run_schedule on cuda and cuda_fused, then
     # run_cases on cuda_fused with every executor

@@ -5,7 +5,10 @@ The port of the JAX package's Pallas kernel
 causal / sliding-window attention forward with an online softmax, float32
 accumulators and a tanh softcap, written by hand in CUDA C++ for Hopper
 (``csrc/flash_attention.cu``; the source says what bounds it and what its
-design does about it).  It is built and bound the way every kernel of the
+design does about it).  The input type picks the kernel
+(:data:`KERNEL_NAMES`): bfloat16 runs ``flash_fwd_wgmma_kernel`` on the
+tensor cores (``wgmma``, TMA loads), float32 runs ``flash_fwd_kernel`` on
+float32 FMAs.  It is built and bound the way every kernel of the
 package is (:mod:`repro_torch.kernels.registry`: nvcc into
 ``build/repro_torch_kernels/<hash>/``, ``ctypes``, the current stream) and
 counted in the package's one registry, ``registry.KERNELS``.
@@ -39,6 +42,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 #: the kernel's I/O types, by the code its C entry point takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the CUDA kernel each I/O type runs, as the profiler names it
+KERNEL_NAMES = {torch.float32: "flash_fwd_kernel",
+                torch.bfloat16: "flash_fwd_wgmma_kernel"}
 
 
 def build() -> tuple[Path, str]:
@@ -91,6 +97,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, S, Dh = q.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head dim {Dh} is not one of {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("bfloat16 q, k and v must start on a 16-byte "
+                         "boundary (TMA)")
     out = torch.empty_like(q)
     err = _library().fa_forward(
         *map(reg.ptr, (q, k, v, out)), B, H, k.shape[1], S, Dh,

@@ -149,3 +149,70 @@ def test_wrapper_checks_its_inputs():
         t_fa.flash_attention(tq, tk[:, :, :8].contiguous(), tv)
     assert t_reg.KERNELS["flash_attention"].replaces == \
         "src/repro/kernels/flash_attention.py:105"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [16, 64, 256])
+def test_plain_twin_never_reads_the_next_head(Dh, dtype):
+    """KV head 1's V all inf: the query heads of KV head 0 stay finite and
+    equal what they give alone, at a ragged S.  The CUDA kernels are held
+    to the same rule on the card, bit for bit (``tests/test_torch_gpu.py``);
+    this is its oracle.  The CPU's matrix product may sum in another order
+    for another number of heads, so here "equal" is within 1e-5."""
+    B, H, KV, S = 1, 4, 2, 100
+    (tq, tk, tv), _ = both(qkv(Dh + S, B, H, KV, S, Dh), dtype, jnp.float32)
+    tv[:, 1] = float("inf")
+    rep = H // KV
+    got = t_fa.flash_attention(tq, tk, tv, softcap=50.0)
+    alone = t_fa.flash_attention(tq[:, :rep].contiguous(),
+                                 tk[:, :1].contiguous(),
+                                 tv[:, :1].contiguous(), softcap=50.0)
+    assert torch.isfinite(got[:, :rep]).all()
+    close(got[:, :rep], alone.float().numpy(), F32_TOL)
+    assert not torch.isfinite(got[:, rep:]).all()
+
+
+def test_each_dtype_names_its_kernel():
+    """The wrapper runs one CUDA kernel per I/O type; ``chip_smoke.py``
+    reads both from the profiler by these names."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert set(t_fa.KERNEL_NAMES) == set(t_fa.DTYPES)
+    assert t_fa.KERNEL_NAMES[torch.bfloat16] == "flash_fwd_wgmma_kernel"
+    assert t_fa.KERNEL_NAMES[torch.float32] == "flash_fwd_kernel"
+    assert set(chip_smoke.FLASH_KERNEL_KEYS) == \
+        set(t_fa.KERNEL_NAMES.values())
+
+
+def test_wgmma_kernel_softcap_arithmetic():
+    """The bf16 kernel's branch-free softcap, emulated in float32 numpy
+    (``csrc/flash_attention.cu``: ``div_rn``, ``tanh_f32``).  x / cap as
+    ``q = x * r; q + (x - q * cap) * r`` with r the rounded 1 / cap and
+    FMAs (exact in float64 here) equals IEEE division bit for bit; tanh as
+    ``1 - 2 / (e^(2|y|) + 1)`` with each step rounded to float32 is within
+    2e-7 of tanh.  The card's ex2 / rcp add up to 2 ulp each."""
+    rs = np.random.default_rng(0)
+    f32 = np.float32
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(f32)
+
+    for cap in (50.0, 30.0, 20.0, 7.0):
+        d = f32(cap)
+        r = f32(1) / d
+        x = np.concatenate([rs.standard_normal(200_000) * sc for sc in
+                            (1e-3, 1.0, 30.0, 1e4)]).astype(f32)
+        q = x * r
+        got = fma(fma(-q, d, x), r, q)
+        np.testing.assert_array_equal(got, x / d)
+    y = np.concatenate([np.linspace(-20, 20, 400_001),
+                        np.linspace(-1e-3, 1e-3, 20_001)]).astype(f32)
+    e = np.exp2((f32(2 * 1.4426950408889634) * np.abs(y)).astype(f32)
+                .astype(np.float64)).astype(f32)
+    rcp = (1.0 / (e.astype(np.float64) + 1.0)).astype(f32)
+    t = np.copysign(fma(np.full_like(rcp, -2), rcp, np.ones_like(rcp)), y)
+    assert np.abs(t - np.tanh(y.astype(np.float64))).max() < 2e-7

@@ -193,7 +193,9 @@ def test_goldens_through_run_cases_on_cuda_fused(strategy):
 
 
 #: (B, H, KV, S, Dh, dtype, window, softcap): the serving shape with and
-#: without its window, a window that bites, ragged sequences, a small head
+#: without its window, a window that bites, ragged sequences, a small head;
+#: the bf16 (wgmma) path at every head dim, S = 1, 129 and 1000, and a
+#: window of 200 over S = 1000
 FLASH_SHAPES = {
     "serve_local": (4, 8, 4, 1024, 256, "bfloat16", 4096, 50.0),
     "serve_full": (4, 8, 4, 1024, 256, "bfloat16", 0, 50.0),
@@ -203,7 +205,21 @@ FLASH_SHAPES = {
     "ragged_128": (2, 4, 2, 1000, 128, "float32", 300, None),
     "small_f32": (2, 4, 4, 96, 16, "float32", 0, 20.0),
     "head_192": (1, 4, 1, 300, 192, "bfloat16", 100, None),
+    "moonshot": (4, 16, 16, 1024, 128, "bfloat16", 0, None),
+    "s1_256": (1, 2, 1, 1, 256, "bfloat16", 0, 50.0),
+    "s129_256": (1, 4, 2, 129, 256, "bfloat16", 0, 50.0),
+    "s1000_256": (2, 4, 2, 1000, 256, "bfloat16", 0, 50.0),
+    "window_mid": (1, 4, 2, 1000, 256, "bfloat16", 200, 50.0),
+    "s1000_192": (1, 4, 2, 1000, 192, "bfloat16", 0, 50.0),
+    "dh32_bf16": (2, 4, 4, 300, 32, "bfloat16", 0, None),
+    "dh16_bf16": (2, 4, 2, 200, 16, "bfloat16", 0, 20.0),
 }
+
+
+def _flash_inputs(B, H, KV, S, Dh, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((B, n, S, Dh), generator=gen, device="cuda"
+                             ).to(getattr(torch, dtype)) for n in (H, KV, KV))
 
 
 @pytest.mark.gpu
@@ -214,9 +230,7 @@ def test_flash_kernel_matches_its_twin(shape):
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     B, H, KV, S, Dh, dtype, window, softcap = FLASH_SHAPES[shape]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((B, n, S, Dh), generator=gen, device="cuda"
-                           ).to(getattr(torch, dtype)) for n in (H, KV, KV))
+    q, k, v = _flash_inputs(B, H, KV, S, Dh, dtype)
     reg.reset_launches()
     got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
@@ -226,6 +240,53 @@ def test_flash_kernel_matches_its_twin(shape):
     assert got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_kernel_without_the_causal_mask(dtype):
+    """Both kernels with ``causal=False`` (every key visible, and a window
+    on both sides) against the twin, at a ragged S."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(1, 4, 2, 300, 128, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for window in (0, 100):
+        got = fa.flash_attention(q, k, v, causal=False, window=window)
+        want = ref.flash_attention(q, k, v, False, window, None)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_kernel_gives_the_same_bits_twice(dtype):
+    """No atomics: two calls on the same inputs are bitwise equal."""
+    _need_card()
+    q, k, v = _flash_inputs(4, 8, 4, 1024, 256, dtype)
+    first = fa.flash_attention(q, k, v, softcap=50.0)
+    second = fa.flash_attention(q, k, v, softcap=50.0)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh,dtype", [(d, "bfloat16") for d in fa.HEAD_DIMS]
+                         + [(256, "float32")])
+def test_flash_kernel_never_reads_the_next_head(Dh, dtype):
+    """KV head 1's V all inf at a ragged S: the query heads of KV head 0
+    stay finite and bitwise equal to what they give alone, so no tile
+    reads past S into the next head (0 * inf would be NaN).  The twin's
+    oracle is in ``tests/test_torch_attention.py``."""
+    _need_card()
+    B, H, KV, S = 1, 4, 2, 1000
+    q, k, v = _flash_inputs(B, H, KV, S, Dh, dtype)
+    v[:, 1] = float("inf")
+    rep = H // KV
+    got = fa.flash_attention(q, k, v, softcap=50.0)[:, :rep]
+    alone = fa.flash_attention(q[:, :rep].contiguous(), k[:, :1].contiguous(),
+                               v[:, :1].contiguous(), softcap=50.0)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, alone)
 
 @pytest.mark.gpu
 def test_smoke_serving_on_the_card_matches_the_cpu():

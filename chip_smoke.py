@@ -10,7 +10,8 @@ In order, it
    printing the compiler's register report; then each flash kernel
    instantiation's registers and spills and its HGMMA and UTMALDG count in
    the SASS (cuobjdump), failing if a bf16 (wgmma) instantiation spills or
-   lacks either;
+   lacks either, and each ``sched_step_kernel`` instantiation's registers,
+   stack frame and spills, failing on a stack frame or a spill;
 2. reproduces the 10 cases of ``tests/golden_modes.json`` bitwise on the
    card: through ``run_schedule`` on the ``cuda`` and the ``cuda_fused``
    backends, and through ``run_cases`` on ``cuda_fused`` with the serial,
@@ -22,6 +23,8 @@ In order, it
    ``quad_socket_48`` at W=48, each with the ``cuda``, ``cuda_fused`` and
    ``reference`` backends, and requires the final states to be equal leaf
    for leaf.  Launch counts are zeroed just before and read just after;
+   ``cuda`` may launch ``ctr_add`` at most 12 times a step (one launch per
+   run of counter bumps);
 4. runs this slice's path, the batched sweep: one ``run_cases`` call on
    ``cuda_fused`` (batched executor) over the 12-point lattice × {flat W=64,
    ``quad_socket_48`` W=48, ``two_node_2x24`` W=96} × the two bench graphs,
@@ -30,10 +33,16 @@ In order, it
    ran must equal phase 3's, and the cluster preset must equal the
    ``reference`` backend at smoke scale;
 5. holds each kernel against its plain PyTorch twin at the main path's
-   shapes (the fused step with ``max_iters = 1`` on mid-run NA-WS, NA-RP and
-   gomp states, flat, NUMA and cluster) and times kernel, twin and, where
-   one exists, the one PyTorch call computing the same function, with CUDA
-   events;
+   shapes (``ctr_add`` with one pair and with the spawn phase's seven; the
+   fused step with ``max_iters = 1`` on mid-run NA-WS, NA-RP and gomp
+   states, flat, NUMA and cluster) and times kernel, twin and, where one
+   exists, the one PyTorch call computing the same function, with CUDA
+   events; beside them the 7-pair ``ctr_add`` against seven ``+=`` calls,
+   a gomp step beside the NA-WS step, one whole-run launch (``fib(16)``
+   NA-WS at W=64) and the sweep's mean wall and device time per chunk
+   launch (``repro_torch.step_bench``); then whole NA-WS runs at W=144 and
+   W=200, the fused kernel's two wider launch shapes (heads and tails in
+   shared, then in device memory), against ``reference``;
 6. runs the third slice's path, serving gemma2_2b at full width (26
    layers, d_model 2304, vocab 256000, head dim 256, window 4096; random
    bf16 weights made on the card from seed 0): ``repro_torch.launch.serve``
@@ -363,7 +372,8 @@ def flash_build_report(lib, log: str) -> dict:
     """Registers and spills of each flash kernel instantiation from the
     ptxas report in the build log, and its wgmma / TMA instructions in the
     SASS (cuobjdump, where the toolkit has it).  Fails if a bf16
-    instantiation spills or has no HGMMA or UTMALDG."""
+    instantiation spills, has no HGMMA or UTMALDG, or is missing from the
+    report (a cached build returns the log kept beside its library)."""
     import os
     import re
     import shutil
@@ -408,9 +418,48 @@ def flash_build_report(lib, log: str) -> dict:
             check(not sass or (sass[name]["HGMMA"] > 0
                                and sass[name]["UTMALDG"] > 0),
                   f"{name} has no HGMMA or UTMALDG: {sass.get(name)}")
-    check(not log or sum("wgmma" in n for n in found) == 6,
+    check(sum("wgmma" in n for n in found) == 6,
           f"ptxas reported {sorted(found)}")
     return dict(ptxas=found, sass=sass)
+
+
+def sched_step_build_report(log: str) -> dict:
+    """Registers, stack frame and spills of each ``sched_step_kernel``
+    instantiation from the ptxas report in the build log (a cached build
+    returns the log kept beside its library).  Fails on a stack frame or a
+    spill, or if an instantiation is missing."""
+    import re
+
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?sched_step_kernel"
+                      r"ILi(\d+)E", line)
+        if m:
+            name = f"sched_step_kernel<{m.group(1)}>"
+            found[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            found[name].update(stack_frame=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found[name]["registers"] = int(m.group(1))
+            name = None
+    for name, info in found.items():
+        print(f"  {name}: {info.get('registers')} registers, "
+              f"{info.get('stack_frame')} bytes stack frame, "
+              f"{info.get('spill_stores')} / {info.get('spill_loads')} bytes "
+              "spilled (stores / loads)", flush=True)
+        check(info.get("stack_frame") == 0 and info.get("spill_stores") == 0
+              and info.get("spill_loads") == 0,
+              f"{name} uses local memory: {info}")
+    check(sorted(found) == ["sched_step_kernel<1024>",
+                            "sched_step_kernel<128>"],
+          f"ptxas reported {sorted(found)}")
+    return found
 
 
 def serve_phase(torch, dev, reg):
@@ -1100,7 +1149,7 @@ def main() -> int:
 def run(torch) -> int:
     import numpy as np
 
-    from repro_torch import apps
+    from repro_torch import apps, step_bench
     from repro_torch.core import executors, plan, scheduler, sweep, xqueue
     from repro_torch.core.spec import LATTICE, MODE_SPECS, RuntimeSpec
     from repro_torch.core.state import (CTR, CTR_NAMES, NC, SimConfig,
@@ -1136,6 +1185,8 @@ def run(torch) -> int:
     print(f"built {len(logs)} sources in {report['build_s']:.2f} s",
           flush=True)
     report["flash_build"] = flash_build_report(*logs["flash_attention"])
+    report["sched_step_build"] = sched_step_build_report(
+        logs["sched_step"][1])
 
     # 2. the goldens, bitwise: run_schedule on cuda and cuda_fused, then
     # run_cases on cuda_fused with every executor
@@ -1238,6 +1289,13 @@ def run(torch) -> int:
     check(main_launches["sched_step"] == len(main_runs),
           f"cuda_fused took {main_launches['sched_step']} launches for "
           f"{len(main_runs)} runs")
+    # one ctr_add launch per run of counter bumps: at most 12 a step
+    check(main_launches["ctr_add"] <= 12 * steps,
+          f"cuda took {main_launches['ctr_add']} ctr_add launches for "
+          f"{steps} steps")
+    print(f"main path: {steps} steps, {main_launches['ctr_add']} ctr_add "
+          f"launches on cuda ({main_launches['ctr_add'] / steps:.2f} a "
+          "step)", flush=True)
     report["main_path"] = dict(cases=cases, steps=steps, wall_s=wall,
                                launches=main_launches)
 
@@ -1354,12 +1412,19 @@ def run(torch) -> int:
                    for x, y in zip(a, b))
 
     kernels = []
-    # ctr_add: ctr[:, col] += val
+    # ctr_add: ctr[:, col] += val, one pair; and the spawn phase's run of 7
+    # pairs (bool and int32 values, a repeated column) in one launch,
+    # beside 7 `+=` calls
     ctr = t(rs.integers(0, 10**6, (W, NC)).astype(np.int32))
     val = t(rs.integers(0, 100, W).astype(np.int32))
     col = 15
-    err = max_err([sq.ctr_add(ctr.clone(), col, val)],
-                  [sq.PLAIN["ctr_add"](ctr, col, val)])
+    pairs7 = [(c, t(rs.random(W) < 0.5) if c % 2 else
+               t(rs.integers(0, 100, W).astype(np.int32)))
+              for c in (4, 14, 9, 10, 11, 16, 14)]
+    err = max(max_err([sq.ctr_add(ctr.clone(), col, val)],
+                      [sq.PLAIN["ctr_add"](ctr, col, val)]),
+              max_err([sq.ctr_add(ctr.clone(), pairs7)],
+                      [sq.PLAIN["ctr_add"](ctr, pairs7)]))
     work = ctr.clone()
     ms = cuda_time_ms(lambda i: sq.ctr_add(work, col, val), n_time, torch)
     plain_ms = cuda_time_ms(lambda i: sq.PLAIN["ctr_add"](ctr, col, val),
@@ -1368,7 +1433,23 @@ def run(torch) -> int:
     def library(i):
         work[:, col] += val
 
+    def library7(i):
+        for c, v in pairs7:
+            work[:, c] += v
+
     lib_ms = cuda_time_ms(library, n_time, torch)
+    ms7 = cuda_time_ms(lambda i: sq.ctr_add(work, pairs7), n_time, torch)
+    lib7_ms = cuda_time_ms(library7, n_time, torch)
+    ms_again = cuda_time_ms(lambda i: sq.ctr_add(work, col, val), n_time,
+                            torch)
+    lib_again = cuda_time_ms(library, n_time, torch)
+    report["ctr_add_timed"] = dict(one_ms=[ms, ms_again],
+                                   one_library_ms=[lib_ms, lib_again],
+                                   seven_ms=ms7, seven_library_ms=lib7_ms)
+    print(f"ctr_add: one pair {ms:.5f} / {ms_again:.5f} ms against "
+          f"`ctr[:, col] += val` {lib_ms:.5f} / {lib_again:.5f}; 7 pairs "
+          f"in one launch {ms7:.5f} ms against 7 `+=` {lib7_ms:.5f}",
+          flush=True)
     b, by = bound_ms(3 * W * 4, W)
     kernels.append(dict(name="ctr_add", max_abs_err=err, ms=ms,
                         plain_ms=plain_ms, bound_ms=b, bound_by=by,
@@ -1490,9 +1571,39 @@ def run(torch) -> int:
     kernels.append(dict(name="sched_step", max_abs_err=step_err, ms=ms,
                         plain_ms=plain_ms, bound_ms=b, bound_by=by,
                         library_ms=None))
-    report["sched_step_timed"] = dict(step=int(mid.state.step_i),
-                                      pushes=pushes, pops=pops, moved=moved,
-                                      bytes=step_bytes)
+    # beside it: a gomp step, a whole run in one launch (fib(16) NA-WS at
+    # W=64, as phase 3 runs it) and the sweep's chunk launches
+    gomp_ms = step_bench.step_ms(bench["uts"], "gomp", dev)
+    run_ms = step_bench.whole_run_ms(bench["fib"], "na_ws", dev)
+    chunk = step_bench.sweep_times(bench, dev)
+    report["sched_step_timed"] = dict(
+        step=int(mid.state.step_i), pushes=pushes, pops=pops, moved=moved,
+        bytes=step_bytes, naws_step_ms=ms, gomp_step_ms=gomp_ms,
+        whole_run_ms=run_ms, sweep=chunk)
+    print(f"sched_step: a NA-WS step {ms:.5f} ms, a gomp step "
+          f"{gomp_ms:.5f} ms, a whole fib(16) NA-WS run in one launch "
+          f"{run_ms:.4f} ms; sweep chunk launches {chunk['chunk_wall_ms']:.3f}"
+          f" ms wall, {chunk['chunk_device_ms']} ms device each "
+          f"({chunk['configs_per_s']:.1f} configs/s)", flush=True)
+
+    # each launch shape of the kernel against reference over a whole run:
+    # W=64 (128 threads) in phase 3; here W=144 (1024 threads, heads and
+    # tails in shared memory) and W=200 (1024 threads, in device memory)
+    wide = apps.build("fib", n=12)
+    for w, topo in ((144, "quad_socket_48"), (200, None)):
+        out = {b: scheduler.run(wide, spec=MODE_SPECS["na_ws"],
+                                cfg=SimConfig(n_workers=w, backend=b),
+                                topology=topo, device=dev)
+               for b in ("cuda_fused", "reference")}
+        check(states_equal(out["cuda_fused"].state, out["reference"].state,
+                           to_numpy),
+              f"W={w} {topo}: cuda_fused and reference final states differ")
+        print(f"  W={w} {topo or 'flat'} (heads and tails in "
+              f"{'shared' if ss.resident(w) else 'device'} memory): "
+              f"{int(out['reference'].state.step_i)} steps, cuda_fused == "
+              "reference", flush=True)
+    check(not ss.resident(200) and ss.resident(144),
+          "the W=200 run did not take the device-memory instantiation")
 
     for k in kernels:
         check(k["max_abs_err"] == 0, f"kernel {k['name']} disagrees with its "

@@ -39,13 +39,19 @@ from repro_torch.core.state import (CTR, K_SPAWN, NV_CAP, WS_CAP,
 I32 = torch.int32
 
 
+#: the most ``(column, value)`` pairs one ``StepOps.ctr_add`` call takes
+CTR_PAIRS_MAX = 16
+
+
 class StepOps(NamedTuple):
     """The pluggable inner kernels of the step body (a backend's identity).
 
     ``push``/``pop_first`` carry :func:`xqueue.push` /
     :func:`xqueue.pop_first` signatures; ``ctr_add(ctr, col, val)`` adds the
-    (W,) int32 ``val`` into counter column ``col``.  Implementations must be
-    bitwise identical to the plain versions.
+    (W,) int32 or bool ``val`` into counter column ``col``, and
+    ``ctr_add(ctr, pairs)`` adds each ``(col, val)`` of a sequence of up to
+    :data:`CTR_PAIRS_MAX` pairs in order (:func:`ctr_add_ref`).
+    Implementations must be bitwise identical to the plain versions.
     """
     name: str
     push: Callable
@@ -53,11 +59,24 @@ class StepOps(NamedTuple):
     ctr_add: Callable
 
 
-def ctr_add_ref(ctr: torch.Tensor, col: int, val: torch.Tensor
-                ) -> torch.Tensor:
-    """Plain ``ctr[:, col] += val`` (functional: returns a new tensor)."""
+def ctr_pairs(col_or_pairs, val=None) -> tuple:
+    """The ``(column, value)`` pairs of a ``ctr_add`` call: the one pair
+    ``(col, val)``, or a sequence of pairs when ``val`` is left out."""
+    pairs = (((col_or_pairs, val),) if val is not None
+             else tuple(col_or_pairs))
+    if not 1 <= len(pairs) <= CTR_PAIRS_MAX:
+        raise TypeError(f"ctr_add takes 1 to {CTR_PAIRS_MAX} (col, val) "
+                        f"pairs, got {len(pairs)}")
+    return pairs
+
+
+def ctr_add_ref(ctr: torch.Tensor, col_or_pairs, val=None) -> torch.Tensor:
+    """Plain ``ctr[:, col] += val`` for one pair, or for each ``(col,
+    val)`` pair of a sequence in order: bools add 0 or 1, int32 sums wrap
+    (functional: clones ``ctr`` once and returns the clone)."""
     out = ctr.clone()
-    out[:, col] += val
+    for col, v in ctr_pairs(col_or_pairs, val):
+        out[:, col] += v
     return out
 
 
@@ -157,10 +176,11 @@ def _track_xnode(st: SimState, a, b, case: SweepCase, nbytes, mask
     return st._replace(nlink_bytes=st.nlink_bytes + add)
 
 
-def _bump(ops: StepOps, ctr, name, mask_or_val):
-    v = mask_or_val.to(I32) if mask_or_val.dtype == torch.bool \
-        else mask_or_val
-    return ops.ctr_add(ctr, CTR[name], v)
+def _bump(ops: StepOps, ctr, *pairs):
+    """Add each ``(counter name, (W,) int32 or bool value)`` pair into its
+    column with one ``ops.ctr_add`` call (int32 sums commute, so a run of
+    bumps in one call equals the bumps one by one)."""
+    return ops.ctr_add(ctr, [(CTR[name], v) for name, v in pairs])
 
 
 def _set_drop(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
@@ -235,14 +255,12 @@ def _finish(st: SimState, ftask, g: GraphArrays) -> SimState:
     return st
 
 
-def _atomic_charge(st: SimState, mask, costs: CostModel,
-                   ops: StepOps) -> SimState:
+def _atomic_cost(mask, costs: CostModel) -> torch.Tensor:
     """Contended RMWs on one shared cache line (XGOMP's global task count):
-    simultaneous writers serialize; the k-th pays k hand-offs."""
+    simultaneous writers serialize; the k-th pays k hand-offs.  The caller
+    adds the clock charge and bumps ``atomic_ops`` by ``mask``."""
     rank = torch.cumsum(mask.to(I32), 0, dtype=I32) - 1
-    cost = torch.where(mask, costs.c_atomic + rank * costs.c_contend, 0)
-    return st._replace(clock=st.clock + cost,
-                       ctr=_bump(ops, st.ctr, "atomic_ops", mask))
+    return torch.where(mask, costs.c_atomic + rank * costs.c_contend, 0)
 
 
 # ---------------- pre-push victim adoption (NA-RP spawners) ----------------
@@ -260,7 +278,7 @@ def adopt_phase(st: SimState, running, *, case: SweepCase,
                          case.params.n_steal, valid0)
     return st._replace(
         rp=rp, cells=messaging.victim_advance(st.cells, valid0),
-        ctr=_bump(ops, st.ctr, "req_handled", valid0))
+        ctr=_bump(ops, st.ctr, ("req_handled", valid0)))
 
 
 # ---------------- phase A: push spawned tasks ----------------
@@ -325,27 +343,29 @@ def spawn_phase(st: SimState, running, *, g: GraphArrays, case: SweepCase,
         rr = st.rr + (act_x & ~use_rp).to(I32)
         creator = _set_drop(st.creator, torch.where(active, task, T), me)
 
-        ctr = _bump(ops, st.ctr, "static_push",
-                    act_g | (pushed_x & ~use_rp))
-        ctr = _bump(ops, ctr, "atomic_ops", act_g)
         same_d = _same_domain(me, tgt, case)
-        ctr = _bump(ops, ctr, "stolen", pushed_x & use_rp)  # redirections
-        ctr = _bump(ops, ctr, "stolen_local", pushed_x & use_rp & same_d)
-        ctr = _bump(ops, ctr, "stolen_remote", pushed_x & use_rp & ~same_d)
-        ctr = _bump(ops, ctr, "stolen_xnode",
-                    pushed_x & use_rp & ~_same_node(me, tgt, case))
+        redirected = pushed_x & use_rp
+        # atomic global count: task created (XGOMP only)
+        counted = active & m.pays_count
+        ctr = _bump(ops, st.ctr,
+                    ("static_push", act_g | (pushed_x & ~use_rp)),
+                    ("atomic_ops", act_g),
+                    ("stolen", redirected),                # redirections
+                    ("stolen_local", redirected & same_d),
+                    ("stolen_remote", redirected & ~same_d),
+                    ("stolen_xnode",
+                     redirected & ~_same_node(me, tgt, case)),
+                    ("tgt_full", use_rp & ~ok),
+                    ("atomic_ops", counted))
         # Alg. 3: stop on quota exhausted or thief queue full
-        left = st.rp.left - (pushed_x & use_rp).to(I32)
+        left = st.rp.left - redirected.to(I32)
         drop = (use_rp & ~ok) | (left <= 0)
         rp = dlb.RPState(tgt=torch.where(drop, -1, st.rp.tgt),
                          left=torch.where(drop, 0, left))
-        ctr = _bump(ops, ctr, "tgt_full", use_rp & ~ok)
         st = st._replace(xq=xq, g_buf=g_buf, g_ts=g_ts, g_tail=g_tail,
-                         clock=clock, rr=rr, rp=rp, ctr=ctr,
-                         creator=creator)
+                         clock=clock + _atomic_cost(counted, costs), rr=rr,
+                         rp=rp, ctr=ctr, creator=creator)
         st = _track_xnode(st, me, tgt, case, pay, act_x)
-        # atomic global count: task created (XGOMP only)
-        st = _atomic_charge(st, active & m.pays_count, costs, ops)
 
         # consume one task from the range entry (one-hot row update)
         sidx = torch.where(active, topi, S)
@@ -361,14 +381,14 @@ def spawn_phase(st: SimState, running, *, g: GraphArrays, case: SweepCase,
         # queues rarely fill, so the block runs once, and only when needed
         if bool(imm.any()):
             dur_t = torch.where(imm, g.dur[task.long()], 0)
-            ctr = _bump(ops, st.ctr, "imm_exec", imm)
-            ctr = _bump(ops, ctr, "exec", imm)
-            ctr = _bump(ops, ctr, "self", imm)
-            ctr = _bump(ops, ctr, "busy_ns", dur_t)
+            # task finished -> atomic decrement (XGOMP only)
+            counted = imm & m.pays_count
+            ctr = _bump(ops, st.ctr, ("imm_exec", imm), ("exec", imm),
+                        ("self", imm), ("busy_ns", dur_t),
+                        ("atomic_ops", counted))
             st = st._replace(clock=st.clock + dur_t, ctr=ctr)
             st = _finish(st, torch.where(imm, task, -1), g)
-            # task finished -> atomic decrement (XGOMP only)
-            st = _atomic_charge(st, imm & m.pays_count, costs, ops)
+            st = st._replace(clock=st.clock + _atomic_cost(counted, costs))
     return st
 
 
@@ -400,7 +420,7 @@ def dequeue_phase(st: SimState, running, *, g: GraphArrays, case: SweepCase,
     cost_g = torch.where(idle_g,
                          costs.c_atomic + costs.c_pq_op
                          + rank * costs.c_lock, 0)
-    ctr = _bump(ops, st.ctr, "atomic_ops", idle_g)
+    ctr = _bump(ops, st.ctr, ("atomic_ops", idle_g))
 
     # --- XQueue lane: master queue then rotated aux scan
     idle_x = idle_m & m.uses_xq
@@ -476,7 +496,7 @@ def thief_phase(st: SimState, found, running, *, case: SweepCase,
         v += 1
     return st._replace(
         rng=rng, cells=messaging.Cells(rounds, req_round, req_tid),
-        clock=clock.to(I32), ctr=_bump(ops, st.ctr, "req_sent", n_sent),
+        clock=clock.to(I32), ctr=_bump(ops, st.ctr, ("req_sent", n_sent)),
         nlink_bytes=st.nlink_bytes + nl)
 
 
@@ -508,21 +528,19 @@ def victim_phase(st: SimState, found, *, g: GraphArrays, case: SweepCase,
         xfer_bw=xfer_bw)
     same_d = _same_domain(me, thief, case)
     same_n = _same_node(me, thief, case)
-    ctr = _bump(ops, st.ctr, "stolen", stolen)
-    ctr = _bump(ops, ctr, "stolen_local", torch.where(same_d, stolen, 0))
-    ctr = _bump(ops, ctr, "stolen_remote", torch.where(~same_d, stolen, 0))
-    ctr = _bump(ops, ctr, "stolen_xnode", torch.where(~same_n, stolen, 0))
-    ctr = _bump(ops, ctr, "req_has_steal", vm_ws & (stolen > 0))
-    ctr = _bump(ops, ctr, "src_empty", src_empty)
-    ctr = _bump(ops, ctr, "tgt_full", tgt_full)
 
     # NA-RP: adopt the thief for future redirected pushes (Alg. 3)
     vm_rp = valid & m.is_narp
     rp, adopted = dlb.rp_adopt(st.rp, thief, params.n_steal, vm_rp)
-    ctr = _bump(ops, ctr, "req_has_steal", adopted)
 
     handled = vm_ws | vm_rp
-    ctr = _bump(ops, ctr, "req_handled", handled)
+    ctr = _bump(ops, st.ctr, ("stolen", stolen),
+                ("stolen_local", torch.where(same_d, stolen, 0)),
+                ("stolen_remote", torch.where(~same_d, stolen, 0)),
+                ("stolen_xnode", torch.where(~same_n, stolen, 0)),
+                ("req_has_steal", vm_ws & (stolen > 0)),
+                ("src_empty", src_empty), ("tgt_full", tgt_full),
+                ("req_has_steal", adopted), ("req_handled", handled))
     nl = torch.where(t.cluster & ~same_n, moved_bytes, 0).to(I32)
     return st._replace(xq=xq, clock=clock, rp=rp, ctr=ctr,
                        nlink_bytes=st.nlink_bytes + nl,
@@ -559,19 +577,17 @@ def exec_phase(st: SimState, task, ts, found, *, g: GraphArrays,
                         (dur_t.to(f32) * mult).to(I32), dur_t)
     start = torch.maximum(st.clock, torch.where(found, ts, 0))
     clock = torch.where(found, start + dur_t, st.clock)
-    ctr = _bump(ops, st.ctr, "exec", found)
-    ctr = _bump(ops, ctr, "self", found & (cr0 == me))
-    ctr = _bump(ops, ctr, "local", found & (cr0 != me) & same_d)
-    ctr = _bump(ops, ctr, "remote", found & ~same_d)
-    ctr = _bump(ops, ctr, "busy_ns", dur_t)
-    st = st._replace(clock=clock, ctr=ctr)
-    st = _finish(st, torch.where(found, task, -1), g)
     # global task count decrement — only the centralized_count barrier
     # keeps one (contended on the xqueue lane, plain on the locked lane)
-    st = _atomic_charge(st, found & m.pays_count, costs, ops)
-    return st._replace(ctr=_bump(
-        ops, st.ctr, "atomic_ops",
-        found & m.is_locked & (case.barrier_id == 0)))
+    counted = found & m.pays_count
+    ctr = _bump(ops, st.ctr, ("exec", found), ("self", found & (cr0 == me)),
+                ("local", found & (cr0 != me) & same_d),
+                ("remote", found & ~same_d), ("busy_ns", dur_t),
+                ("atomic_ops", counted),
+                ("atomic_ops", found & m.is_locked & (case.barrier_id == 0)))
+    st = _finish(st._replace(clock=clock, ctr=ctr),
+                 torch.where(found, task, -1), g)
+    return st._replace(clock=st.clock + _atomic_cost(counted, costs))
 
 
 # ---------------- the composed step ----------------
@@ -607,6 +623,6 @@ def step_pipeline(st: SimState, *, g: GraphArrays, case: SweepCase,
     occ = torch.where((nl > 0) & case.topo.cluster,
                       (_sum(nl) - nl) // case.topo.bneck_bw, 0).to(I32)
     st = st._replace(clock=st.clock + occ,
-                     ctr=_bump(ops, st.ctr, "xnode_bytes", nl),
+                     ctr=_bump(ops, st.ctr, ("xnode_bytes", nl)),
                      nlink_bytes=torch.zeros_like(nl))
     return st._replace(step_i=st.step_i + running.to(I32))

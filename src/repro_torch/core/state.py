@@ -235,9 +235,15 @@ def tree_map(fn, tree, *rest):
 
 def leaves(tree) -> list:
     """The tensors of a tuple of tensors, depth first."""
-    if hasattr(tree, "_fields"):
-        return [x for sub in tree for x in leaves(sub)]
-    return [tree]
+    if not isinstance(tree, tuple):
+        return [tree]
+    out = []
+    for x in tree:
+        if isinstance(x, tuple):
+            out.extend(leaves(x))
+        else:
+            out.append(x)
+    return out
 
 
 def stack(trees):

@@ -20,6 +20,7 @@
 
 #include <cuda_runtime.h>
 #include <climits>
+#include <cstring>
 
 namespace {
 
@@ -28,16 +29,36 @@ __device__ __forceinline__ int floor_mod(int a, int n) {
   return (r != 0 && ((r < 0) != (n < 0))) ? r + n : r;
 }
 
-// ctr[w, col] += val[w] for every worker row w, in place.
-// Replaces _ctr_add_kernel / ctr_add (src/repro/kernels/sched_queue.py:47,
-// :52).  Moves 3 * W * 4 bytes (the column read and written, val read):
-// bound by launch latency.  One thread per row; rows are disjoint, no
-// atomics.
-__global__ void ctr_add_kernel(int* __restrict__ ctr,
-                               const int* __restrict__ val, int W, int nc,
-                               int col) {
+// The (column, value) pairs of one counter bump, by value in the launch:
+// value i is (W,) int32, or bool read as one byte a row; code[i] is
+// col * 2 + is_bool.
+constexpr int CTR_PAIRS_MAX = 16;  // phases.CTR_PAIRS_MAX
+struct CtrPairs {
+  const void* val[CTR_PAIRS_MAX];
+  int code[CTR_PAIRS_MAX];
+  int n;
+};
+
+// ctr[w, col_i] += val_i[w] for every worker row w and every pair i in
+// order, in place, wrapping as int32 (a column may repeat).  Replaces
+// _ctr_add_kernel / ctr_add (src/repro/kernels/sched_queue.py:47, :52),
+// one launch for a whole run of the step's bumps where the TPU kernel
+// takes one column a call.  Moves W * 4 * (2 * n + 1) bytes at most (each
+// column read and written, each value read): bound by launch latency, so
+// the design goal is one launch for many bumps and a cheap host path.
+// One thread per row; rows are disjoint, no atomics.
+__global__ void ctr_add_kernel(int* __restrict__ ctr, int W, int nc,
+                               const CtrPairs p) {
   int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w < W) ctr[w * nc + col] += val[w];
+  if (w >= W) return;
+  int* row = ctr + w * nc;
+  for (int i = 0; i < p.n; ++i) {
+    int col = p.code[i] >> 1;
+    int v = (p.code[i] & 1) ? static_cast<const unsigned char*>(p.val[i])[w]
+                            : static_cast<const int*>(p.val[i])[w];
+    row[col] = static_cast<int>(static_cast<unsigned>(row[col])
+                                + static_cast<unsigned>(v));
+  }
 }
 
 // SPSC push, in place.  Lane i (producer p = producer[i]) appends task[i]
@@ -146,12 +167,25 @@ __global__ void pop_kernel(const int* __restrict__ buf,
 
 extern "C" {
 
-int sq_ctr_add(void* ctr, const void* val, int W, int nc, int col,
+// `packed` is n value pointers (uint64) then n codes (int32, col * 2 +
+// is_bool), as sched_queue.ctr_add packs them on the host.
+int sq_ctr_add(void* ctr, int W, int nc, int n, const void* packed,
                void* stream) {
+  if (n < 1 || n > CTR_PAIRS_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CtrPairs p = {};
+  const char* bytes = static_cast<const char*>(packed);
+  for (int i = 0; i < n; ++i) {
+    unsigned long long v;
+    memcpy(&v, bytes + 8 * i, sizeof v);
+    memcpy(&p.code[i], bytes + 8 * n + 4 * i, sizeof p.code[i]);
+    p.val[i] = reinterpret_cast<const void*>(v);
+  }
+  p.n = n;
   const int threads = 128;
   ctr_add_kernel<<<(W + threads - 1) / threads, threads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(ctr), static_cast<const int*>(val), W, nc, col);
+      static_cast<int*>(ctr), W, nc, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -103,7 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "boundary (TMA)")
     out = torch.empty_like(q)
     err = _library().fa_forward(
-        *map(reg.ptr, (q, k, v, out)), B, H, k.shape[1], S, Dh,
+        *(t.data_ptr() for t in (q, k, v, out)), B, H, k.shape[1], S, Dh,
         DTYPES[q.dtype], int(causal), int(window), int(softcap is not None),
         float(softcap or 0.0), float(Dh ** -0.5), reg.stream())
     reg.launched("flash_attention", err)

@@ -104,8 +104,8 @@ def moe_dispatch(x: torch.Tensor, expert: torch.Tensor, pos: torch.Tensor,
                          device=x.device)
     row_bytes = D * x.element_size()
     err = _library().moe_dispatch(
-        *map(reg.ptr, (x, expert, pos, out, row_of)), T * k, k, capacity,
-        n_experts * capacity, row_bytes,
+        *(t.data_ptr() for t in (x, expert, pos, out, row_of)), T * k, k,
+        capacity, n_experts * capacity, row_bytes,
         vec_bytes(x.data_ptr(), out.data_ptr(), row_bytes), reg.stream())
     reg.launched("moe_dispatch", err)
     return out

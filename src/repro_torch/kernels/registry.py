@@ -7,9 +7,9 @@ Every CUDA source under ``csrc/`` is built and bound the same way:
   source into its own shared library under
   ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a
   hash of the source and the flags (:func:`build`);
-* the library is loaded with ``ctypes``; every pointer and the stream pass
-  as ``c_void_p`` (:func:`ptr`, :func:`stream`); kernels launch on
-  ``torch.cuda.current_stream()``;
+* the library is loaded with ``ctypes``; every pointer
+  (``Tensor.data_ptr()``) and the stream (:func:`stream`) pass as
+  ``c_void_p``; kernels launch on the current stream;
 * each C entry point returns ``cudaGetLastError()``, and the wrapper hands
   it to :func:`launched`, which raises if it is not 0 and otherwise adds
   one to the kernel's count in :data:`KERNELS`.  A missing ``nvcc`` or a
@@ -21,7 +21,6 @@ else, so ``KERNELS[name].launches`` counts what ran on the card.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import hashlib
 import os
@@ -90,20 +89,27 @@ def _nvcc(source: Path) -> str:
 def build(source: Path) -> tuple[Path, str]:
     """Compile one CUDA source into its own shared library if this
     source/flag hash has none yet.  Returns ``(library path, compiler
-    log)`` (the log is empty when the library was already built)."""
+    log)``; the log (ptxas's resource report among it) is kept beside the
+    library as ``lib<stem>.log`` and read back when the library was already
+    built, and a library without its log is built again."""
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_ROOT / digest / f"lib{source.stem}.so"
-    if lib.exists():
-        return lib, ""
+    log = lib.with_suffix(".log")
+    if lib.exists() and log.exists():
+        return lib, log.read_text()
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(source), *NVCC_FLAGS, "-o", str(tmp),
                            str(source)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
+    text = proc.stdout + proc.stderr
+    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(text)
+    os.replace(tmp_log, log)
     os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return lib, text
 
 
 def launched(name: str, err: int) -> None:
@@ -115,9 +121,9 @@ def launched(name: str, err: int) -> None:
     KERNELS[name].launches += 1
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def stream() -> int:
+    """The current device's current stream as a raw ``cudaStream_t`` (an
+    int, for a ``c_void_p`` argument).  ``torch.cuda.current_stream()``
+    builds a Python ``Stream`` object a call; the raw handle costs less on
+    the per-op path, where the host is the bound."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

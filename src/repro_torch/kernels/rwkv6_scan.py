@@ -116,8 +116,8 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(r)     # r's layout when r is dense, else packed
     s_out = torch.empty_like(state)
     err = _library().rwkv6_forward(
-        *map(reg.ptr, (r, k, v, w, u, state, out, s_out)), B, H, T, Dh,
-        DTYPES[r.dtype], r.stride(0), r.stride(1), r.stride(2),
+        *(t.data_ptr() for t in (r, k, v, w, u, state, out, s_out)),
+        B, H, T, Dh, DTYPES[r.dtype], r.stride(0), r.stride(1), r.stride(2),
         out.stride(0), out.stride(1), out.stride(2), reg.stream())
     reg.launched("rwkv6_scan", err)
     return out, s_out

@@ -24,16 +24,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from pathlib import Path
 
 import torch
 
 from repro_torch.core import xqueue
-from repro_torch.core.phases import StepOps, ctr_add_ref
+from repro_torch.core.phases import (CTR_PAIRS_MAX, StepOps, ctr_add_ref,
+                                     ctr_pairs)
 from repro_torch.core.xqueue import XQ
 from repro_torch.kernels import registry as reg
 
-I32 = torch.int32
+I32, BOOL = torch.int32, torch.bool
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_queue.cu"
 #: the three kernels of this module's source (counted in
 #: :data:`repro_torch.kernels.registry.KERNELS`)
@@ -50,7 +52,7 @@ def _library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sq_ctr_add.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.sq_ctr_add.argtypes = [ptr, i32, i32, i32, ctypes.c_char_p, ptr]
     lib.sq_push.argtypes = [ptr] * 10 + [i32, i32, ptr]
     lib.sq_pop_first.argtypes = [ptr] * 12 + [i32, i32, ptr]
     for fn in (lib.sq_ctr_add, lib.sq_push, lib.sq_pop_first):
@@ -58,29 +60,60 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+def _check(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
+           where: int) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    the device of index ``where`` (as ``Tensor.get_device()`` gives it: -1
+    is the CPU).  Every wrapper checks every tensor on every launch, and on
+    the card the host path is these kernels' cost, so only cheap attributes
+    are read."""
+    if t.get_device() != where:
+        raise ValueError(f"{name} is on {t.device}, expected "
+                         f"{'cpu' if where < 0 else f'cuda:{where}'}")
+    if t.dtype is not dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
+                         f"expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
 # ---------------- counter bump ----------------
-def ctr_add(ctr: torch.Tensor, col: int, val: torch.Tensor) -> torch.Tensor:
-    """``ctr[:, col] += val`` — in place on the card, plain on the CPU."""
+#: the host layout of a bump's pairs for ``sq_ctr_add``: n value pointers,
+#: then n codes ``col * 2 + is_bool``
+_PACK = [struct.Struct(f"<{n}Q{n}i") for n in range(CTR_PAIRS_MAX + 1)]
+
+
+def ctr_add(ctr: torch.Tensor, col_or_pairs, val=None) -> torch.Tensor:
+    """``ctr[:, col] += val``, or the same for each ``(col, val)`` pair of
+    a sequence of up to 16 in order (:func:`phases.ctr_add_ref`); each value
+    is a (W,) int32 or bool tensor.  On the card: one launch, in place; on
+    the CPU: the plain twin.
+
+    The host path is the cost of this kernel (its device work is a few
+    hundred bytes), so the checks read only cheap tensor attributes, the
+    pairs pass packed in one bytes object and the stream as a raw handle.
+    """
+    pairs = ctr_pairs(col_or_pairs, val)
+    if ctr.dim() != 2:
+        raise ValueError(f"ctr has shape {tuple(ctr.shape)}, expected "
+                         "(W, n_counters)")
     W, nc = ctr.shape
-    _check(ctr, "ctr", (W, nc), I32, ctr.device)
-    _check(val, "val", (W,), I32, ctr.device)
-    if not 0 <= col < nc:
-        raise IndexError(f"counter column {col} out of range [0, {nc})")
-    if not ctr.is_cuda:
-        return ctr_add_ref(ctr, col, val)
-    err = _library().sq_ctr_add(reg.ptr(ctr), reg.ptr(val), W, nc, col,
+    where = ctr.get_device()
+    _check(ctr, "ctr", (W, nc), I32, where)
+    ptrs, codes = [], []
+    for col, v in pairs:
+        is_bool = v.dtype is BOOL
+        _check(v, "val", (W,), BOOL if is_bool else I32, where)
+        if not 0 <= col < nc:
+            raise IndexError(f"counter column {col} out of range [0, {nc})")
+        ptrs.append(v.data_ptr())
+        codes.append(2 * col + is_bool)
+    if where < 0:
+        return ctr_add_ref(ctr, pairs)
+    err = _library().sq_ctr_add(ctr.data_ptr(), W, nc, len(pairs),
+                                _PACK[len(pairs)].pack(*ptrs, *codes),
                                 reg.stream())
     reg.launched("ctr_add", err)
     return ctr
@@ -93,21 +126,22 @@ def push(xq: XQ, producer: torch.Tensor, consumer: torch.Tensor,
     on the card it writes ``xq`` in place and returns it."""
     W = xq.head.shape[0]
     Q = xqueue.capacity(xq)
-    dev = xq.buf.device
-    _check(xq.buf, "buf", (W, W, Q), I32, dev)
-    _check(xq.ts, "ts", (W, W, Q), I32, dev)
-    _check(xq.head, "head", (W, W), I32, dev)
-    _check(xq.tail, "tail", (W, W), I32, dev)
+    where = xq.buf.get_device()
+    _check(xq.buf, "buf", (W, W, Q), I32, where)
+    _check(xq.ts, "ts", (W, W, Q), I32, where)
+    _check(xq.head, "head", (W, W), I32, where)
+    _check(xq.tail, "tail", (W, W), I32, where)
     for name, t in (("producer", producer), ("consumer", consumer),
                     ("task", task), ("ts", ts)):
-        _check(t, name, (W,), I32, dev)
-    _check(mask, "mask", (W,), torch.bool, dev)
-    if not xq.buf.is_cuda:
+        _check(t, name, (W,), I32, where)
+    _check(mask, "mask", (W,), BOOL, where)
+    if where < 0:
         return xqueue.push(xq, producer, consumer, task, ts, mask)
-    ok = torch.empty(W, dtype=torch.bool, device=dev)
+    ok = torch.empty(W, dtype=BOOL, device=xq.buf.device)
     err = _library().sq_push(
-        *map(reg.ptr, (xq.buf, xq.ts, xq.head, xq.tail, producer, consumer,
-                       task, ts, mask, ok)), W, Q, reg.stream())
+        *(t.data_ptr() for t in (xq.buf, xq.ts, xq.head, xq.tail, producer,
+                                 consumer, task, ts, mask, ok)),
+        W, Q, reg.stream())
     reg.launched("push", err)
     return xq, ok
 
@@ -120,26 +154,27 @@ def pop_first(xq: XQ, rot: torch.Tensor, mask: torch.Tensor, n_active=None):
     copied to the host)."""
     W = xq.head.shape[0]
     Q = xqueue.capacity(xq)
-    dev = xq.buf.device
+    dev, where = xq.buf.device, xq.buf.get_device()
     if n_active is None:
         n_active = torch.tensor(W, dtype=I32, device=dev)
-    _check(xq.buf, "buf", (W, W, Q), I32, dev)
-    _check(xq.ts, "ts", (W, W, Q), I32, dev)
-    _check(xq.head, "head", (W, W), I32, dev)
-    _check(xq.tail, "tail", (W, W), I32, dev)
-    _check(rot, "rot", (W,), I32, dev)
-    _check(mask, "mask", (W,), torch.bool, dev)
-    _check(n_active, "n_active", (), I32, dev)
-    if not xq.buf.is_cuda:
+    _check(xq.buf, "buf", (W, W, Q), I32, where)
+    _check(xq.ts, "ts", (W, W, Q), I32, where)
+    _check(xq.head, "head", (W, W), I32, where)
+    _check(xq.tail, "tail", (W, W), I32, where)
+    _check(rot, "rot", (W,), I32, where)
+    _check(mask, "mask", (W,), BOOL, where)
+    _check(n_active, "n_active", (), I32, where)
+    if where < 0:
         return xqueue.pop_first(xq, rot, mask, n_active)
     task = torch.empty(W, dtype=I32, device=dev)
     ts = torch.empty(W, dtype=I32, device=dev)
     src = torch.empty(W, dtype=I32, device=dev)
-    found = torch.empty(W, dtype=torch.bool, device=dev)
+    found = torch.empty(W, dtype=BOOL, device=dev)
     checked = torch.empty(W, dtype=I32, device=dev)
     err = _library().sq_pop_first(
-        *map(reg.ptr, (xq.buf, xq.ts, xq.head, xq.tail, rot, mask, n_active,
-                       task, ts, src, found, checked)), W, Q, reg.stream())
+        *(t.data_ptr() for t in (xq.buf, xq.ts, xq.head, xq.tail, rot, mask,
+                                 n_active, task, ts, src, found, checked)),
+        W, Q, reg.stream())
     reg.launched("pop_first", err)
     return xq, task, ts, src, found, checked
 

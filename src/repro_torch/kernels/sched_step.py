@@ -21,16 +21,22 @@ ops lane by lane, and returns a new state.  Either way the caller uses the
 returned state.  A failed build or launch raises; nothing falls back to
 the twin on the card.
 
+The kernel takes its launch shape from W alone: 128 threads up to W = 128,
+1024 above, with the queue heads and tails in shared memory up to W = 156
+and in device memory beyond (:func:`resident`); every shape gives the same
+bits.
+
 Build and binding are :mod:`repro_torch.kernels.registry`'s: nvcc into
 ``build/repro_torch_kernels/<hash>/libsched_step.so``, ``ctypes``, the
 current stream, and one ``StepArgs`` struct (every pointer and scalar)
-passed by value.  The launch adds one to ``registry.KERNELS["sched_step"]``.
+passed by address (the kernel takes it by value).  The launch adds one to ``registry.KERNELS["sched_step"]``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from pathlib import Path
 
 import torch
@@ -45,8 +51,6 @@ from repro_torch.kernels import registry as reg
 from repro_torch.kernels import sched_queue as sq
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_step.cu"
-#: the kernel keeps a victim's transfer in per-thread arrays of this size
-Q_MAX = 64
 #: CUDA's limit of threads in a block: one thread per worker lane
 W_MAX = 1024
 
@@ -102,8 +106,10 @@ class StepArgs(ctypes.Structure):
 def _library() -> ctypes.CDLL:
     path, _ = reg.build(SOURCE)
     lib = ctypes.CDLL(str(path))
-    lib.ss_run.argtypes = [StepArgs, ctypes.c_void_p]
+    lib.ss_run.argtypes = [ctypes.POINTER(StepArgs), ctypes.c_void_p]
     lib.ss_run.restype = ctypes.c_int
+    lib.ss_resident.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ss_resident.restype = ctypes.c_int
     return lib
 
 
@@ -132,20 +138,37 @@ def run_lanes(st: SimState, g: GraphArrays, case: SweepCase, *,
 
 
 # ---------------- the kernel's wrapper ----------------
-def _sizes(st: SimState, g: GraphArrays, case: SweepCase) -> dict:
+#: ``StepArgs`` as one packed record (no padding inside: the pointers come
+#: first), built with one ``struct.pack`` instead of 84 ctypes fields
+_ARGS = struct.Struct(f"<{len(_STATE + _GRAPH + _CASE)}Q{len(_INTS)}i"
+                      f"{len(_FLOATS)}f")
+_ARGS_PAD = bytes(ctypes.sizeof(StepArgs) - _ARGS.size)
+
+
+def _sizes(st: SimState, g: GraphArrays, case: SweepCase) -> tuple:
+    """The sizes ``(B, W, S, Q, T, G, C, D, R)`` of a batch."""
     B, W = st.clock.shape
-    return dict(B=B, W=W, S=st.s_task.shape[-1], Q=st.xq.buf.shape[-1],
-                T=g.dur.shape[-1], G=st.g_buf.shape[-1], C=NC, D=DMAX,
-                R=case.release_ns.shape[-1])
+    return (B, W, st.s_task.shape[-1], st.xq.buf.shape[-1], g.dur.shape[-1],
+            st.g_buf.shape[-1], NC, DMAX, case.release_ns.shape[-1])
+
+
+@functools.lru_cache(maxsize=256)
+def _shapes(spec: tuple, sizes: tuple) -> tuple:
+    n = dict(zip("BWSQTGCDR", sizes))
+    return tuple((n["B"],) + tuple(n[d] for d in dims) for _, dims, _ in spec)
 
 
 def _check_leaves(tree, spec, sizes, dev) -> list:
+    """Check every leaf of ``tree`` against ``spec``
+    (:func:`sched_queue._check`) and return their device addresses."""
     ts = leaves(tree)
     assert len(ts) == len(spec), (len(ts), len(spec))
-    for t, (name, dims, dtype) in zip(ts, spec):
-        shape = (sizes["B"],) + tuple(sizes[d] for d in dims)
-        sq._check(t, name, shape, dtype, dev)
-    return ts
+    where = -1 if dev.type == "cpu" else dev.index
+    out = []
+    for t, shape, (name, _, dtype) in zip(ts, _shapes(spec, sizes), spec):
+        sq._check(t, name, shape, dtype, where)
+        out.append(t.data_ptr())
+    return out
 
 
 def sched_step(st: SimState, g: GraphArrays, case: SweepCase, *,
@@ -157,36 +180,35 @@ def sched_step(st: SimState, g: GraphArrays, case: SweepCase, *,
     if not st.clock.is_cuda:
         return run_lanes(st, g, case, costs=costs, max_steps=max_steps,
                          max_iters=max_iters)
-    n = _sizes(st, g, case)
-    if n["W"] > W_MAX:
-        raise ValueError(f"{n['W']} worker lanes exceed the {W_MAX} threads "
-                         "of one CUDA block")
-    if n["Q"] > Q_MAX:
-        raise ValueError(f"queue capacity {n['Q']} exceeds the kernel's "
-                         f"{Q_MAX}")
+    sizes = _sizes(st, g, case)
+    if sizes[1] > W_MAX:
+        raise ValueError(f"{sizes[1]} worker lanes exceed the {W_MAX} "
+                         "threads of one CUDA block")
     dev = st.clock.device
-    ptrs = (_check_leaves(st, _STATE, n, dev)
-            + _check_leaves(g, _GRAPH, n, dev)
-            + _check_leaves(case, _CASE, n, dev))
+    ptrs = (_check_leaves(st, _STATE, sizes, dev)
+            + _check_leaves(g, _GRAPH, sizes, dev)
+            + _check_leaves(case, _CASE, sizes, dev))
     c = costs
-    ints = dict(B=n["B"], W=n["W"], S=n["S"], Q=n["Q"], T=n["T"], GQ=n["G"],
-                R=n["R"], NCTR=NC, DM=DMAX, max_steps=int(max_steps),
-                max_iters=int(max_iters), c_cache=c.c_cache, c_zone=c.c_zone,
-                c_numa=c.c_numa, c_atomic=c.c_atomic, c_contend=c.c_contend,
-                c_lock=c.c_lock, c_pq_op=c.c_pq_op, c_alloc=c.c_alloc,
-                c_slot=c.c_slot, req_bytes=c.req_bytes)
+    B, W, S, Q, T, G, C, D, R = sizes
+    ints = (B, W, S, Q, T, G, R, C, D, int(max_steps), int(max_iters),
+            c.c_cache, c.c_zone, c.c_numa, c.c_atomic, c.c_contend, c.c_lock,
+            c.c_pq_op, c.c_alloc, c.c_slot, c.req_bytes)
     # the float32 constants as PyTorch rounds the Python floats it mixes
     # with float32 tensors in phases.exec_phase
-    floats = dict(exec_remote_penalty=c.exec_remote_penalty,
-                  exec_remote_penalty_m1=c.exec_remote_penalty - 1.0,
-                  exec_zone_penalty=c.exec_zone_penalty,
-                  c_numa_f=float(c.c_numa))
-    args = StepArgs(*[t.data_ptr() for t in ptrs],
-                    *[int(ints[k]) for k in _INTS],
-                    *[float(floats[k]) for k in _FLOATS])
-    err = _library().ss_run(args, reg.stream())
+    floats = (c.exec_remote_penalty, c.exec_remote_penalty - 1.0,
+              c.exec_zone_penalty, float(c.c_numa))
+    args = StepArgs.from_buffer_copy(_ARGS.pack(*ptrs, *ints, *floats)
+                                     + _ARGS_PAD)
+    err = _library().ss_run(ctypes.byref(args), reg.stream())
     reg.launched("sched_step", err)
     return st
+
+
+def resident(W: int) -> bool:
+    """Whether the kernel keeps a W-lane block's queue heads and tails in
+    shared memory (``ss_resident``: the rule ``ss_run`` applies); builds
+    the kernel."""
+    return bool(_library().ss_resident(W, DMAX))
 
 
 #: the plain twin of the kernel (what the CPU path runs and what the kernel

@@ -271,3 +271,89 @@ def test_backend_follows_the_device():
     with pytest.raises(ValueError):
         backends.step_ops("cuda_fused")
     assert backends.run_loop("cuda_fused") is ss.sched_step
+
+
+def _domain_rows(W, n_w, zsz, topo):
+    """The kernel's ``wt_build``, in Python: one cumulative weight row per
+    (domain, table), built once per run from the thief's domain alone."""
+    nd = int(topo.n_domains)
+    dist, node = topo.dist.tolist(), topo.node.tolist()
+    rows = {}
+    for d in range(nd):
+        for t in range(3):
+            doms = [min(j // zsz, nd - 1) for j in range(W)]
+            cand = [j < n_w and doms[j] != d for j in range(W)]
+            if t == 1:
+                cand = [c and node[d] == node[dj] for c, dj in zip(cand, doms)]
+            if t == 2:
+                cand = [c and node[d] != node[dj] for c, dj in zip(cand, doms)]
+            dmax = max([dist[d][dj] for c, dj in zip(cand, doms) if c],
+                       default=0)
+            cum, row = 0, []
+            for c, dj in zip(cand, doms):
+                cum += dmax - dist[d][dj] + 1 if c else 0
+                row.append(cum)
+            rows[d, t] = row
+    return rows
+
+
+def _row_pick(row, draw):
+    """The kernel's ``wt_pick``, in Python: a binary search of the row."""
+    import bisect
+    total = row[-1]
+    lane = bisect.bisect_right(row, draw % max(total, 1))
+    return min(lane, len(row) - 1), total > 0
+
+
+@pytest.mark.parametrize("topology,n_w,W", (("quad_socket_48", 48, 48),
+                                            ("quad_socket_48", 48, 53),
+                                            ("two_node_2x24", 96, 96),
+                                            ("two_node_2x24", 80, 96)))
+def test_domain_weight_rows_pick_as_remote_weighted(topology, n_w, W):
+    """The fused kernel's per-domain victim-weight rows and binary search
+    give exactly ``dlb._remote_weighted``'s lane and ``has_remote`` for
+    every lane and every draw: all remainders of each row's total, and
+    large draws (the clip to W - 1 included)."""
+    from repro_torch.core import dlb, topology as topology_mod
+    zsz = topology_mod.resolve(topology).zone_size_for(n_w)
+    case = scheduler.make_case(MODE_SPECS["na_ws"], n_w, zsz,
+                               topology=topology)
+    topo = case.topo
+    me = torch.arange(W, dtype=torch.int32)
+    rows = _domain_rows(W, n_w, zsz, topo)
+    nd = int(topo.n_domains)
+    rs = np.random.default_rng(W)
+    for t, restrict in enumerate((None, "node_local", "node_remote")):
+        cum, total = dlb.remote_weight_table(me, n_w, zsz, topo,
+                                             restrict=restrict)
+        span = int(total.max()) + 2
+        draws = list(range(span)) + rs.integers(0, 2**31, 32).tolist()
+        for draw in draws:
+            want, has = dlb._remote_weighted(
+                torch.full((W,), draw, dtype=torch.int32), cum, total)
+            for m in range(W):
+                got = _row_pick(rows[min(m // zsz, nd - 1), t], draw)
+                assert got == (int(want[m]), bool(has[m])), \
+                    (topology, restrict, m, draw)
+
+
+def test_step_args_pack_as_the_ctypes_record():
+    """The wrapper packs ``StepArgs`` in one ``struct.pack``; the bytes are
+    those of the ctypes record built field by field."""
+    n_ptr = len(ss._STATE) + len(ss._GRAPH) + len(ss._CASE)
+    vals = ([0x7F0000000000 + 64 * i for i in range(n_ptr)]
+            + [-3 + 7 * i for i in range(len(ss._INTS))]
+            + [0.1 * (i + 1) for i in range(len(ss._FLOATS))])
+    packed = ss.StepArgs.from_buffer_copy(ss._ARGS.pack(*vals)
+                                          + ss._ARGS_PAD)
+    assert bytes(packed) == bytes(ss.StepArgs(*vals))
+
+
+def test_step_split_instruments_the_kernel_source():
+    """``repro_torch.step_split`` finds every phase of the fused kernel's
+    step loop and the victim phase's two barriers in the source."""
+    from repro_torch import step_split
+    src = step_split.instrument(ss.SOURCE.read_text())
+    assert src.count("PSTAMP(") == 9           # the macro and 8 stamps
+    assert "g_prof[9]" in src and "g_prof[10]" in src
+    assert 'int ss_prof(' in src

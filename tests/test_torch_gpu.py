@@ -108,6 +108,27 @@ def test_cuda_kernels_match_plain(seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(3))
+def test_multi_pair_ctr_add_kernel_matches_its_twin(seed):
+    """One launch of the counter bump with up to 16 (column, value) pairs
+    against its plain twin, bitwise: bool and int32 values, a repeated
+    column, and sums that wrap past 2**31."""
+    _need_card()
+    rs = np.random.default_rng(40 + seed)
+    reg.reset_launches()
+    ctr = torch.as_tensor(rs.integers(2**31 - 50, 2**31 - 1,
+                                      (W, NC)).astype(np.int32))
+    cols = [int(c) for c in rs.integers(0, NC, 14)] + [3, 3]
+    pairs = [(c, torch.as_tensor(rs.random(W) < 0.5) if i % 2 else
+              torch.as_tensor(rs.integers(-99, 99, W).astype(np.int32)))
+             for i, c in enumerate(cols)]
+    got = sq.ctr_add(ctr.cuda(), [(c, v.cuda()) for c, v in pairs])
+    _equal(got, sq.ctr_add_ref(ctr, pairs), ("ctr_add pairs", seed))
+    torch.cuda.synchronize()
+    assert reg.KERNELS["ctr_add"].launches == 1
+
+
+@pytest.mark.gpu
 def test_goldens_bitwise_on_the_card():
     """The 10 golden cases on the ``cuda`` backend, bitwise, with every
     kernel launched."""
@@ -164,10 +185,47 @@ def test_fused_step_matches_its_twin(mode, topology):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("W,topology", ((64, None), (144, "quad_socket_48"),
+                                        (200, None)))
+def test_fused_kernel_matches_its_twin_at_each_instantiation(W, topology):
+    """The fused kernel's three shapes against the twin, every leaf
+    bitwise: W = 64 (128 threads, heads and tails in shared memory), 144
+    (1024 threads, in shared memory), 200 (1024 threads, in device memory);
+    mid-run NA-WS states one step at a time, then a whole run."""
+    _need_card()
+    assert ss.resident(W) == (W <= 156)
+    graph = build_graph("fib", n=10)
+    params = dict(n_victim=3, n_steal=4, t_interval=5, p_local=0.7)
+    for k in (3, 12):
+        cfg = SimConfig(n_workers=W, n_zones=4, max_steps=k,
+                        backend="reference")
+        r = scheduler.run(graph, spec=MODE_SPECS["na_ws"], cfg=cfg, seed=k,
+                          topology=topology,
+                          params=make_params(**params, device="cuda"),
+                          device="cuda")
+        st, g, case = (batch_of_one(x) for x in (r.state, r.graph, r.case))
+        want = ss.run_lanes(tree_map(torch.clone, st), g, case,
+                            costs=cfg.costs, max_steps=60_000, max_iters=1)
+        got = ss.sched_step(tree_map(torch.clone, st), g, case,
+                            costs=cfg.costs, max_steps=60_000, max_iters=1)
+        torch.cuda.synchronize()
+        _equal(got, want, (W, topology, k))
+    runs = {b: scheduler.run(graph, spec=MODE_SPECS["na_ws"],
+                             cfg=SimConfig(n_workers=W, n_zones=4,
+                                           backend=b),
+                             topology=topology,
+                             params=make_params(**params, device="cuda"),
+                             device="cuda")
+            for b in ("cuda_fused", "reference")}
+    _equal(runs["cuda_fused"].state, runs["reference"].state, (W, "run"))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("strategy", ("serial", "batched", "sharded"))
 def test_goldens_through_run_cases_on_cuda_fused(strategy):
     """The 10 goldens through the sweep service on ``cuda_fused``, one
-    kernel launch per case (serial) or per chunk (batched)."""
+    kernel launch per case (serial), per chunk (batched), or per chunk and
+    card (sharded, one launch per card where several are visible)."""
     _need_card()
     golden = _golden()
     cfg = SimConfig(**golden["cfg"])
@@ -188,8 +246,35 @@ def test_goldens_through_run_cases_on_cuda_fused(strategy):
             assert int(res.counters[name][i]) == c["counters"].get(name, 0), \
                 (*label, name)
     n_chunks = len({c["mode"] for c in golden["cases"]})
-    want = len(specs) if strategy == "serial" else n_chunks
+    n_cards = torch.cuda.device_count() if strategy == "sharded" else 1
+    want = len(specs) if strategy == "serial" else n_chunks * n_cards
     assert reg.KERNELS["sched_step"].launches == want
+
+
+@pytest.mark.gpu
+def test_sharded_sweep_runs_on_every_card_at_w96():
+    """The sharded executor (what ``auto`` takes on ``cuda_fused`` when
+    several cards are visible) launches the fused kernel once on each card.
+    At W = 96 on ``two_node_2x24`` a block takes more than the default
+    48 KB of dynamic shared memory, a cap each card's context raises for
+    itself.  The results equal the serial executor's, case for case."""
+    _need_card()
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        pytest.skip("needs two or more CUDA devices")
+    graph = build_graph("fib", n=10)
+    specs = [CaseSpec(spec=MODE_SPECS["na_ws"], n_workers=96, seed=s,
+                      topology="two_node_2x24") for s in range(2 * n_dev)]
+    cfg = SimConfig(backend="cuda_fused")
+    reg.reset_launches()
+    got = sweep.run_cases(graph, specs, cfg=cfg, strategy="sharded")
+    assert reg.KERNELS["sched_step"].launches == n_dev
+    want = sweep.run_cases(graph, specs, cfg=cfg, strategy="serial")
+    assert got.completed.all() and want.completed.all()
+    assert np.array_equal(got.time_ns, want.time_ns)
+    assert np.array_equal(got.steps, want.steps)
+    for name in CTR_NAMES:
+        assert np.array_equal(got.counters[name], want.counters[name]), name
 
 
 #: (B, H, KV, S, Dh, dtype, window, softcap): the serving shape with and

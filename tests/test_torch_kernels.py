@@ -16,6 +16,7 @@ jnp = jax.numpy
 
 from repro.core import xqueue as j_xq  # noqa: E402
 from repro.kernels import sched_queue as j_sq  # noqa: E402
+from repro_torch.core import phases as t_ph  # noqa: E402
 from repro_torch.core import xqueue as t_xq  # noqa: E402
 from repro_torch.core.state import to_numpy  # noqa: E402
 from repro_torch.kernels import registry as t_reg  # noqa: E402
@@ -114,4 +115,65 @@ def test_cpu_wrappers_check_arguments_and_never_count():
         t_sq.pop_first(q, lane, lane.bool(), torch.tensor([W]).int())
     t_sq.ctr_add(ctr, 0, torch.ones(W, dtype=torch.int32))
     t_sq.pop_first(q, lane, lane.bool())
+    assert all(k.launches == 0 for k in t_reg.KERNELS.values())
+
+
+def _pairs(rs):
+    """A run of bumps as the phases issue them: bool and int32 values, a
+    repeated column, and an int32 sum that wraps past 2**31."""
+    cols = [int(c) for c in rs.integers(0, NC, int(rs.integers(2, 14)))]
+    cols += [cols[0], NC - 1]
+    pairs = []
+    for i, col in enumerate(cols):
+        if i % 3 == 0:
+            pairs.append((col, rs.random(W) < 0.5))
+        else:
+            pairs.append((col, rs.integers(-9, 9, W).astype(np.int32)))
+    pairs.append((NC - 1, np.full(W, 2**31 - 1, np.int32)))
+    return pairs
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_multi_pair_ctr_add_matches_a_sequence_of_pallas_calls(seed):
+    """One ``ctr_add`` call with many ``(col, val)`` pairs equals the JAX
+    package's one-column ``ctr_add`` called once per pair in order (bools
+    cast to int32 as its ``_bump`` does), bitwise, wraps included."""
+    rs = np.random.default_rng(30 + seed)
+    ctr = rs.integers(-50, 50, (W, NC)).astype(np.int32)
+    ctr[:, NC - 1] = 2**31 - 5
+    pairs = _pairs(rs)
+    want = jnp.asarray(ctr)
+    for col, v in pairs:
+        want = j_sq.ctr_add(want, col, jnp.asarray(v).astype(jnp.int32))
+    t_pairs = [(col, torch.as_tensor(v)) for col, v in pairs]
+    eq(t_sq.ctr_add(torch.as_tensor(ctr), t_pairs), want, ("pairs", seed))
+    eq(t_ph.ctr_add_ref(torch.as_tensor(ctr), t_pairs), want,
+       ("plain pairs", seed))
+    # the one-pair form, bool value
+    col, v = pairs[0]
+    eq(t_sq.ctr_add(torch.as_tensor(ctr), col, torch.as_tensor(v)),
+       j_sq.ctr_add(jnp.asarray(ctr), col, jnp.asarray(v).astype(jnp.int32)),
+       ("one bool pair", seed))
+
+
+def test_multi_pair_ctr_add_checks_every_pair():
+    t_reg.reset_launches()
+    ctr = torch.zeros((W, NC), dtype=torch.int32)
+    ok = torch.ones(W, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        t_sq.ctr_add(ctr, [(c % NC, ok) for c in range(17)])
+    with pytest.raises(TypeError):
+        t_sq.ctr_add(ctr, [])
+    with pytest.raises(TypeError):
+        t_sq.ctr_add(ctr, [(0, ok), (1, torch.zeros(W, dtype=torch.int64))])
+    with pytest.raises(ValueError):
+        t_sq.ctr_add(ctr, [(0, ok), (1, torch.zeros(W + 1, dtype=torch.bool))])
+    with pytest.raises(ValueError):
+        t_sq.ctr_add(ctr, [(0, torch.zeros((W, 2), dtype=torch.int32)[:, 0])])
+    with pytest.raises(IndexError):
+        t_sq.ctr_add(ctr, [(0, ok), (NC, ok)])
+    with pytest.raises(IndexError):
+        t_sq.ctr_add(ctr, [(-1, ok)])
+    out = t_sq.ctr_add(ctr, [(c % NC, ok) for c in range(16)])
+    assert int(out.sum()) == 16 * W and int(ctr.sum()) == 0
     assert all(k.launches == 0 for k in t_reg.KERNELS.values())

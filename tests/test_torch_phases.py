@@ -25,6 +25,7 @@ from repro.core import state as j_st  # noqa: E402
 from repro.core import taskgraph as j_tg  # noqa: E402
 from repro.core.costs import DEFAULT_COSTS  # noqa: E402
 from repro.core.spec import LATTICE  # noqa: E402
+from repro.core.spec import MODE_SPECS as J_MODES  # noqa: E402
 from repro_torch.core import backends as t_be  # noqa: E402
 from repro_torch.core import phases as t_ph  # noqa: E402
 from repro_torch.core.state import (GraphArrays, SimState,  # noqa: E402
@@ -168,3 +169,30 @@ def test_every_phase_matches_jax(spec, machine, seed, k, backend):
     assert_same(t_ph.step_pipeline(to_port(st0, SimState), g=tg, case=tcase,
                                    costs=C, ops=ops, max_steps=MAX_STEPS),
                 J["step"](st0, g, case), (*label, "step"))
+
+
+@pytest.mark.parametrize("mode", ("na_ws", "na_rp"))
+def test_batched_bumps_step_equals_jax_on_numa(mode):
+    """Steps of the port's phases on ``quad_socket_48`` through the
+    ``cuda`` ops (their CPU path), every ``ctr_add`` call counted: each run
+    of bumps is one call (at most 8 a step, 10 with the
+    execute-immediately rule), the 36 bumps of a step are all there, and
+    the state equals the JAX package's ``step_pipeline`` (one bump a
+    call), bitwise."""
+    base = t_be.step_ops("cuda")
+    calls = []
+
+    def counted(ctr, col_or_pairs, val=None):
+        calls.append(len(t_ph.ctr_pairs(col_or_pairs, val)))
+        return base.ctr_add(ctr, col_or_pairs, val)
+
+    ops = base._replace(ctr_add=counted)
+    for k in (3, 6, 9):
+        st, g, case = mid_run(J_MODES[mode], "quad_socket_48", 1, k)
+        calls.clear()
+        got = t_ph.step_pipeline(to_port(st, SimState),
+                                 g=to_port(g, GraphArrays),
+                                 case=to_port(case, SweepCase), costs=C,
+                                 ops=ops, max_steps=MAX_STEPS)
+        assert_same(got, J["step"](st, g, case), (mode, k))
+        assert len(calls) <= 10 and sum(calls) >= 36, (mode, k, calls)

@@ -37,7 +37,11 @@ In order, it
    fused step with ``max_iters = 1`` on mid-run NA-WS, NA-RP and gomp
    states, flat, NUMA and cluster) and times kernel, twin and, where one
    exists, the one PyTorch call computing the same function, with CUDA
-   events; beside them the 7-pair ``ctr_add`` against seven ``+=`` calls,
+   events; ``push`` and ``pop_first`` also at W=144 and W=200 and over
+   50 calls in turn on one queue, and their host path taken apart beside
+   the launch floor of an empty kernel (``step_bench.queue_ops``: ms a
+   call, host µs a call, of its checks and of its allocations, device µs a
+   launch); beside them the 7-pair ``ctr_add`` against seven ``+=`` calls,
    a gomp step beside the NA-WS step, one whole-run launch (``fib(16)``
    NA-WS at W=64) and the sweep's mean wall and device time per chunk
    launch (``repro_torch.step_bench``); then whole NA-WS runs at W=144 and
@@ -1499,6 +1503,57 @@ def run(torch) -> int:
                         plain_ms=plain_ms, bound_ms=b, bound_by=by,
                         library_ms=None))
     copies = None
+
+    # push and pop_first at the fused kernel's wider widths (n_active below
+    # the width and None), then 50 calls in turn on one queue, each against
+    # its twin; the kernels write in place, the twins return new queues
+    queue_err = {"push": 0, "pop_first": 0}
+
+    def held(name, got, want):
+        queue_err[name] = max(queue_err[name], max_err(got[0], want[0]),
+                              max_err(got[1:], want[1:]))
+
+    def clone(xq):
+        return xqueue.XQ(*(x.clone() for x in xq))
+
+    for w in (144, 200):
+        xw, pw, (rw, mw, nw) = step_bench.queue_inputs(dev, W=w, seed=w)
+        held("push", sq.push(clone(xw), *pw), sq.PLAIN["push"](xw, *pw))
+        for na in (nw, None):
+            held("pop_first", sq.pop_first(clone(xw), rw, mw, na),
+                 sq.PLAIN["pop_first"](xw, rw, mw, na))
+    on_card, on_twin = clone(xq0), xq0
+    for i in range(50):
+        if i % 2 == 0:
+            lanes = (producer, t(rs.integers(0, W, W).astype(np.int32)),
+                     t(rs.integers(0, 5000, W).astype(np.int32)), tsv,
+                     t(rs.random(W) < 0.75))
+            got = sq.push(on_card, *lanes)
+            want = sq.PLAIN["push"](on_twin, *lanes)
+            held("push", got, want)
+        else:
+            rot_i = t(rs.integers(0, 1000, W).astype(np.int32))
+            na = None if i % 4 == 1 else n_act
+            got = sq.pop_first(on_card, rot_i, pmask, na)
+            want = sq.PLAIN["pop_first"](on_twin, rot_i, pmask, na)
+            held("pop_first", got, want)
+        on_card, on_twin = got[0], want[0]
+    for k in kernels:
+        k["max_abs_err"] = max(k["max_abs_err"], queue_err.get(k["name"], 0))
+    print(f"push, pop_first == twins at W=64, 144 and 200 and over 50 calls "
+          f"in turn on one queue (max abs err {queue_err})", flush=True)
+    # their host path taken apart, beside the launch floor
+    qo = step_bench.queue_ops(dev)
+    report["queue_ops"] = qo
+    for name in ("push", "pop_first", "launch_floor"):
+        r = qo[name]
+        print(f"{name}: {r['ms']:.5f} ms a call, host {r['host_us']:.2f} us"
+              + (f" (checks {r['checks_host_us']:.2f}, allocations "
+                 f"{r['alloc_host_us']:.2f})" if "checks_host_us" in r
+                 else "") + f", device {r['device_us']} us a launch",
+              flush=True)
+    print(f"ctr_add: device {qo['ctr_add']['device_us']} us a launch (one "
+          f"pair), {qo['ctr_add']['device_us_seven']} (seven)", flush=True)
 
     # sched_step, max_iters = 1, on mid-run states: NA-WS (transfer, thief
     # loop), NA-RP and gomp (join claims), flat, NUMA and cluster

@@ -121,9 +121,14 @@ def launched(name: str, err: int) -> None:
     KERNELS[name].launches += 1
 
 
-def stream() -> int:
-    """The current device's current stream as a raw ``cudaStream_t`` (an
-    int, for a ``c_void_p`` argument).  ``torch.cuda.current_stream()``
-    builds a Python ``Stream`` object a call; the raw handle costs less on
-    the per-op path, where the host is the bound."""
-    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+def stream(index: int | None = None) -> int:
+    """The current stream of device ``index`` (default: the current
+    device) as a raw ``cudaStream_t`` (an int, for a ``c_void_p``
+    argument): the stream PyTorch's own ops on that device's tensors use.
+    ``torch.cuda.current_stream()`` builds a Python ``Stream`` object a
+    call; the raw handle costs less on the per-op path, where the host is
+    the bound, and a wrapper that knows its tensors' device index skips
+    the current-device lookup too."""
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

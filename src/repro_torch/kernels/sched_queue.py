@@ -16,8 +16,10 @@ version.  There is no other fallback.  The kernels update ``xq`` and
 functional.  Both give the same values.
 
 All three kernels are integer bookkeeping on at most a few hundred KiB and
-are bound by launch latency on the card (see the source notes); the simple
-one-thread-per-row / one-warp-per-row designs are kept for correctness.
+are bound by launch latency and by this module's host path on the card
+(see the source notes), so each wrapper reads only cheap tensor
+attributes, makes its outputs with ``empty_like`` of a checked argument
+and passes its arguments as one packed bytes record.
 """
 
 from __future__ import annotations
@@ -53,9 +55,10 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sq_ctr_add.argtypes = [ptr, i32, i32, i32, ctypes.c_char_p, ptr]
-    lib.sq_push.argtypes = [ptr] * 10 + [i32, i32, ptr]
-    lib.sq_pop_first.argtypes = [ptr] * 12 + [i32, i32, ptr]
-    for fn in (lib.sq_ctr_add, lib.sq_push, lib.sq_pop_first):
+    # push, pop_first and the timing tools' empty launch: one packed record
+    for fn in (lib.sq_push, lib.sq_pop_first, lib.sq_noop):
+        fn.argtypes = [ctypes.c_char_p, ptr]
+    for fn in (lib.sq_ctr_add, lib.sq_push, lib.sq_pop_first, lib.sq_noop):
         fn.restype = ctypes.c_int
     return lib
 
@@ -119,64 +122,131 @@ def ctr_add(ctr: torch.Tensor, col_or_pairs, val=None) -> torch.Tensor:
     return ctr
 
 
-# ---------------- SPSC push ----------------
-def push(xq: XQ, producer: torch.Tensor, consumer: torch.Tensor,
-         task: torch.Tensor, ts: torch.Tensor, mask: torch.Tensor):
-    """:func:`repro_torch.core.xqueue.push` (same signature and result);
-    on the card it writes ``xq`` in place and returns it."""
-    W = xq.head.shape[0]
-    Q = xqueue.capacity(xq)
-    where = xq.buf.get_device()
-    _check(xq.buf, "buf", (W, W, Q), I32, where)
+# ---------------- the queue leaves ----------------
+def _check_queues(xq: XQ) -> tuple:
+    """Check the four leaves of ``xq``; return ``(W, Q, where)``.  W and Q
+    are read once, from ``buf``, and the other leaves are held to them."""
+    buf = xq.buf
+    shape = buf.shape
+    W, Q = shape[0], shape[-1]
+    where = buf.get_device()
+    _check(buf, "buf", (W, W, Q), I32, where)
     _check(xq.ts, "ts", (W, W, Q), I32, where)
     _check(xq.head, "head", (W, W), I32, where)
     _check(xq.tail, "tail", (W, W), I32, where)
-    for name, t in (("producer", producer), ("consumer", consumer),
-                    ("task", task), ("ts", ts)):
-        _check(t, name, (W,), I32, where)
-    _check(mask, "mask", (W,), BOOL, where)
+    return W, Q, where
+
+
+# ---------------- SPSC push ----------------
+#: ``struct PushArgs`` of ``csrc/sched_queue.cu``: the pointers buf, ts,
+#: head, tail, producer, consumer, task, tsv, mask and ok, then W and Q
+_PUSH = struct.Struct("<10Q2i")
+
+
+def _push_checks(xq: XQ, producer, consumer, task, ts, mask) -> tuple:
+    """Check a push's arguments; return ``(W, Q, where)``."""
+    W, Q, where = _check_queues(xq)
+    lane = (W,)
+    _check(producer, "producer", lane, I32, where)
+    _check(consumer, "consumer", lane, I32, where)
+    _check(task, "task", lane, I32, where)
+    _check(ts, "ts", lane, I32, where)
+    _check(mask, "mask", lane, BOOL, where)
+    return W, Q, where
+
+
+def _push_record(xq: XQ, producer, consumer, task, ts, mask, ok, W: int,
+                 Q: int) -> bytes:
+    return _PUSH.pack(xq.buf.data_ptr(), xq.ts.data_ptr(),
+                      xq.head.data_ptr(), xq.tail.data_ptr(),
+                      producer.data_ptr(), consumer.data_ptr(),
+                      task.data_ptr(), ts.data_ptr(), mask.data_ptr(),
+                      ok.data_ptr(), W, Q)
+
+
+def push(xq: XQ, producer: torch.Tensor, consumer: torch.Tensor,
+         task: torch.Tensor, ts: torch.Tensor, mask: torch.Tensor):
+    """:func:`repro_torch.core.xqueue.push` (same signature and result);
+    on the card it writes ``xq`` in place and returns it.
+
+    On the card the host path is this kernel's cost (its device work is a
+    few hundred bytes): the checks read only cheap attributes, ``ok`` is
+    the one allocation (``empty_like(mask)``), the pointers, W and Q pass
+    as one packed record, and the stream is the queue's device's."""
+    W, Q, where = _push_checks(xq, producer, consumer, task, ts, mask)
     if where < 0:
         return xqueue.push(xq, producer, consumer, task, ts, mask)
-    ok = torch.empty(W, dtype=BOOL, device=xq.buf.device)
+    ok = torch.empty_like(mask)
     err = _library().sq_push(
-        *(t.data_ptr() for t in (xq.buf, xq.ts, xq.head, xq.tail, producer,
-                                 consumer, task, ts, mask, ok)),
-        W, Q, reg.stream())
+        _push_record(xq, producer, consumer, task, ts, mask, ok, W, Q),
+        reg.stream(where))
     reg.launched("push", err)
     return xq, ok
 
 
 # ---------------- pop scan ----------------
+#: ``struct PopArgs`` of ``csrc/sched_queue.cu``: the pointers buf, ts,
+#: head, tail, rot, mask, n_active (0: none), task, ts, src, found and
+#: checked, then W, Q and the n_active value, padded to 8 bytes
+_POP = struct.Struct("<12Q3i4x")
+#: the widest W the kernel's scan key (position << 16 | producer) holds:
+#: ``POP_W_MAX`` in ``csrc/sched_queue.cu``
+POP_W_MAX = 0xFFFF - 1
+
+
+def _pop_checks(xq: XQ, rot, mask, n_active) -> tuple:
+    """Check a pop's arguments; return ``(W, Q, where)``."""
+    W, Q, where = _check_queues(xq)
+    if W > POP_W_MAX:
+        raise ValueError(f"pop_first takes at most {POP_W_MAX} workers, "
+                         f"got {W}")
+    _check(rot, "rot", (W,), I32, where)
+    _check(mask, "mask", (W,), BOOL, where)
+    if n_active is not None:
+        _check(n_active, "n_active", (), I32, where)
+    return W, Q, where
+
+
+def _pop_outputs(rot: torch.Tensor, mask: torch.Tensor) -> tuple:
+    """A pop's outputs ``(task, ts, src, found, checked)``: (W,) int32
+    tensors like ``rot`` and a (W,) bool like ``mask``, each its own
+    allocation.  ``empty_like`` of a checked tensor parses no dtype or
+    device; on the card's host five of these cost less than one buffer and
+    the five views of it that would hand it out (``PERF.md``)."""
+    return (torch.empty_like(rot), torch.empty_like(rot),
+            torch.empty_like(rot), torch.empty_like(mask),
+            torch.empty_like(rot))
+
+
+def _pop_record(xq: XQ, rot, mask, n_active, outs, W: int, Q: int) -> bytes:
+    task, ts, src, found, checked = outs
+    if n_active is None:
+        na_ptr, na = 0, W
+    else:
+        na_ptr, na = n_active.data_ptr(), 0
+    return _POP.pack(xq.buf.data_ptr(), xq.ts.data_ptr(), xq.head.data_ptr(),
+                     xq.tail.data_ptr(), rot.data_ptr(), mask.data_ptr(),
+                     na_ptr, task.data_ptr(), ts.data_ptr(), src.data_ptr(),
+                     found.data_ptr(), checked.data_ptr(), W, Q, na)
+
+
 def pop_first(xq: XQ, rot: torch.Tensor, mask: torch.Tensor, n_active=None):
     """:func:`repro_torch.core.xqueue.pop_first` (same signature and
     result); on the card it advances ``xq.head`` in place.  ``n_active`` is
     a 0-dim int32 tensor on the queue's device (read by the kernel, never
-    copied to the host)."""
-    W = xq.head.shape[0]
-    Q = xqueue.capacity(xq)
-    dev, where = xq.buf.device, xq.buf.get_device()
-    if n_active is None:
-        n_active = torch.tensor(W, dtype=I32, device=dev)
-    _check(xq.buf, "buf", (W, W, Q), I32, where)
-    _check(xq.ts, "ts", (W, W, Q), I32, where)
-    _check(xq.head, "head", (W, W), I32, where)
-    _check(xq.tail, "tail", (W, W), I32, where)
-    _check(rot, "rot", (W,), I32, where)
-    _check(mask, "mask", (W,), BOOL, where)
-    _check(n_active, "n_active", (), I32, where)
+    copied to the host), or None for the width (passed by value).
+
+    As for :func:`push`, the host path is the cost: cheap checks, the
+    outputs made like the checked lanes (:func:`_pop_outputs`) and one
+    packed record.  W is at most :data:`POP_W_MAX` on every device."""
+    W, Q, where = _pop_checks(xq, rot, mask, n_active)
     if where < 0:
         return xqueue.pop_first(xq, rot, mask, n_active)
-    task = torch.empty(W, dtype=I32, device=dev)
-    ts = torch.empty(W, dtype=I32, device=dev)
-    src = torch.empty(W, dtype=I32, device=dev)
-    found = torch.empty(W, dtype=BOOL, device=dev)
-    checked = torch.empty(W, dtype=I32, device=dev)
+    outs = _pop_outputs(rot, mask)
     err = _library().sq_pop_first(
-        *(t.data_ptr() for t in (xq.buf, xq.ts, xq.head, xq.tail, rot, mask,
-                                 n_active, task, ts, src, found, checked)),
-        W, Q, reg.stream())
+        _pop_record(xq, rot, mask, n_active, outs, W, Q), reg.stream(where))
     reg.launched("pop_first", err)
-    return xq, task, ts, src, found, checked
+    return (xq, *outs)
 
 
 #: the plain PyTorch twin of each kernel (what the CPU path runs and what

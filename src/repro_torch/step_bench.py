@@ -1,6 +1,7 @@
-"""Times of the fused simulator kernel (``cuda_fused``) on the card.
+"""Times of the simulator's kernels on the card: the fused kernel
+(``cuda_fused``) and the ``cuda`` backend's queue kernels.
 
-What ``chip_smoke.py`` phase 5 times beside the kernel's twin, and what a
+What ``chip_smoke.py`` phase 5 times beside the kernels' twins, and what a
 comparison of two versions of the port needs, as one JSON line:
 
 * ``naws_step_ms`` / ``gomp_step_ms``: one step of a mid-run state
@@ -18,9 +19,24 @@ comparison of two versions of the port needs, as one JSON line:
 * ``main_path_s``: phase 3's twelve ``cuda_fused`` runs (the five ladder
   modes on ``fib(16)`` and ``uts(3000)`` at W=64, NA-WS on
   ``quad_socket_48``), host clock, each ending in a synchronise;
+  ``cuda_main_path``: the same twelve runs on the ``cuda`` backend (seconds,
+  steps, steps per second, the push and pop launches);
 * ``sweep``: phase 4's 72-case batched ``run_cases`` (configurations per
   second, mean wall time per chunk launch), then the same sweep traced for
-  the kernel's device time per chunk launch.
+  the kernel's device time per chunk launch;
+* ``queue_ops``: ``push`` and ``pop_first`` at phase 3's shapes (W=64,
+  Q=16, the lanes ``chip_smoke.py`` builds), each call on a fresh copy of
+  the queues: ms a call by CUDA events over back-to-back calls, the
+  wrapper's host µs a call beside those of its argument checks alone and
+  its output allocations alone (medians of four rounds of 5000 calls in
+  turns; for ``pop_first`` also one buffer and five views of it,
+  ``one_buffer_alloc_host_us``), and the kernel's device µs a launch
+  (profiler) on the fresh copies (their 512 KiB cold in L2) and on one
+  queue every call (``device_us_warm``: warm, as the ``cuda`` backend's
+  one queue is from step to step); beside them the launch floor, an empty
+  kernel launched through the same ctypes path (``sq_noop``; omitted for
+  a checkout without it), and the counter bump's device µs a launch for
+  one pair and for the spawn phase's run of seven.
 
     PYTHONPATH=src python3 -m repro_torch.step_bench
 
@@ -33,15 +49,20 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import apps
 from repro_torch.core import plan, scheduler, sweep
 from repro_torch.core.spec import LATTICE, MODE_SPECS
-from repro_torch.core.state import SimConfig, batch_of_one, tree_map
+from repro_torch.core.state import NC, SimConfig, batch_of_one, tree_map
+from repro_torch.core import xqueue
+from repro_torch.kernels import registry as reg
+from repro_torch.kernels import sched_queue as sq
 from repro_torch.kernels import sched_step as ss
 
 #: the mid-run step timed (past the ramp-up of the bench graphs)
@@ -80,16 +101,16 @@ def step_ms(graph, mode, dev, n: int = 200) -> float:
         next(pool), g, case, costs=costs, max_steps=big, max_iters=1), n)
 
 
-def _device_us(fn, n: int) -> float:
-    """The fused kernel's mean device µs a launch over ``n`` calls of
-    ``fn(i)``, traced by the profiler."""
+def _device_us(fn, n: int, kernel: str = "sched_step_kernel") -> float:
+    """The mean device µs a launch of ``kernel`` (a substring of its
+    symbol) over ``n`` calls of ``fn(i)``, traced by the profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if "sched_step_kernel" in e.key]
+    rows = [e for e in prof.key_averages() if kernel in e.key]
     count = sum(e.count for e in rows)
     return sum(e.device_time_total for e in rows) / count if count else None
 
@@ -139,22 +160,24 @@ def whole_run_ms(graph, mode, dev, n: int = 5) -> float:
         next(pool), g, case, costs=costs, max_steps=big, max_iters=big), n)
 
 
-def main_path_s(bench, dev) -> float:
-    """Phase 3's twelve ``cuda_fused`` runs, host clock."""
+def main_path_s(bench, dev, backend: str = "cuda_fused") -> tuple:
+    """Phase 3's twelve runs on ``backend``, host clock: ``(seconds,
+    steps)``."""
     runs = [(name, m, SimConfig(), None) for name in ("fib", "uts")
             for m in MODE_SPECS]
     runs += [(name, "na_ws", SimConfig(n_workers=48), "quad_socket_48")
              for name in ("fib", "uts")]
-    total = 0.0
+    total, steps = 0.0, 0
     for name, mode, cfg, topo in runs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        scheduler.run(bench[name], spec=MODE_SPECS[mode],
-                      cfg=dataclasses.replace(cfg, backend="cuda_fused"),
-                      topology=topo, device=dev)
+        r = scheduler.run(bench[name], spec=MODE_SPECS[mode],
+                          cfg=dataclasses.replace(cfg, backend=backend),
+                          topology=topo, device=dev)
         torch.cuda.synchronize()
         total += time.perf_counter() - t0
-    return total
+        steps += int(r.state.step_i)
+    return total, steps
 
 
 def sweep_specs() -> list:
@@ -199,6 +222,165 @@ def sweep_times(bench, dev) -> dict:
                 chunk_device_ms=device_ms, traced_launches=n)
 
 
+def _host_us(fn, n: int) -> float:
+    """Mean host µs a call of ``fn(i)`` (``time.perf_counter_ns`` around
+    each call; the device may still be working when it returns)."""
+    torch.cuda.synchronize()
+    total = 0
+    for i in range(n):
+        t0 = time.perf_counter_ns()
+        fn(i)
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / n / 1e3
+
+
+def queue_inputs(dev, W: int = 64, Q: int = 16, seed: int = 0):
+    """Phase 5's queue state and lanes (``chip_smoke.py``): half the queues
+    empty, the rest holding 1..Q tasks; push from every lane to random
+    consumers with 3 in 4 lanes live; pop with random rotations, 9 in 10
+    consumers live, ``n_active = W - 2``."""
+    rs = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    head = rs.integers(0, 1000, (W, W)).astype(np.int32)
+    size = np.where(rs.random((W, W)) < 0.5, 0,
+                    rs.integers(1, Q + 1, (W, W))).astype(np.int32)
+    xq = xqueue.XQ(t(rs.integers(-1, 5000, (W, W, Q)).astype(np.int32)),
+                   t(rs.integers(0, 10**6, (W, W, Q)).astype(np.int32)),
+                   t(head), t(head + size))
+    push = (torch.arange(W, dtype=torch.int32, device=dev),
+            t(rs.integers(0, W, W).astype(np.int32)),
+            t(rs.integers(0, 5000, W).astype(np.int32)),
+            t(rs.integers(0, 10**6, W).astype(np.int32)),
+            t(rs.random(W) < 0.75))
+    pop = (t(rs.integers(0, 1000, W).astype(np.int32)), t(rs.random(W) < 0.9),
+           torch.tensor(W - 2, dtype=torch.int32, device=dev))
+    return xq, push, pop
+
+
+def _split_parts(xq, push, pop) -> dict:
+    """``{kernel: {part: fn}}``: each wrapper's argument checks and output
+    allocations as it runs them (for a checkout whose wrappers predate the
+    factored checks, the per-tensor ``_check`` calls and the per-output
+    ``torch.empty`` calls those wrappers made), and for ``pop_first`` the
+    one-buffer design beside them."""
+    W, Q = xq.buf.shape[0], xq.buf.shape[-1]
+    where, dev = xq.buf.get_device(), xq.buf.device
+    one_buffer = {"one_buffer_alloc": lambda: _one_buffer_outputs(W, where)}
+    if hasattr(sq, "_push_checks"):
+        return {"push": {"checks": lambda: sq._push_checks(xq, *push),
+                         "alloc": lambda: torch.empty_like(push[4])},
+                "pop_first": {"checks": lambda: sq._pop_checks(xq, *pop),
+                              "alloc": lambda: sq._pop_outputs(pop[0],
+                                                               pop[1]),
+                              **one_buffer}}
+    i32, b8 = torch.int32, torch.bool
+
+    def queue_checks():
+        for name, t, shape in (("buf", xq.buf, (W, W, Q)),
+                               ("ts", xq.ts, (W, W, Q)),
+                               ("head", xq.head, (W, W)),
+                               ("tail", xq.tail, (W, W))):
+            sq._check(t, name, shape, i32, where)
+
+    def push_checks():
+        queue_checks()
+        for name, t in zip(("producer", "consumer", "task", "ts"), push):
+            sq._check(t, name, (W,), i32, where)
+        sq._check(push[4], "mask", (W,), b8, where)
+
+    def pop_checks():
+        queue_checks()
+        sq._check(pop[0], "rot", (W,), i32, where)
+        sq._check(pop[1], "mask", (W,), b8, where)
+        sq._check(pop[2], "n_active", (), i32, where)
+
+    def pop_allocs():
+        return [torch.empty(W, dtype=d, device=dev)
+                for d in (i32, i32, i32, b8, i32)]
+
+    return {"push": {"checks": push_checks,
+                     "alloc": lambda: torch.empty(W, dtype=b8, device=dev)},
+            "pop_first": {"checks": pop_checks, "alloc": pop_allocs,
+                          **one_buffer}}
+
+
+def _one_buffer_outputs(W: int, where: int) -> tuple:
+    """A pop's five outputs as views of one 17 W-byte buffer (task, ts,
+    src and checked as int32, then found as bool): the design
+    ``_pop_outputs`` was held against, timed beside it."""
+    out = torch.empty(17 * W, dtype=torch.uint8, device=where)
+    task, ts, src, checked = out[:16 * W].view(torch.int32).view(4, W).unbind()
+    return task, ts, src, out[16 * W:].view(torch.bool), checked
+
+
+def _host_us_turns(fns: dict, n: int = 5000, rounds: int = 4) -> dict:
+    """Median host µs a call of each ``fn()`` in ``fns`` over ``rounds``
+    rounds of ``n`` calls each, in turns, the order reversed every other
+    round (host times of a few µs swing between runs of one process)."""
+    times = {k: [] for k in fns}
+    items = list(fns.items())
+    for r in range(rounds):
+        for k, fn in (items if r % 2 == 0 else items[::-1]):
+            times[k].append(_host_us(lambda i: fn(), n))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def queue_ops(dev, n: int = 500) -> dict:
+    """``push`` and ``pop_first`` at phase 3's shapes taken apart, and the
+    launch floor of their ctypes path."""
+    xq, push, pop = queue_inputs(dev)
+    sq.build()
+    calls = {"push": (sq.push, push, "push_kernel"),
+             "pop_first": (sq.pop_first, pop, "pop_kernel")}
+    parts = _host_us_turns({f"{name}.{part}": fn
+                            for name, fns in _split_parts(xq, push,
+                                                          pop).items()
+                            for part, fn in fns.items()})
+    out = {}
+    for name, (fn, args, key) in calls.items():
+        def fresh():
+            pool = iter([xqueue.XQ(*(x.clone() for x in xq))
+                         for _ in range(n + 10)])
+            return lambda i: fn(next(pool), *args)
+
+        same = xqueue.XQ(*(x.clone() for x in xq))
+        out[name] = dict(
+            ms=events_ms(fresh(), n),
+            host_us=_host_us(fresh(), n),
+            **{part[len(name) + 1:] + "_host_us": us
+               for part, us in parts.items() if part.startswith(name + ".")},
+            device_us=_device_us(fresh(), n, key),
+            device_us_warm=_device_us(lambda i: fn(same, *args), n, key))
+    W = xq.buf.shape[0]
+    # the counter bump's device time beside them: one pair, and the spawn
+    # phase's run of seven in one launch
+    ctr = torch.zeros((W, NC), dtype=torch.int32, device=dev)
+    one = [(15, push[2])]
+    seven = [(c, push[4] if c % 2 else push[3])
+             for c in (4, 14, 9, 10, 11, 16, 14)]
+    out["ctr_add"] = dict(
+        device_us=_device_us(lambda i: sq.ctr_add(ctr, one), n,
+                             "ctr_add_kernel"),
+        device_us_seven=_device_us(lambda i: sq.ctr_add(ctr, seven), n,
+                                   "ctr_add_kernel"))
+    lib = sq._library()
+    noop = getattr(lib, "sq_noop", None)
+    if noop is not None:
+        record, where = bytes(sq._PUSH.size), xq.buf.get_device()
+
+        def floor(i):
+            return noop(record, reg.stream(where))
+
+        out["launch_floor"] = dict(
+            ms=events_ms(floor, n), host_us=_host_us(floor, n),
+            device_us=_device_us(floor, n, "noop_kernel"))
+    return out
+
+
 def measure(dev=None) -> dict:
     dev = torch.device(dev or "cuda")
     bench = {n: apps.build(n, scale="bench") for n in ("fib", "uts")}
@@ -207,8 +389,14 @@ def measure(dev=None) -> dict:
                gomp_step_ms=step_ms(bench["uts"], "gomp", dev),
                naws_launch=launch_split(bench["fib"], "na_ws", dev),
                whole_run_ms=whole_run_ms(bench["fib"], "na_ws", dev))
-    out["main_path_s"] = main_path_s(bench, dev)
+    out["main_path_s"] = main_path_s(bench, dev)[0]
     out["sweep"] = sweep_times(bench, dev)
+    out["queue_ops"] = queue_ops(dev)
+    reg.reset_launches()
+    cuda_s, cuda_steps = main_path_s(bench, dev, "cuda")
+    out["cuda_main_path"] = dict(
+        s=cuda_s, steps=cuda_steps, steps_per_s=cuda_steps / cuda_s,
+        launches={k: reg.KERNELS[k].launches for k in ("push", "pop_first")})
     return out
 
 

@@ -49,13 +49,16 @@ def _need_card():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
 
 
-def _queues(rs, device):
-    head = rs.integers(0, 40, (W, W)).astype(np.int32)
-    size = np.where(rs.random((W, W)) < 0.5, 0,
-                    rs.integers(1, Q + 1, (W, W))).astype(np.int32)
-    arrs = dict(buf=rs.integers(-1, 99, (W, W, Q)).astype(np.int32),
-                ts=rs.integers(0, 9999, (W, W, Q)).astype(np.int32),
-                head=head, tail=head + size)
+def _queues(rs, device, w=W, q=Q, fill="mixed"):
+    """Queues of width ``w`` and capacity ``q``: half empty and half holding
+    1..q tasks ("mixed"), every one full, or every one empty."""
+    head = rs.integers(0, 40, (w, w)).astype(np.int32)
+    size = {"mixed": np.where(rs.random((w, w)) < 0.5, 0,
+                              rs.integers(1, q + 1, (w, w))),
+            "full": np.full((w, w), q), "empty": np.zeros((w, w))}[fill]
+    arrs = dict(buf=rs.integers(-1, 99, (w, w, q)).astype(np.int32),
+                ts=rs.integers(0, 9999, (w, w, q)).astype(np.int32),
+                head=head, tail=(head + size).astype(np.int32))
     return xqueue.XQ(**{k: torch.as_tensor(v, device=device)
                         for k, v in arrs.items()})
 
@@ -69,42 +72,102 @@ def _equal(a, b, label):
         assert np.array_equal(x, y), (label, k)
 
 
+def _card(xq):
+    return xqueue.XQ(*(x.cuda() for x in xq))
+
+
+def _launches():
+    torch.cuda.synchronize()
+    return [reg.KERNELS[k].launches for k in sq.QUEUE_KERNELS]
+
+
+def _push_lanes(rs, w, n_active, mask_p):
+    return [torch.arange(w, dtype=torch.int32),
+            torch.as_tensor(rs.integers(0, n_active, w).astype(np.int32)),
+            torch.as_tensor(rs.integers(0, 99, w).astype(np.int32)),
+            torch.as_tensor(rs.integers(0, 9999, w).astype(np.int32)),
+            torch.as_tensor(rs.random(w) < mask_p)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed", range(3))
-def test_cuda_kernels_match_plain(seed):
-    """Each CUDA kernel against its plain twin at W = 64, Q = 16, bitwise,
-    counting one launch per call."""
+@pytest.mark.parametrize("q", (4, 16))
+@pytest.mark.parametrize("w", (48, 64, 144, 200))
+def test_cuda_kernels_match_plain(w, q):
+    """Each CUDA kernel against its plain twin, bitwise, at one launch a
+    call: push and pop_first on mixed, full and empty queues, with a random
+    and an all-false mask, ``n_active`` below the width and None; then 50
+    alternating push and pop calls on one queue; ``ctr_add`` once."""
     _need_card()
-    rs = np.random.default_rng(seed)
+    rs = np.random.default_rng(w * 100 + q)
+    for fill in ("mixed", "full", "empty"):
+        cpu = _queues(rs, "cpu", w, q, fill)
+        for mask_p in (0.8, 0.0):
+            for na in (torch.tensor(w - 3, dtype=torch.int32), None):
+                label = (w, q, fill, mask_p, na)
+                n = w if na is None else int(na)
+                rot = torch.as_tensor(rs.integers(0, 99, w).astype(np.int32))
+                mask = torch.as_tensor(rs.random(w) < mask_p)
+                reg.reset_launches()
+                got = sq.pop_first(_card(cpu), rot.cuda(), mask.cuda(),
+                                   None if na is None else na.cuda())
+                want = xqueue.pop_first(cpu, rot, mask, na)
+                _equal(got[0], want[0], ("pop xq", *label))
+                for i, (a, b) in enumerate(zip(got[1:], want[1:])):
+                    _equal(a, b, ("pop", i, *label))
+                lanes = _push_lanes(rs, w, n, mask_p)
+                got = sq.push(_card(cpu), *(x.cuda() for x in lanes))
+                want = xqueue.push(cpu, *lanes)
+                _equal(got[0], want[0], ("push xq", *label))
+                _equal(got[1], want[1], ("push ok", *label))
+                assert _launches() == [0, 1, 1], label
+    # 50 calls in turn on one queue, the card's in place, the twin's
+    # functional
     reg.reset_launches()
-    cpu = _queues(rs, "cpu")
-
-    def card():
-        return xqueue.XQ(*(x.cuda() for x in cpu))
-
-    rot = torch.as_tensor(rs.integers(0, 99, W).astype(np.int32))
-    mask = torch.as_tensor(rs.random(W) < 0.8)
-    na = torch.tensor(W - 3, dtype=torch.int32)
-    got = sq.pop_first(card(), rot.cuda(), mask.cuda(), na.cuda())
-    want = xqueue.pop_first(cpu, rot, mask, na)
-    _equal(got[0], want[0], "pop xq")
-    for i, (a, b) in enumerate(zip(got[1:], want[1:])):
-        _equal(a, b, ("pop", i))
-    lanes = [torch.arange(W, dtype=torch.int32),
-             torch.as_tensor(rs.integers(0, W, W).astype(np.int32)),
-             torch.as_tensor(rs.integers(0, 99, W).astype(np.int32)),
-             torch.as_tensor(rs.integers(0, 9999, W).astype(np.int32)),
-             mask]
-    got = sq.push(card(), *(x.cuda() for x in lanes))
-    want = xqueue.push(cpu, *lanes)
-    _equal(got[0], want[0], "push xq")
-    _equal(got[1], want[1], "push ok")
-    ctr = torch.as_tensor(rs.integers(0, 99, (W, NC)).astype(np.int32))
-    val = torch.as_tensor(rs.integers(0, 9, W).astype(np.int32))
+    cpu = _queues(rs, "cpu", w, q)
+    card = _card(cpu)
+    for i in range(50):
+        na = None if i % 4 == 1 else torch.tensor(w - i % 3, dtype=torch.int32)
+        if i % 2 == 0:
+            lanes = _push_lanes(rs, w, w, 0.7)
+            card, got_ok = sq.push(card, *(x.cuda() for x in lanes))
+            cpu, ok = xqueue.push(cpu, *lanes)
+            _equal(got_ok, ok, ("sequence push ok", w, q, i))
+        else:
+            rot = torch.as_tensor(rs.integers(0, 99, w).astype(np.int32))
+            mask = torch.as_tensor(rs.random(w) < 0.9)
+            card, *got = sq.pop_first(card, rot.cuda(), mask.cuda(),
+                                      None if na is None else na.cuda())
+            cpu, *want = xqueue.pop_first(cpu, rot, mask, na)
+            for j, (a, b) in enumerate(zip(got, want)):
+                _equal(a, b, ("sequence pop", j, w, q, i))
+        _equal(card, cpu, ("sequence xq", w, q, i))
+    assert _launches() == [0, 25, 25]
+    ctr = torch.as_tensor(rs.integers(0, 99, (w, NC)).astype(np.int32))
+    val = torch.as_tensor(rs.integers(0, 9, w).astype(np.int32))
     _equal(sq.ctr_add(ctr.cuda(), 5, val.cuda()),
            sq.ctr_add_ref(ctr, 5, val), "ctr_add")
+    assert _launches() == [1, 25, 25]
+
+
+@pytest.mark.gpu
+def test_pop_first_without_n_active_makes_no_host_copy():
+    """``n_active=None`` passes the width by value: the call makes no
+    synchronising host-to-device copy (the sync debug mode raises on one)."""
+    _need_card()
+    rs = np.random.default_rng(7)
+    cpu = _queues(rs, "cpu")
+    rot = torch.as_tensor(rs.integers(0, 99, W).astype(np.int32))
+    mask = torch.as_tensor(rs.random(W) < 0.8)
+    card, rot_c, mask_c = _card(cpu), rot.cuda(), mask.cuda()
     torch.cuda.synchronize()
-    assert [reg.KERNELS[k].launches for k in sq.QUEUE_KERNELS] == [1, 1, 1]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sq.pop_first(card, rot_c, mask_c)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = xqueue.pop_first(cpu, rot, mask)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _equal(a, b, ("pop", i))
 
 
 @pytest.mark.gpu

@@ -7,6 +7,9 @@ argument checks the CUDA path makes; ``tests/test_torch_gpu.py`` holds the
 CUDA kernels against the twins on the card.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -25,12 +28,12 @@ from repro_torch.kernels import sched_queue as t_sq  # noqa: E402
 W, Q, NC = 8, 4, 18
 
 
-def queues(rs):
-    head = rs.integers(0, 40, (W, W)).astype(np.int32)
-    size = rs.integers(0, Q + 1, (W, W)).astype(np.int32)
-    size = np.where(rs.random((W, W)) < 0.5, 0, size).astype(np.int32)
-    return dict(buf=rs.integers(-1, 99, (W, W, Q)).astype(np.int32),
-                ts=rs.integers(0, 9999, (W, W, Q)).astype(np.int32),
+def queues(rs, w=W):
+    head = rs.integers(0, 40, (w, w)).astype(np.int32)
+    size = rs.integers(0, Q + 1, (w, w)).astype(np.int32)
+    size = np.where(rs.random((w, w)) < 0.5, 0, size).astype(np.int32)
+    return dict(buf=rs.integers(-1, 99, (w, w, Q)).astype(np.int32),
+                ts=rs.integers(0, 9999, (w, w, Q)).astype(np.int32),
                 head=head, tail=(head + size).astype(np.int32))
 
 
@@ -58,40 +61,51 @@ def test_ctr_add_matches_pallas(seed):
            ("ctr_add", seed, col))
 
 
+#: the widths of the parity tests: the unit tests' 8, and 33, which is not
+#: a multiple of a warp (the kernels stride a warp's lanes over producers)
+WIDTHS = (W, 33)
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_push_matches_pallas(seed):
     rs = np.random.default_rng(10 + seed)
-    d = queues(rs)
-    n_active = int(rs.integers(1, W + 1))
-    producer = np.arange(W, dtype=np.int32)
-    consumer = rs.integers(0, n_active, W).astype(np.int32)
-    task = rs.integers(0, 99, W).astype(np.int32)
-    ts = rs.integers(0, 9999, W).astype(np.int32)
-    mask = (rs.random(W) < 0.8) & (producer < n_active)
-    lanes = [producer, consumer, task, ts, mask]
-    t_out, t_ok = t_sq.push(tq(d), *map(torch.as_tensor, lanes))
-    j_out, j_ok = j_sq.push(jq(d), *map(jnp.asarray, lanes))
-    for k, v in to_numpy(j_out).items():
-        eq(to_numpy(t_out)[k], v, ("push", seed, k))
-    eq(t_ok, j_ok, ("push ok", seed))
+    for w in WIDTHS:
+        d = queues(rs, w)
+        n_active = int(rs.integers(1, w + 1))
+        producer = np.arange(w, dtype=np.int32)
+        consumer = rs.integers(0, n_active, w).astype(np.int32)
+        task = rs.integers(0, 99, w).astype(np.int32)
+        ts = rs.integers(0, 9999, w).astype(np.int32)
+        mask = (rs.random(w) < 0.8) & (producer < n_active)
+        lanes = [producer, consumer, task, ts, mask]
+        t_out, t_ok = t_sq.push(tq(d), *map(torch.as_tensor, lanes))
+        j_out, j_ok = j_sq.push(jq(d), *map(jnp.asarray, lanes))
+        for k, v in to_numpy(j_out).items():
+            eq(to_numpy(t_out)[k], v, ("push", seed, w, k))
+        eq(t_ok, j_ok, ("push ok", seed, w))
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_pop_first_matches_pallas(seed):
+    """At both widths, with ``n_active`` below the width and with None (the
+    width)."""
     rs = np.random.default_rng(20 + seed)
-    d = queues(rs)
-    n_active = int(rs.integers(1, W + 1))
-    rot = rs.integers(0, 40, W).astype(np.int32)
-    mask = (rs.random(W) < 0.8) & (np.arange(W) < n_active)
-    t_out = t_sq.pop_first(tq(d), torch.as_tensor(rot),
-                           torch.as_tensor(mask),
-                           torch.tensor(n_active, dtype=torch.int32))
-    j_out = j_sq.pop_first(jq(d), jnp.asarray(rot), jnp.asarray(mask),
-                           jnp.int32(n_active))
-    for k, v in to_numpy(j_out[0]).items():
-        eq(to_numpy(t_out[0])[k], v, ("pop xq", seed, k))
-    for i, (a, b) in enumerate(zip(t_out[1:], j_out[1:])):
-        eq(a, b, ("pop", seed, i))
+    for w in WIDTHS:
+        d = queues(rs, w)
+        n_active = int(rs.integers(1, w + 1))
+        rot = rs.integers(0, 40, w).astype(np.int32)
+        for na in (n_active, None):
+            mask = (rs.random(w) < 0.8) & (np.arange(w) < (na or w))
+            t_out = t_sq.pop_first(
+                tq(d), torch.as_tensor(rot), torch.as_tensor(mask),
+                None if na is None else torch.tensor(na, dtype=torch.int32))
+            j_out = j_sq.pop_first(jq(d), jnp.asarray(rot), jnp.asarray(mask),
+                                   None if na is None else jnp.int32(na))
+            label = ("pop", seed, w, na)
+            for k, v in to_numpy(j_out[0]).items():
+                eq(to_numpy(t_out[0])[k], v, (*label, k))
+            for i, (a, b) in enumerate(zip(t_out[1:], j_out[1:])):
+                eq(a, b, (*label, i))
 
 
 def test_cpu_wrappers_check_arguments_and_never_count():
@@ -177,3 +191,87 @@ def test_multi_pair_ctr_add_checks_every_pair():
     out = t_sq.ctr_add(ctr, [(c % NC, ok) for c in range(16)])
     assert int(out.sum()) == 16 * W and int(ctr.sum()) == 0
     assert all(k.launches == 0 for k in t_reg.KERNELS.values())
+
+
+def _c_struct(name: str) -> type:
+    """The ctypes mirror of ``struct <name>`` in ``csrc/sched_queue.cu``,
+    read from the source: a pointer field is a ``c_void_p``, an ``int`` a
+    ``c_int``, in the source's order."""
+    src = t_sq.SOURCE.read_text()
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    fields = []
+    for decl in body.split(";")[:-1]:
+        field = decl.split()[-1]
+        ptr = "*" in decl
+        fields.append((field.lstrip("*"),
+                       ctypes.c_void_p if ptr else ctypes.c_int))
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+def test_push_and_pop_records_pack_as_the_kernel_reads_them():
+    """Each wrapper packs its arguments in one ``struct.pack``; the bytes
+    are those of the C record (``PushArgs``, ``PopArgs``, read from the
+    source) built field by field from the same tensors, so every pointer
+    lands in the field the kernel reads it from, n_active's both ways."""
+    rs = np.random.default_rng(5)
+    q = tq(queues(rs))
+    lanes = {k: torch.as_tensor(rs.integers(0, W, W).astype(np.int32))
+             for k in ("producer", "consumer", "task", "tsv", "rot")}
+    mask, ok = torch.ones(W, dtype=torch.bool), torch.ones(W, dtype=torch.bool)
+    leaves = {k: getattr(q, k).data_ptr() for k in q._fields}
+    ptr = {k: v.data_ptr() for k, v in lanes.items()}
+    push_args = _c_struct("PushArgs")
+    want = push_args(**leaves, **{k: ptr[k] for k in
+                                  ("producer", "consumer", "task", "tsv")},
+                     mask=mask.data_ptr(), ok=ok.data_ptr(), W=W, Q=Q)
+    got = t_sq._push_record(q, lanes["producer"], lanes["consumer"],
+                            lanes["task"], lanes["tsv"], mask, ok, W, Q)
+    assert ctypes.sizeof(push_args) == t_sq._PUSH.size
+    assert got == bytes(want)
+    pop_args = _c_struct("PopArgs")
+    assert ctypes.sizeof(pop_args) == t_sq._POP.size
+    outs = t_sq._pop_outputs(lanes["rot"], mask)
+    out_ptrs = dict(zip(("task_out", "ts_out", "src_out", "found_out",
+                         "checked_out"), (t.data_ptr() for t in outs)))
+    na = torch.tensor(W - 2, dtype=torch.int32)
+    for n_active, na_ptr, na_val in ((na, na.data_ptr(), 0), (None, 0, W)):
+        want = pop_args(**leaves, rot=ptr["rot"], mask=mask.data_ptr(),
+                        n_active_ptr=na_ptr, **out_ptrs, W=W, Q=Q,
+                        n_active=na_val)
+        got = t_sq._pop_record(q, lanes["rot"], mask, n_active, outs, W, Q)
+        assert got == bytes(want), n_active
+
+
+def _byte_ranges(ts):
+    return sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                  for t in ts)
+
+
+def test_pop_outputs_keep_their_dtypes_and_share_no_memory():
+    """The kernel's five outputs (``_pop_outputs``, what the card's path
+    hands back) and the CPU path's are (W,) int32, int32, int32, bool and
+    int32 tensors, contiguous, and no two share a byte."""
+    for w in WIDTHS:
+        rot = torch.zeros(w, dtype=torch.int32)
+        mask = torch.ones(w, dtype=torch.bool)
+        rs = np.random.default_rng(w)
+        cpu = t_sq.pop_first(tq(queues(rs, w)), rot, mask)[1:]
+        for outs in (t_sq._pop_outputs(rot, mask), cpu):
+            assert [(t.dtype, tuple(t.shape)) for t in outs] == \
+                [(torch.int32, (w,))] * 3 + [(torch.bool, (w,)),
+                                             (torch.int32, (w,))]
+            assert all(t.is_contiguous() for t in outs)
+            ranges = _byte_ranges(outs)
+            assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_pop_first_refuses_a_width_past_its_scan_key():
+    """The kernel's scan key holds W up to ``POP_W_MAX``; a wider queue
+    raises before anything is read (meta tensors: no memory)."""
+    w = t_sq.POP_W_MAX + 1
+    meta = t_xq.XQ(*(torch.empty(s, dtype=torch.int32, device="meta")
+                     for s in ((w, w, 1), (w, w, 1), (w, w), (w, w))))
+    lane = torch.zeros(w, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="at most"):
+        t_sq.pop_first(meta, lane, lane.bool())
+    assert "POP_W_MAX = 0xFFFF - 1;" in t_sq.SOURCE.read_text()

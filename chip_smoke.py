@@ -613,21 +613,36 @@ RWKV_ARGV = ("--arch", "rwkv6_1_6b", "--batch", str(SERVE_B),
              "--prompt-len", str(SERVE_S), "--gen", str(SERVE_GEN),
              "--seed", "0")
 #: the RWKV6 kernel against its twin: (label, B, H, T, Dh, dtype, nonzero
-#: initial state, layout) — the serving shape in the model's layout and
-#: packed, float32 from a nonzero state, a ragged T (the twin is
-#: rwkv6_naive there), one step, the small heads and a long sequence.
+#: initial state, layout, decays) — the serving shape in the model's layout
+#: and packed, float32 from a nonzero state, a ragged T, one step, the
+#: small heads and a long sequence; then the kernel's edges: one (b, h) at
+#: each head dim, T on either side of one and of two tiles (32 steps at Dh =
+#: 64, 16 at 16 and 32), and decays near 1 and near 0 from a nonzero state.
 #: "model": (B, T, H, Dh) buffers viewed as (B, H, T, Dh), as time_mix
-#: hands them over; "packed": contiguous (B, H, T, Dh)
+#: hands them over; "packed": contiguous (B, H, T, Dh).  Decays: sigmoid of
+#: a standard normal, or of 6 or -6 plus a tenth of one ("near1", "near0")
 RWKV_CASES = (
-    ("serve_model", 4, 32, 1024, 64, "bfloat16", False, "model"),
-    ("serve_bf16", 4, 32, 1024, 64, "bfloat16", False, "packed"),
-    ("f32_state", 2, 32, 1024, 64, "float32", True, "packed"),
-    ("ragged_1000", 1, 32, 1000, 64, "bfloat16", True, "packed"),
-    ("one_step", 4, 32, 1, 64, "float32", True, "packed"),
-    ("dh16", 2, 4, 256, 16, "float32", True, "packed"),
-    ("dh32", 2, 8, 512, 32, "bfloat16", True, "model"),
-    ("long_8192", 1, 32, 8192, 64, "bfloat16", False, "packed"),
+    ("serve_model", 4, 32, 1024, 64, "bfloat16", False, "model", None),
+    ("serve_bf16", 4, 32, 1024, 64, "bfloat16", False, "packed", None),
+    ("f32_state", 2, 32, 1024, 64, "float32", True, "packed", None),
+    ("ragged_1000", 1, 32, 1000, 64, "bfloat16", True, "packed", None),
+    ("one_step", 4, 32, 1, 64, "float32", True, "packed", None),
+    ("dh16", 2, 4, 256, 16, "float32", True, "packed", None),
+    ("dh32", 2, 8, 512, 32, "bfloat16", True, "model", None),
+    ("long_8192", 1, 32, 8192, 64, "bfloat16", False, "packed", None),
+    ("b1h1_dh16", 1, 1, 77, 16, "bfloat16", True, "packed", None),
+    ("b1h1_dh32", 1, 1, 77, 32, "float32", True, "packed", None),
+    ("b1h1_dh64", 1, 1, 77, 64, "bfloat16", True, "model", None),
+    *((f"t{t}", 2, 32, t, 64, "float32", True, "packed", None)
+      for t in (31, 32, 33, 63, 64, 65)),
+    ("t33_bf16", 2, 32, 33, 64, "bfloat16", True, "model", None),
+    *((f"t{t}_dh{dh}", 2, 8, t, dh, "bfloat16", True, "packed", None)
+      for dh in (16, 32) for t in (15, 17, 31, 33)),
+    ("decay_near1", 2, 32, 300, 64, "float32", True, "packed", "near1"),
+    ("decay_near0", 2, 32, 300, 64, "bfloat16", True, "model", "near0"),
 )
+#: the centre of the decays' sigmoid by ``decay``
+RWKV_DECAY = {None: 0.0, "near1": 6.0, "near0": -6.0}
 #: atol = rtol on the output by its type (as FLASH_TOL), and on every final
 #: state, which is float32 whatever the inputs
 RWKV_STATE_TOL = 1e-4
@@ -637,11 +652,11 @@ RWKV_F32_TOL = 1e-3
 
 
 def rwkv_inputs(torch, B, H, T, Dh, dtype, nonzero_state, gen, dev,
-                layout="packed"):
+                layout="packed", decay=None):
     """r, k, v, w, u, state drawn as the JAX package's kernel test draws
-    them: k and v by 0.3, sigmoid decays, u and the state by 0.1.  In the
-    "model" layout r, k, v, w are (B, T, H, Dh) buffers viewed as
-    (B, H, T, Dh)."""
+    them: k and v by 0.3, sigmoid decays, u and the state by 0.1; with
+    ``decay`` the decays are sigmoid(+-6 + 0.1 z).  In the "model" layout
+    r, k, v, w are (B, T, H, Dh) buffers viewed as (B, H, T, Dh)."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
@@ -649,7 +664,9 @@ def rwkv_inputs(torch, B, H, T, Dh, dtype, nonzero_state, gen, dev,
     r = randn(B, H, T, Dh).to(dt)
     k = (randn(B, H, T, Dh) * 0.3).to(dt)
     v = (randn(B, H, T, Dh) * 0.3).to(dt)
-    w = torch.sigmoid(randn(B, H, T, Dh)).to(dt)
+    z = randn(B, H, T, Dh)
+    w = torch.sigmoid(z if decay is None else RWKV_DECAY[decay] + 0.1 * z
+                      ).to(dt)
     u = randn(H, Dh) * 0.1
     state = randn(B, H, Dh, Dh) * 0.1 if nonzero_state else \
         torch.zeros((B, H, Dh, Dh), device=dev)
@@ -657,6 +674,54 @@ def rwkv_inputs(torch, B, H, T, Dh, dtype, nonzero_state, gen, dev,
         r, k, v, w = (x.transpose(1, 2).contiguous().transpose(1, 2)
                       for x in (r, k, v, w))
     return r, k, v, w, u, state
+
+
+def rwkv6_build_report(rk, log: str, B: int, H: int) -> dict:
+    """The RWKV6 kernel's launch at B x H for each head dim (blocks,
+    threads, shared bytes, as the library reports them) beside ptxas's
+    registers, stack frame and spills for each instantiation (from the
+    build log; a cached build returns the log kept beside its library).
+    Fails on local memory, or if an instantiation is missing."""
+    import re
+
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?rwkv6_kernelI"
+                      r"(f|13__nv_bfloat16)Li(\d+)E", line)
+        if m:
+            name = (("float32" if m.group(1) == "f" else "bfloat16"),
+                    int(m.group(2)))
+            found[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            found[name].update(stack_frame=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found[name]["registers"] = int(m.group(1))
+            name = None
+    for dtype in ("bfloat16", "float32"):
+        for dh in rk.HEAD_DIMS:
+            info = found.get((dtype, dh), {})
+            info["launch"] = rk.launch_shape(B, H, dh)
+            print(f"  rwkv6_kernel<{dtype}, {dh}> at B={B} H={H}: "
+                  f"{info['launch']['blocks']} blocks of "
+                  f"{info['launch']['threads']} threads, "
+                  f"{info['launch']['shared_bytes']} shared bytes; "
+                  f"{info.get('registers')} registers, "
+                  f"{info.get('stack_frame')} bytes stack frame, "
+                  f"{info.get('spill_stores')} / {info.get('spill_loads')} "
+                  "bytes spilled (stores / loads)", flush=True)
+            check(info.get("stack_frame") == 0
+                  and info.get("spill_stores") == 0
+                  and info.get("spill_loads") == 0,
+                  f"rwkv6_kernel<{dtype}, {dh}> uses local memory: {info}")
+    check(len(found) == 2 * len(rk.HEAD_DIMS),
+          f"ptxas reported {sorted(found)}")
+    return {f"{dtype}/{dh}": info for (dtype, dh), info in found.items()}
 
 
 def rwkv_phase(torch, dev, reg):
@@ -677,6 +742,7 @@ def rwkv_phase(torch, dev, reg):
     B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
     out = {}
     t_phase = time.perf_counter()
+    out["build"] = rwkv6_build_report(rk, rk.build()[1], B, cfg.n_heads)
 
     # the path a user calls, with the launch counts zeroed just before and
     # read just after
@@ -796,9 +862,9 @@ def rwkv_phase(torch, dev, reg):
     # the kernel against its twin, call by call, output and final state
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
-    for label, b, h, t, dh, dtype, nonzero, layout in RWKV_CASES:
+    for label, b, h, t, dh, dtype, nonzero, layout, decay in RWKV_CASES:
         args = rwkv_inputs(torch, b, h, t, dh, dtype, nonzero, gen, dev,
-                           layout)
+                           layout, decay)
         got, got_state = rk.rwkv6(*args)
         want, want_state = rk.plain(*args)
         torch.cuda.synchronize()
@@ -813,7 +879,8 @@ def rwkv_phase(torch, dev, reg):
               f"state {state_err} (tol {RWKV_STATE_TOL}), out strides "
               f"{got.stride()} for input strides {args[0].stride()}")
         print(f"  rwkv6 {label:12s} B={b} H={h} T={t} Dh={dh} {dtype} "
-              f"{layout} state={'random' if nonzero else 'zero'}: max abs err "
+              f"{layout} state={'random' if nonzero else 'zero'} decays="
+              f"{decay or 'sigmoid'}: max abs err "
               f"{errs[label]:.3g} (tol {tol}), state {state_err:.3g} (tol "
               f"{RWKV_STATE_TOL})", flush=True)
     out["rwkv_errors"] = errs

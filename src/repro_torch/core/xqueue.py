@@ -63,34 +63,48 @@ def push(xq: XQ, producer: torch.Tensor, consumer: torch.Tensor,
     Q = capacity(xq)
     W = xq.head.shape[0]
     lane = torch.arange(W, dtype=I32, device=mask.device)
+    # ids outside [0, W) as the reference reads them: its scatter wraps a
+    # producer in [-W, 0) to p + W and drops any other; its gathers wrap a
+    # negative index once, then clamp to [0, W - 1]
+    wrapped = torch.where(producer < 0, producer + W, producer)
     # permute lane data into producer-indexed order: the highest lane
     # naming a producer wins (the JAX package's scatter order); a sink slot
-    # at W takes the masked-off lanes
-    live = mask & (producer >= 0) & (producer < W)
+    # at W takes the masked-off and dropped lanes
+    live = mask & (wrapped >= 0) & (wrapped < W)
     inv = torch.full((W + 1,), -1, dtype=I32, device=mask.device)
-    inv = inv.scatter_reduce(0, torch.where(live, producer, W).long(), lane,
+    inv = inv.scatter_reduce(0, torch.where(live, wrapped, W).long(), lane,
                              "amax")[:W]
     has = inv >= 0
     safe = torch.where(has, inv, W - 1).long()
-    cons_p = torch.where(has, consumer[safe], 0).long()
+    cons_p = torch.where(has, consumer[safe], 0)
+    # the row whose tail and head decide ok; only an in-range consumer is
+    # written
+    row = _clamped(cons_p, W)
     task_p = task[safe]
     ts_p = ts[safe]
     lane_l = lane.long()
-    tail_p = xq.tail[cons_p, lane_l]
-    cur_p = tail_p - xq.head[cons_p, lane_l]
+    tail_p = xq.tail[row, lane_l]
+    cur_p = tail_p - xq.head[row, lane_l]
     ok_p = has & (cur_p < Q)
+    write = ok_p & (cons_p >= 0) & (cons_p < W)
     slot_p = (tail_p % Q).long()
     buf = xq.buf.clone()
     tsb = xq.ts.clone()
     tail = xq.tail.clone()
-    pi = lane_l[ok_p]
-    ci = cons_p[ok_p]
-    si = slot_p[ok_p]
-    buf[ci, pi, si] = task_p[ok_p]
-    tsb[ci, pi, si] = ts_p[ok_p]
-    tail[ci, pi] = tail_p[ok_p] + 1
-    ok = mask & ok_p[producer.clamp(0, W - 1).long()]
+    pi = lane_l[write]
+    ci = row[write]
+    si = slot_p[write]
+    buf[ci, pi, si] = task_p[write]
+    tsb[ci, pi, si] = ts_p[write]
+    tail[ci, pi] = tail_p[write] + 1
+    ok = mask & ok_p[_clamped(producer, W)]
     return XQ(buf, tsb, xq.head, tail), ok
+
+
+def _clamped(idx: torch.Tensor, W: int) -> torch.Tensor:
+    """``idx`` as a JAX gather reads it from an axis of W: a negative
+    index plus W, then clamped to [0, W - 1] (as int64)."""
+    return torch.where(idx < 0, idx + W, idx).clamp(0, W - 1).long()
 
 
 def _scan_order(W: int, me: torch.Tensor, rot: torch.Tensor, n_active):

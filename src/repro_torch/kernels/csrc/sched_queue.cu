@@ -79,44 +79,80 @@ struct PushArgs {
   int Q;
 };
 
+// Lane i's ids as the reference reads them (src/repro/core/xqueue.py:66-90):
+// its scatter wraps a producer in [-W, 0) to p + W and drops any other, and
+// its gathers wrap a negative index once, then clamp to [0, W - 1].
+__device__ __forceinline__ int wrapped(int x, int W) {
+  return x < 0 ? x + W : x;
+}
+__device__ __forceinline__ int clamped(int x, int W) {
+  return min(max(wrapped(x, W), 0), W - 1);
+}
+
+// Producer column j's push: the lane that owns it (the highest active lane
+// whose producer wraps to j) appends task tk with timestamp sv to queue
+// (c, j) if the queue the reference reads, (clamped(c), j), has room, and
+// writes only when c lies in [0, W).  Returns that room: ok_p[j] of the
+// reference.  Each column is one thread's, so no two threads touch one
+// queue.
+__device__ __forceinline__ bool push_column(const PushArgs& a, int j, int c,
+                                            int tk, int sv) {
+  const long long q = static_cast<long long>(clamped(c, a.W)) * a.W + j;
+  const int t = a.tail[q];
+  if (t - a.head[q] >= a.Q) return false;
+  if (c >= 0 && c < a.W) {
+    const long long s = q * a.Q + floor_mod(t, a.Q);
+    a.buf[s] = tk;
+    a.ts[s] = sv;
+    a.tail[q] = t + 1;
+  }
+  return true;
+}
+
 // SPSC push, in place.  Lane i (producer p = producer[i]) appends task[i]
 // with timestamp tsv[i] to queue (c = consumer[i], p) when mask[i] and the
 // queue has room, and reports ok[i].  Replaces _push_kernel / push
-// (src/repro/kernels/sched_queue.py:63, :83).  Active producers are
-// distinct (lane == worker in the simulator), so each thread owns the
-// whole producer column p: its tail, its buffer slots.  No atomics.  The
-// result equals the JAX package's producer inversion followed by
-// ok = mask & ok_p[producer] (src/repro/core/xqueue.py:70-90), inactive
-// and padded lanes included (they write nothing and report false; so does
-// a lane whose consumer lies outside [0, W)).
+// (src/repro/kernels/sched_queue.py:63, :83).  The result equals the JAX
+// package's producer inversion followed by ok = mask & ok_p[producer]
+// (src/repro/core/xqueue.py:66-90) for every lane, ids outside [0, W)
+// included: active lanes claim their producer column in shared memory
+// (atomicMax: the highest lane wins, as the reference's scatter), each
+// thread then pushes for its column and publishes ok_p, and each lane
+// reads ok_p of its clamped producer.  In the simulator lane == worker, so
+// every column has at most one claimant.
 //
 // Bound: launch latency and the host path, not bytes (a few hundred bytes
-// a call against 3.35 TB/s).  One block of W threads (W <= 1024; the
-// simulator's widths go to 200), every lane's loads issued before the one
-// dependent load of the queue's head and tail, then the writes: two trips
-// to memory a launch.
+// a call against 3.35 TB/s).  One block of W threads (W <= PUSH_W_MAX,
+// which the wrapper enforces; the simulator's widths go to 200): every
+// lane's loads issued at once, then the one dependent load of the queue's
+// head and tail, then the writes: two trips to memory a launch.
+constexpr int PUSH_W_MAX = 1024;
+
 __global__ void push_kernel(const PushArgs a) {
-  const int W = a.W, Q = a.Q;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= W) return;
-  int p = a.producer[i];
-  int c = a.consumer[i];
-  unsigned char m = a.mask[i];
-  int tk = a.task[i];
-  int sv = a.tsv[i];
-  unsigned char okv = 0;
-  if (m && p >= 0 && p < W && c >= 0 && c < W) {
-    long long q = static_cast<long long>(c) * W + p;
-    int t = a.tail[q];
-    if (t - a.head[q] < Q) {
-      long long s = q * Q + floor_mod(t, Q);
-      a.buf[s] = tk;
-      a.ts[s] = sv;
-      a.tail[q] = t + 1;
-      okv = 1;
-    }
+  __shared__ int owner[PUSH_W_MAX];
+  __shared__ int s_c[PUSH_W_MAX], s_tk[PUSH_W_MAX], s_sv[PUSH_W_MAX];
+  __shared__ unsigned char ok_p[PUSH_W_MAX];
+  const int W = a.W, i = threadIdx.x;
+  int p = 0;
+  bool m = false;
+  if (i < W) {
+    p = a.producer[i];
+    m = a.mask[i];
+    s_c[i] = a.consumer[i];
+    s_tk[i] = a.task[i];
+    s_sv[i] = a.tsv[i];
+    owner[i] = -1;
   }
-  a.ok[i] = okv;
+  __syncthreads();
+  const int wp = wrapped(p, W);
+  if (i < W && m && wp >= 0 && wp < W) atomicMax(&owner[wp], i);
+  __syncthreads();
+  if (i < W) {
+    const int l = owner[i];
+    ok_p[i] = l >= 0 && push_column(a, i, s_c[l], s_tk[l], s_sv[l]);
+  }
+  __syncthreads();
+  if (i < W) a.ok[i] = m && ok_p[clamped(p, W)];
 }
 
 // The record a pop call passes by value (sched_queue._POP packs it on the
@@ -244,14 +280,13 @@ int sq_ctr_add(void* ctr, int W, int nc, int n, const void* packed,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `packed` is a PushArgs record.  One block of W threads up to 1024, a
-// grid of 1024-thread blocks above.
+// `packed` is a PushArgs record.  One block of W threads, W <= PUSH_W_MAX.
 int sq_push(const void* packed, void* stream) {
   PushArgs a;
   memcpy(&a, packed, sizeof a);
-  if (a.W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int threads = a.W < 1024 ? (a.W + 31) / 32 * 32 : 1024;
-  push_kernel<<<(a.W + threads - 1) / threads, threads, 0,
+  if (a.W <= 0 || a.W > PUSH_W_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  push_kernel<<<1, (a.W + 31) / 32 * 32, 0,
                 static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,10 @@ has a kernel or for the ops it names:
   set_impl("ref", "moe_dispatch")   only that op's twin, the rest as set
 
 ``decode_attention``, ``rwkv6_decode`` and ``moe_combine`` have no kernel in
-either package: they are the plain ops.  The JAX ``rwkv6`` reads its chunk
+either package: they are the plain ops.  The JAX ``rwkv6`` reads a chunk
 from the environment (``REPRO_RWKV_CHUNK``); the chunk does not change the
-result (both chunked forms run the same sequential steps), so here it is an
-argument and no environment variable is read.
+result (its chunked form runs the same sequential steps), so here ``rwkv6``
+takes none and its twin walks the steps one by one (``ref.rwkv6_naive``).
 """
 
 from __future__ import annotations
@@ -67,10 +67,10 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
                                 window=window, softcap=softcap)
 
 
-def rwkv6(r, k, v, w, u, state, *, chunk=64):
+def rwkv6(r, k, v, w, u, state):
     if _plain("rwkv6", r, "r"):
-        return rk.plain(r, k, v, w, u, state, chunk)
-    return rk.rwkv6(r, k, v, w, u, state, chunk=chunk)
+        return rk.plain(r, k, v, w, u, state)
+    return rk.rwkv6(r, k, v, w, u, state)
 
 
 def rwkv6_decode(r, k, v, w, u, state):

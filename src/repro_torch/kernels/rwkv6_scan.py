@@ -5,8 +5,10 @@ The port of the JAX package's Pallas kernel
 RWKV6 recurrence with its ``(Dh, Dh)`` float32 state kept on chip for the
 whole sequence, written by hand in CUDA C++ for Hopper
 (``csrc/rwkv6_scan.cu``; the source says what bounds it and what its design
-does about it).  It is built and bound the way every kernel of the package
-is (:mod:`repro_torch.kernels.registry`: nvcc into
+does about it: each ``(b, h)`` split over blocks by value columns and
+within a warp over lanes by keys, and load warps that bring in the next
+tile while step warps run this one).  It is built and bound the way every
+kernel of the package is (:mod:`repro_torch.kernels.registry`: nvcc into
 ``build/repro_torch_kernels/<hash>/``, ``ctypes``, the current stream) and
 counted in the package's one registry, ``registry.KERNELS``.
 
@@ -47,14 +49,21 @@ def build() -> tuple[Path, str]:
     return reg.build(SOURCE)
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    path, _ = build()
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a library built from ``csrc/rwkv6_scan.cu`` (or an edited copy
+    of it) and declare its entry points."""
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rwkv6_forward.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 6 + [ptr]
     lib.rwkv6_forward.restype = ctypes.c_int
+    lib.rwkv6_launch_shape.argtypes = [i32] * 3 + [ptr]
+    lib.rwkv6_launch_shape.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    return bind(build()[0])
 
 
 def _check(r, k, v, w, u, state) -> None:
@@ -84,26 +93,33 @@ def _check(r, k, v, w, u, state) -> None:
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
 
 
-def plain(r, k, v, w, u, state, chunk: int = 64):
-    """The kernel's plain twin: ``ref.rwkv6_chunked``, or ``ref.rwkv6_naive``
-    for a T longer than the chunk and not a multiple of it (the chunked
-    form refuses those; both run the same steps in the same order)."""
-    T = r.shape[2]
-    if T > chunk and T % chunk:
-        return ref.rwkv6_naive(r, k, v, w, u, state)
-    return ref.rwkv6_chunked(r, k, v, w, u, state, chunk=chunk)
+def plain(r, k, v, w, u, state):
+    """The kernel's plain twin: ``ref.rwkv6_naive``, the steps one by one
+    in time order (any T)."""
+    return ref.rwkv6_naive(r, k, v, w, u, state)
+
+
+def launch_shape(B: int, H: int, Dh: int) -> dict:
+    """The launch :func:`rwkv6` makes for these sizes (either I/O type), as
+    the library reports it (``rwkv6_launch_shape``; launches nothing):
+    blocks, threads a block (step and load warps), shared bytes a block,
+    value columns a lane, value columns a block and steps a tile."""
+    shape = (ctypes.c_int * 6)()
+    if _library().rwkv6_launch_shape(B, H, Dh, shape) != 0:
+        raise ValueError(f"no launch for head dim {Dh}")
+    return dict(zip(("blocks", "threads", "shared_bytes", "lane_columns",
+                     "block_columns", "tile_steps"), shape))
 
 
 def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
-          chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+          w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The RWKV6 recurrence.  r/k/v/w ``(B, H, T, Dh)`` float32 or bfloat16;
     u ``(H, Dh)`` and state ``(B, H, Dh, Dh)`` float32.  Returns (out
-    ``(B, H, T, Dh)`` in ``r.dtype``, final state float32).  ``chunk`` is
-    the twin's chunk; the kernel walks the steps one by one."""
+    ``(B, H, T, Dh)`` in ``r.dtype``, final state float32)."""
     _check(r, k, v, w, u, state)
     if not r.is_cuda:
-        return plain(r, k, v, w, u, state, chunk)
+        return plain(r, k, v, w, u, state)
     B, H, T, Dh = r.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head dim {Dh} is not one of {HEAD_DIMS}")

@@ -141,11 +141,16 @@ def _check_queues(xq: XQ) -> tuple:
 #: ``struct PushArgs`` of ``csrc/sched_queue.cu``: the pointers buf, ts,
 #: head, tail, producer, consumer, task, tsv, mask and ok, then W and Q
 _PUSH = struct.Struct("<10Q2i")
+#: the widest W the kernel's one block of W threads holds: ``PUSH_W_MAX``
+#: in ``csrc/sched_queue.cu``
+PUSH_W_MAX = 1024
 
 
 def _push_checks(xq: XQ, producer, consumer, task, ts, mask) -> tuple:
     """Check a push's arguments; return ``(W, Q, where)``."""
     W, Q, where = _check_queues(xq)
+    if W > PUSH_W_MAX:
+        raise ValueError(f"push takes at most {PUSH_W_MAX} workers, got {W}")
     lane = (W,)
     _check(producer, "producer", lane, I32, where)
     _check(consumer, "consumer", lane, I32, where)
@@ -172,7 +177,8 @@ def push(xq: XQ, producer: torch.Tensor, consumer: torch.Tensor,
     On the card the host path is this kernel's cost (its device work is a
     few hundred bytes): the checks read only cheap attributes, ``ok`` is
     the one allocation (``empty_like(mask)``), the pointers, W and Q pass
-    as one packed record, and the stream is the queue's device's."""
+    as one packed record, and the stream is the queue's device's.  W is at
+    most :data:`PUSH_W_MAX` on every device."""
     W, Q, where = _push_checks(xq, producer, consumer, task, ts, mask)
     if where < 0:
         return xqueue.push(xq, producer, consumer, task, ts, mask)

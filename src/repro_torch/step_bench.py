@@ -36,9 +36,20 @@ comparison of two versions of the port needs, as one JSON line:
   one queue is from step to step); beside them the launch floor, an empty
   kernel launched through the same ctypes path (``sq_noop``; omitted for
   a checkout without it), and the counter bump's device µs a launch for
-  one pair and for the spawn phase's run of seven.
+  one pair and for the spawn phase's run of seven;
+* ``rwkv6``: the RWKV6 kernel at the serving shape (B=4, H=32, T=1024,
+  Dh=64, bf16, a zero state; ``chip_smoke.py`` phase 7's inputs), in the
+  model's (B, T, H, Dh) layout and packed: ms a call by CUDA events over
+  back-to-back calls and device µs a launch (profiler).  It calls only
+  ``rwkv6_scan.rwkv6``, so it times an older checkout's kernel too.
 
-    PYTHONPATH=src python3 -m repro_torch.step_bench
+    PYTHONPATH=src python3 -m repro_torch.step_bench [--rwkv6-only]
+    PYTHONPATH=src python3 -m repro_torch.step_bench --rwkv6-shapes
+
+``--rwkv6-only`` measures only ``rwkv6``.  ``--rwkv6-shapes`` times the
+RWKV6 kernel at each launch shape of ``RWKV6_SHAPES`` (Dh = 64): an edited
+copy of ``csrc/rwkv6_scan.cu`` a shape, built and bound in place of the
+wrapper's library while it is timed, and held against the twin.
 
 Needs a CUDA device.  Uses only entry points the port has had since the
 fused kernel came in, so the same script times an older checkout:
@@ -47,8 +58,10 @@ fused kernel came in, so the same script times an older checkout:
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -62,6 +75,7 @@ from repro_torch.core.spec import LATTICE, MODE_SPECS
 from repro_torch.core.state import NC, SimConfig, batch_of_one, tree_map
 from repro_torch.core import xqueue
 from repro_torch.kernels import registry as reg
+from repro_torch.kernels import rwkv6_scan as rk
 from repro_torch.kernels import sched_queue as sq
 from repro_torch.kernels import sched_step as ss
 
@@ -381,6 +395,86 @@ def queue_ops(dev, n: int = 500) -> dict:
     return out
 
 
+def rwkv6_inputs(dev, layout: str = "model", B: int = 4, H: int = 32,
+                 T: int = 1024, Dh: int = 64):
+    """Phase 7's timed inputs (``chip_smoke.rwkv_inputs``): bf16 r, k, v,
+    w (k and v by 0.3, sigmoid decays), u by 0.1, a zero state; in the
+    "model" layout r, k, v, w are (B, T, H, Dh) buffers viewed as (B, H, T,
+    Dh)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r = randn(B, H, T, Dh).bfloat16()
+    k = (randn(B, H, T, Dh) * 0.3).bfloat16()
+    v = (randn(B, H, T, Dh) * 0.3).bfloat16()
+    w = torch.sigmoid(randn(B, H, T, Dh)).bfloat16()
+    if layout == "model":
+        r, k, v, w = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                      for x in (r, k, v, w))
+    return (r, k, v, w, randn(H, Dh) * 0.1,
+            torch.zeros((B, H, Dh, Dh), device=dev))
+
+
+def rwkv6_times(dev, n: int = 50) -> dict:
+    """The RWKV6 kernel at the serving shape in both layouts: ms a call
+    (CUDA events, ``n`` back-to-back calls) and device µs a launch."""
+    out = {}
+    for layout in ("model", "packed"):
+        args = rwkv6_inputs(dev, layout)
+        out[layout] = dict(
+            ms=events_ms(lambda i: rk.rwkv6(*args), n),
+            device_us=_device_us(lambda i: rk.rwkv6(*args), 20,
+                                 "rwkv6_kernel"))
+    return out
+
+
+#: launch shapes tried at Dh = 64: (value columns a lane, warps a block,
+#: steps a tile)
+RWKV6_SHAPES = ((4, 4, 32), (4, 4, 16), (8, 2, 32), (4, 2, 32))
+_SHAPE64 = re.compile(r"struct Shape<64> \{ static constexpr int CP = \d+, "
+                      r"NW = \d+, TT = \d+; \};")
+
+
+def rwkv6_shapes(dev, shapes=RWKV6_SHAPES) -> dict:
+    """:func:`rwkv6_times` at each Dh = 64 launch shape of ``shapes``, the
+    launch and ptxas's registers and spills of the bf16 instantiation, and
+    the largest difference from the twin at the serving shape (model
+    layout)."""
+    src = rk.SOURCE.read_text()
+    if not _SHAPE64.search(src):
+        raise ValueError(f"{rk.SOURCE} has no Shape<64> line to edit")
+    args = rwkv6_inputs(dev)
+    want = rk.plain(*args)[0].float()
+    saved, out = rk._library, {}
+    try:
+        for cp, nw, tt in shapes:
+            path = reg.BUILD_ROOT / "rwkv6_shapes" / f"cp{cp}_nw{nw}_tt{tt}.cu"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(_SHAPE64.sub(
+                f"struct Shape<64> {{ static constexpr int CP = {cp}, "
+                f"NW = {nw}, TT = {tt}; }};", src))
+            lib_path, log = reg.build(path)
+            lib = rk.bind(lib_path)
+            rk._library = lambda: lib
+            ptxas = re.search(
+                r"rwkv6_kernelI13__nv_bfloat16Li64E\w*'? for 'sm_90a'\n.*?"
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?"
+                r"Used (\d+) registers", log, re.S)
+            got = rk.rwkv6(*args)[0].float()
+            out[f"{cp},{nw},{tt}"] = dict(
+                launch=rk.launch_shape(4, 32, 64),
+                registers=int(ptxas.group(3)) if ptxas else None,
+                spill_bytes=(int(ptxas.group(1)) + int(ptxas.group(2))
+                             if ptxas else None),
+                max_abs_err=float((got - want).abs().max()),
+                **rwkv6_times(dev))
+    finally:
+        rk._library = saved
+    return out
+
+
 def measure(dev=None) -> dict:
     dev = torch.device(dev or "cuda")
     bench = {n: apps.build(n, scale="bench") for n in ("fib", "uts")}
@@ -392,6 +486,7 @@ def measure(dev=None) -> dict:
     out["main_path_s"] = main_path_s(bench, dev)[0]
     out["sweep"] = sweep_times(bench, dev)
     out["queue_ops"] = queue_ops(dev)
+    out["rwkv6"] = rwkv6_times(dev)
     reg.reset_launches()
     cuda_s, cuda_steps = main_path_s(bench, dev, "cuda")
     out["cuda_main_path"] = dict(
@@ -401,14 +496,26 @@ def measure(dev=None) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--rwkv6-only", action="store_true")
+    which.add_argument("--rwkv6-shapes", action="store_true")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_bench needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "source": str(ss.SOURCE),
-                      **measure()}), flush=True)
+    dev = torch.device("cuda")
+    if args.rwkv6_shapes:
+        res = {"rwkv6_shapes": rwkv6_shapes(dev)}
+    elif args.rwkv6_only:
+        res = {"rwkv6": rwkv6_times(dev)}
+    else:
+        res = measure(dev)
+    print(json.dumps({"card": card, "source": str(ss.SOURCE), **res}),
+          flush=True)
 
 
 if __name__ == "__main__":

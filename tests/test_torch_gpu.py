@@ -149,6 +149,56 @@ def test_cuda_kernels_match_plain(w, q):
     assert _launches() == [1, 25, 25]
 
 
+def _bad_push(rs, w, q, which, value, fill, owner_active):
+    """A push whose lane 1 (consumer case) or lane 0 (producer case)
+    carries an id outside [0, w), on mixed queues whose row that lane's
+    ``ok`` reads is all full or all empty; in the producer case every lane
+    pushes to consumer 1 and lane w - 1 (the owner of the column a
+    producer of -1 wraps to) is active or not."""
+    xq = _queues(rs, "cpu", w, q)
+    producer = torch.arange(w, dtype=torch.int32)
+    consumer = torch.as_tensor(rs.integers(0, w, w).astype(np.int32))
+    mask = torch.ones(w, dtype=torch.bool)
+    if which == "consumer":
+        consumer[1] = value
+        row = min(max(value + w if value < 0 else value, 0), w - 1)
+    else:
+        producer[0] = value
+        consumer[:] = 1
+        mask[w - 1] = owner_active
+        row = 1
+    xq.tail[row] = xq.head[row] + (q if fill == "full" else 0)
+    return xq, [producer, consumer,
+                torch.as_tensor(rs.integers(0, 99, w).astype(np.int32)),
+                torch.as_tensor(rs.integers(0, 9999, w).astype(np.int32)),
+                mask]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,q", [(64, 16), (1024, 4)])
+def test_cuda_push_with_ids_outside_the_width_matches_its_twin(w, q):
+    """A lane whose consumer (-1, W, -W - 1, 2W) or producer (-1, W) lies
+    outside [0, W), on full and empty target rows: the CUDA push equals
+    its twin bitwise (which equals the reference's), one counted launch a
+    call; W = 1024 is the widest block the kernel takes."""
+    _need_card()
+    rs = np.random.default_rng(w)
+    for which, value in [("consumer", -1), ("consumer", w),
+                         ("consumer", -w - 1), ("consumer", 2 * w),
+                         ("producer", -1), ("producer", w)]:
+        for fill in ("full", "empty"):
+            for owner_active in (True, False):
+                label = (w, which, value, fill, owner_active)
+                cpu, lanes = _bad_push(rs, w, q, which, value, fill,
+                                       owner_active)
+                reg.reset_launches()
+                got = sq.push(_card(cpu), *(x.cuda() for x in lanes))
+                want = xqueue.push(cpu, *lanes)
+                _equal(got[0], want[0], ("push xq", *label))
+                _equal(got[1], want[1], ("push ok", *label))
+                assert _launches() == [0, 1, 0], label
+
+
 @pytest.mark.gpu
 def test_pop_first_without_n_active_makes_no_host_copy():
     """``n_active=None`` passes the width by value: the call makes no
@@ -460,23 +510,49 @@ def test_smoke_serving_on_the_card_matches_the_cpu():
     assert torch.equal(card.ids.cpu(), cpu.ids)
 
 
-#: (B, H, T, Dh, dtype, initial state): the serving shape, a float32 run
-#: from a nonzero state with sigmoid decays, a ragged T, one step, the
-#: small heads and a long sequence
+#: (B, H, T, Dh, dtype, initial state, decays, layout): the serving shape,
+#: a float32 run from a nonzero state with sigmoid decays, a ragged T, one
+#: step, the small heads and a long sequence; then the kernel's edges: one
+#: (b, h) at each head dim, T on either side of one and two tiles (32 steps
+#: at Dh = 64, 16 at Dh = 16 and 32), decays near 1 (sigmoid of +6) and near
+#: 0 (of -6), and the model's (B, T, H, Dh) layout at H = 32, Dh = 64
 RWKV_SHAPES = {
-    "serve_bf16": (1, 32, 1024, 64, "bfloat16", False),
-    "f32_state": (2, 4, 256, 64, "float32", True),
-    "ragged_1000": (1, 8, 1000, 64, "bfloat16", True),
-    "one_step": (2, 8, 1, 64, "float32", True),
-    "dh16": (2, 4, 96, 16, "float32", True),
-    "dh32": (2, 2, 128, 32, "bfloat16", True),
-    "long_8192": (1, 4, 8192, 64, "bfloat16", False),
+    "serve_bf16": (1, 32, 1024, 64, "bfloat16", False, None, "packed"),
+    "f32_state": (2, 4, 256, 64, "float32", True, None, "packed"),
+    "ragged_1000": (1, 8, 1000, 64, "bfloat16", True, None, "packed"),
+    "one_step": (2, 8, 1, 64, "float32", True, None, "packed"),
+    "dh16": (2, 4, 96, 16, "float32", True, None, "packed"),
+    "dh32": (2, 2, 128, 32, "bfloat16", True, None, "packed"),
+    "long_8192": (1, 4, 8192, 64, "bfloat16", False, None, "packed"),
+    "b1h1_dh16": (1, 1, 37, 16, "float32", True, None, "packed"),
+    "b1h1_dh32": (1, 1, 37, 32, "bfloat16", True, None, "packed"),
+    "b1h1_dh64": (1, 1, 37, 64, "float32", True, None, "packed"),
+    "one_step_bf16": (2, 4, 1, 64, "bfloat16", True, None, "packed"),
+    **{f"t{t}": (2, 4, t, 64, "float32", True, None, "packed")
+       for t in (31, 32, 33, 63, 64, 65)},
+    "t32_bf16": (2, 4, 32, 64, "bfloat16", True, None, "packed"),
+    "t65_bf16": (2, 4, 65, 64, "bfloat16", True, None, "model"),
+    **{f"t{t}_dh{dh}": (2, 3, t, dh, dtype, True, None, layout)
+       for dh, dtype, layout in ((16, "bfloat16", "packed"),
+                                 (32, "float32", "model"))
+       for t in (15, 16, 17, 31, 32, 33)},
+    "decay_near1": (2, 4, 200, 64, "float32", True, "near1", "packed"),
+    "decay_near0": (2, 4, 200, 64, "bfloat16", True, "near0", "packed"),
+    "model_h32": (2, 32, 300, 64, "bfloat16", True, None, "model"),
+    "unaligned_rows": (2, 4, 70, 64, "bfloat16", True, None, "padded"),
 }
+#: decays drawn near 1 or near 0: sigmoid of +6 or -6, a little spread
+DECAY_CENTRE = {None: 0.0, "near1": 6.0, "near0": -6.0}
 
 
-def rwkv_inputs(B, H, T, Dh, dtype, nonzero_state, device, seed=0):
+def rwkv_inputs(B, H, T, Dh, dtype, nonzero_state, device, seed=0,
+                decay=None, layout="packed"):
     """r, k, v, w, u, state as the JAX package's kernel test draws them:
-    k and v scaled by 0.3, sigmoid decays, u and the state by 0.1."""
+    k and v scaled by 0.3, sigmoid decays, u and the state by 0.1.  With
+    ``decay`` the decays are sigmoid(6 + 0.1 z) ("near1") or sigmoid(-6 +
+    0.1 z) ("near0"); in the "model" layout r, k, v, w are (B, T, H, Dh)
+    buffers viewed as (B, H, T, Dh), in the "padded" one the first Dh of
+    (B, H, T, Dh + 1) rows (rows the kernel cannot read four at a time)."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
@@ -486,10 +562,18 @@ def rwkv_inputs(B, H, T, Dh, dtype, nonzero_state, device, seed=0):
     r = randn(B, H, T, Dh).to(dt)
     k = (randn(B, H, T, Dh) * 0.3).to(dt)
     v = (randn(B, H, T, Dh) * 0.3).to(dt)
-    w = torch.sigmoid(randn(B, H, T, Dh)).to(dt)
+    z = randn(B, H, T, Dh)
+    w = torch.sigmoid(z if decay is None else DECAY_CENTRE[decay] + 0.1 * z
+                      ).to(dt)
     u = randn(H, Dh) * 0.1
     state = randn(B, H, Dh, Dh) * 0.1 if nonzero_state else \
         torch.zeros((B, H, Dh, Dh), device=device)
+    if layout == "model":
+        r, k, v, w = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                      for x in (r, k, v, w))
+    elif layout == "padded":
+        r, k, v, w = (torch.nn.functional.pad(x, (0, 1))[..., :Dh]
+                      for x in (r, k, v, w))
     return r, k, v, w, u, state
 
 
@@ -497,18 +581,67 @@ def rwkv_inputs(B, H, T, Dh, dtype, nonzero_state, device, seed=0):
 @pytest.mark.parametrize("shape", list(RWKV_SHAPES))
 def test_rwkv6_kernel_matches_its_twin(shape):
     """The CUDA RWKV6 recurrence against its plain twin, output and final
-    state, one launch per call; 2e-2 (atol and rtol) on bf16 outputs,
-    1e-4 on float32 outputs and on every final state."""
+    state, one launch per call, out in the inputs' layout; 2e-2 (atol and
+    rtol) on bf16 outputs, 1e-4 on float32 outputs and on every final
+    state."""
     _need_card()
-    B, H, T, Dh, dtype, nonzero = RWKV_SHAPES[shape]
-    args = rwkv_inputs(B, H, T, Dh, dtype, nonzero, "cuda")
+    B, H, T, Dh, dtype, nonzero, decay, layout = RWKV_SHAPES[shape]
+    args = rwkv_inputs(B, H, T, Dh, dtype, nonzero, "cuda", decay=decay,
+                       layout=layout)
     reg.reset_launches()
     out, state = rk.rwkv6(*args)
     torch.cuda.synchronize()
     assert reg.KERNELS["rwkv6_scan"].launches == 1
-    want, want_state = rk.plain(*args)      # rwkv6_naive on the ragged T
+    want, want_state = rk.plain(*args)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     assert out.dtype == args[0].dtype and state.dtype == torch.float32
+    if layout != "padded":                  # packed where r has gaps
+        assert out.stride() == args[0].stride()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_rwkv6_launch_fills_the_card():
+    """At the serving shape (B = 4, H = 32, Dh = 64) each (b, h) spans
+    more than one block and the grid has a block for every SM."""
+    _need_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = rk.launch_shape(4, 32, 64)
+    assert shape["blocks"] >= sms and shape["blocks"] > 4 * 32, shape
+
+
+#: the head of ``write_out``'s loop in ``csrc/rwkv6_scan.cu``, where
+#: :func:`test_rwkv6_load_warps_wait_for_each_other` puts its delay
+_WRITE_OUT_LOOP = "  for (int j = lt; j < n * RC; j += C::NL) {\n"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_rwkv6_load_warps_wait_for_each_other(dtype, monkeypatch):
+    """At Dh = 64 a load warp fills a buffer with rows of v and a_t that
+    the other load warps read while they write out the buffer's last tile.
+    A copy of the kernel in which every load warp but the first sleeps
+    20 us before each write-out still matches the twin (2e-2 on bf16
+    outputs, 1e-4 on float32 outputs and the final state), one launch:
+    the fill waits for every load warp."""
+    _need_card()
+    src = rk.SOURCE.read_text()
+    assert src.count(_WRITE_OUT_LOOP) == 1
+    path = reg.BUILD_ROOT / "rwkv6_delayed" / "rwkv6_scan.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(src.replace(
+        _WRITE_OUT_LOOP,
+        "  if (lt >= 32) __nanosleep(20000);\n" + _WRITE_OUT_LOOP))
+    lib = rk.bind(reg.build(path)[0])
+    monkeypatch.setattr(rk, "_library", lambda: lib)
+    args = rwkv_inputs(1, 2, 250, 64, dtype, True, "cuda", layout="model")
+    reg.reset_launches()
+    out, state = rk.rwkv6(*args)
+    torch.cuda.synchronize()
+    assert reg.KERNELS["rwkv6_scan"].launches == 1
+    want, want_state = rk.plain(*args)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
 

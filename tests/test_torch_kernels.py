@@ -275,3 +275,16 @@ def test_pop_first_refuses_a_width_past_its_scan_key():
     with pytest.raises(ValueError, match="at most"):
         t_sq.pop_first(meta, lane, lane.bool())
     assert "POP_W_MAX = 0xFFFF - 1;" in t_sq.SOURCE.read_text()
+
+
+def test_push_refuses_a_width_past_its_block():
+    """The kernel pushes with one block of W threads, W up to
+    ``PUSH_W_MAX``; a wider queue raises before anything is read (meta
+    tensors: no memory)."""
+    w = t_sq.PUSH_W_MAX + 1
+    meta = t_xq.XQ(*(torch.empty(s, dtype=torch.int32, device="meta")
+                     for s in ((w, w, 1), (w, w, 1), (w, w), (w, w))))
+    lane = torch.zeros(w, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="at most"):
+        t_sq.push(meta, lane, lane, lane, lane, lane.bool())
+    assert "PUSH_W_MAX = 1024;" in t_sq.SOURCE.read_text()

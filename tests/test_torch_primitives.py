@@ -108,6 +108,55 @@ def test_push_matches_jax(seed):
     same(t_q.tail, np.asarray(j_q.tail), "push input")
 
 
+#: ids outside [0, W) that a push lane may carry: (which id, value)
+BAD_IDS = [("consumer", -1), ("consumer", W), ("consumer", -W - 1),
+           ("consumer", 2 * W), ("producer", -1), ("producer", W)]
+
+
+def bad_push(rs, which, value, fill, owner_active=True):
+    """A push whose lane 1 (consumer case) or lane 0 (producer case)
+    carries an id outside [0, W), on random queues whose row that lane's
+    ``ok`` reads is all full or all empty.  In the producer case every
+    lane pushes to consumer 1, and lane W - 1 (the owner of the column a
+    producer of -1 wraps to) is active or not."""
+    q = {k: v.numpy().copy() for k, v in random_xq(rs)[0]._asdict().items()}
+    producer = np.arange(W, dtype=np.int32)
+    consumer = rs.integers(0, W, W).astype(np.int32)
+    mask = np.ones(W, bool)
+    if which == "consumer":
+        consumer[1] = value
+        row = min(max(value + W if value < 0 else value, 0), W - 1)
+    else:
+        producer[0] = value
+        consumer[:] = 1
+        mask[W - 1] = owner_active
+        row = 1
+    q["tail"][row] = q["head"][row] + (Q if fill == "full" else 0)
+    lanes = (producer, consumer, rs.integers(0, 60, W).astype(np.int32),
+             rs.integers(0, 10_000, W).astype(np.int32), mask)
+    return q, lanes
+
+
+@pytest.mark.parametrize("fill", ("full", "empty"))
+@pytest.mark.parametrize("which,value", BAD_IDS)
+def test_push_with_ids_outside_the_width_matches_jax(which, value, fill):
+    """A lane whose consumer or producer lies outside [0, W): the port's
+    push equals the reference's bitwise, ``ok`` and the queues (the
+    reference wraps a negative id once and clamps its gathers, drops its
+    scatter's ids outside [-W, W), and writes no consumer outside [0,
+    W))."""
+    rs = np.random.default_rng(700 + W + value)
+    for owner_active in ((True, False) if which == "producer" else (True,)):
+        q, lanes = bad_push(rs, which, value, fill, owner_active)
+        t_out, t_ok = t_xq.push(t_xq.XQ(**{k: T(v) for k, v in q.items()}),
+                                *map(T, lanes))
+        j_out, j_ok = j_xq.push(j_xq.XQ(**{k: J(v) for k, v in q.items()}),
+                                *map(J, lanes))
+        label = (which, value, fill, owner_active)
+        same_tree(t_out, j_out, label)
+        same(t_ok, j_ok, ("ok", *label))
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_pop_scan_matches_jax(seed):
     rs = np.random.default_rng(100 + seed)

@@ -131,15 +131,20 @@ def test_chunked_refuses_a_ragged_T_and_naive_takes_any():
         t_ref.rwkv6_chunked(tr, tk, tv, tw, tu, ts, chunk=64)
     want = j_ref.rwkv6_naive(jr, jk, jv, jw, ju, js)
     for got in (t_ref.rwkv6_naive(tr, tk, tv, tw, tu, ts),
-                t_rk.rwkv6(tr, tk, tv, tw, tu, ts),      # naive: 100 > 64
-                t_rk.plain(tr, tk, tv, tw, tu, ts, chunk=64)):
+                t_rk.rwkv6(tr, tk, tv, tw, tu, ts),      # the twin: naive
+                t_rk.plain(tr, tk, tv, tw, tu, ts)):
         close(got[0], want[0], REF_TOL["float32"], "out")
         close(got[1], want[1], REF_TOL["float32"], "state")
-    # a T shorter than the chunk is one chunk, as in the reference
-    short = [x[:, :, :40] if x.dim() == 4 and x.shape[2] == 100 else x
-             for x in (tr, tk, tv, tw)] + [tu, ts]
-    got = t_ref.rwkv6_chunked(*short, chunk=64)
-    close(got[0], t_ref.rwkv6_naive(*short)[0], REF_TOL["float32"])
+    # where the chunked form runs (a T shorter than the chunk is one chunk,
+    # as in the reference; or a multiple of it) it takes the same steps in
+    # the same order as the twin: equal bitwise
+    for T, chunk in ((40, 64), (96, 32), (100, 25)):
+        part = [x[:, :, :T] if x.dim() == 4 and x.shape[2] == 100 else x
+                for x in (tr, tk, tv, tw)] + [tu, ts]
+        got = t_ref.rwkv6_chunked(*part, chunk=chunk)
+        twin = t_rk.plain(*part)
+        assert torch.equal(got[0], twin[0]), (T, chunk)
+        assert torch.equal(got[1], twin[1]), (T, chunk)
 
 
 def test_the_pallas_wrapper_drops_the_tail_and_the_port_does_not():
@@ -168,7 +173,7 @@ def test_ops_dispatch_and_the_kernel_row():
     try:
         for impl in (None, "ref"):
             t_ops.set_impl(impl)
-            got = t_ops.rwkv6(tr, tk, tv, tw, tu, ts, chunk=8)
+            got = t_ops.rwkv6(tr, tk, tv, tw, tu, ts)
             close(got[0], want[0], REF_TOL["float32"], impl)
             close(got[1], want[1], REF_TOL["float32"], impl)
         t_ops.set_impl("cuda")

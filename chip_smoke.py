@@ -92,8 +92,27 @@ In order, it
    twin per call, bitwise, at the model's own layer-0 routing and seven
    more shapes, and its time beside the twin's, one ``index_put_`` call's
    and its bound;
-9. prints the ``kernels`` JSON line, the end-to-end rates, the card line
-   and last the device line.
+9. after phase 10, prints the ``kernels`` JSON line (``sched_step``'s
+   launches are the sweep's and the tuner's), the end-to-end rates, the
+   tuner's summary, the card line and last the device line;
+10. runs the eleventh slice's path, Table I by search, between phase 8
+   and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
+   ``cuda_fused``, launch counts zeroed before each part.  (a) Each of the
+   18 committed ``experiments/tuned/smoke`` artifacts is searched again as
+   ``benchmarks/tune_apps.py`` made it (smoke graph, W=16 in 4 zones, its
+   hand-tuned reference seeded, rounds 2, survivors 4, no cache): the
+   pick, its makespan, the configurations, the simulations and the seeds
+   must equal the artifact's, and so must the SLB and reference
+   makespans; the file ``save_artifact`` writes into a temporary directory
+   must be the committed one byte for byte but for ``sim_signature`` and
+   ``objective``, which the committed files predate, and ``load_tuned``
+   must read both.  (b) The same search at bench scale (W=32, the nine
+   BOTS apps, both balancers, each app's reference seeded): every pick at
+   most its reference, each re-run alone through the serial executor (fib
+   and uts also through ``reference``) with an equal makespan; then one
+   tune twice through a fresh result cache, the second from the cache
+   alone with no launch.  It prints each pick beside the reference and
+   SLB makespans, and the walls, simulations per second and launches.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -1203,6 +1222,219 @@ def moe_phase(torch, dev, reg):
     return row, out
 
 
+#: phase 10: the committed smoke artifacts, and the benchmark harness's two
+#: machines (``benchmarks/common.py``'s ``SIM`` with ``BENCH_SMOKE=1`` and
+#: without)
+TUNED = ROOT / "experiments" / "tuned"
+TUNE_SMOKE = dict(n_workers=16, n_zones=4, max_steps=60_000, stack_cap=64)
+TUNE_BENCH = dict(n_workers=32, n_zones=4, max_steps=200_000, stack_cap=64)
+#: the apps phase 10 (b) tunes at bench scale, in the paper's order (cut
+#: the slowest first if the script outgrows its time limit), and the ones
+#: phase 3 already runs at that scale, whose picks also go through
+#: ``reference``
+TUNE_BENCH_APPS = ("fib", "nqueens", "fp", "health", "uts", "fft",
+                   "strassen", "sort", "align")
+TUNE_REFERENCE_APPS = ("fib", "uts")
+
+
+def tune_phase(torch, dev, reg):
+    """10. Table I by search: the DLB-knob tuner on ``cuda_fused``, over
+    the 18 committed smoke artifacts (a), then at bench scale (b), then
+    one bench tune twice through a fresh result cache.  Returns the
+    phase's ``sched_step`` launches and its report."""
+    import tempfile
+
+    from repro_torch import apps
+    from repro_torch.core import sweep, tune
+    from repro_torch.core.cache import ResultCache
+    from repro_torch.core.plan import CaseSpec
+    from repro_torch.core.spec import (DLB_BALANCERS, SLB_SPEC, RuntimeSpec,
+                                       dlb_spec)
+    from repro_torch.core.state import SimConfig
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def tuned(g, spec, cfg, ref, cache=None):
+        """One search as ``benchmarks/tune_apps.py`` runs it, with its wall
+        and its ``sched_step`` launches."""
+        n0 = reg.launch_counts()["sched_step"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = tune.tune_spec(g, spec, cfg, extra=(tune.TunedParams(**ref),),
+                           rounds=2, survivors=4, cache=cache, device=dev)
+        torch.cuda.synchronize()
+        return (r, time.perf_counter() - t0,
+                reg.launch_counts()["sched_step"] - n0)
+
+    def cases(g, cfg, knobs, **kw):
+        """Makespans of (spec, knobs) pairs in one ``run_cases`` call."""
+        res = sweep.run_cases(g, [CaseSpec(
+            spec=sp, n_workers=cfg.n_workers, n_zones=cfg.n_zones, **k)
+            for sp, k in knobs], cfg=cfg, device=dev, **kw)
+        check(bool(res.completed.all()), f"{g.name}: a case did not complete")
+        return [int(t) for t in res.time_ns]
+
+    # (a) the committed artifacts, field for field and byte for byte
+    paths = sorted((TUNED / "smoke").glob("*.json"))
+    check(len(paths) == 18, f"{len(paths)} smoke artifacts, not 18")
+    cfg = SimConfig(**TUNE_SMOKE)
+    live_sig = tune.sim_signature(cfg)
+    arts, rows = {}, []
+    reg.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in paths:
+            art = arts[path] = json.loads(path.read_text())
+            app, spec = art["app"], RuntimeSpec.coerce(art["spec_slug"])
+            g = apps.build(app, scale="smoke")
+            r, wall, n = tuned(g, spec, cfg, art["ref"]["params"])
+            label = f"{app} {spec.balance}"
+            got = dict(params=r["params"].asdict(), seeds=list(r["seeds"]),
+                       **{k: r[k] for k in ("makespan_ns", "n_configs",
+                                            "n_sims")})
+            check(got == {k: art[k] for k in got},
+                  f"artifact {label}: the port found {got}")
+            slb_ns, ref_ns = cases(g, cfg, [(SLB_SPEC, {}),
+                                            (spec, art["ref"]["params"])])
+            check((slb_ns, ref_ns) == (art["slb_ns"],
+                                       art["ref"]["makespan_ns"]),
+                  f"artifact {label}: SLB {slb_ns}, reference {ref_ns}")
+            written = Path(tune.save_artifact(
+                app, spec, r, cfg, smoke=True, slb_ns=slb_ns,
+                ref=dict(params=art["ref"]["params"], makespan_ns=ref_ns),
+                tuned_dir=tmp))
+            check(written.name == path.name,
+                  f"save_artifact wrote {written.name}, not {path.name}")
+            # the committed file is in save_artifact's format; it predates
+            # two fields (the physics digest gained CostModel.req_bytes,
+            # the record its objective), which a file written today carries
+            check(path.read_bytes() == (json.dumps(
+                art, indent=1, sort_keys=True) + "\n").encode(),
+                f"{path.name} is not in save_artifact's format")
+            live = dict(art, sim_signature=live_sig, objective="makespan")
+            check(written.read_bytes() == (json.dumps(
+                live, indent=1, sort_keys=True) + "\n").encode(),
+                f"artifact {label}: the file written differs from the "
+                "committed one beyond sim_signature and objective")
+            kw = dict(smoke=True, tuned_dir=str(TUNED))
+            check(tune.load_tuned(app, spec, n_workers=cfg.n_workers,
+                                  n_zones=cfg.n_zones,
+                                  max_steps=cfg.max_steps, **kw) == art,
+                  f"load_tuned refused {path.name} at its scale")
+            check((tune.load_tuned(app, spec, cfg=cfg, **kw) is None)
+                  == (art["sim_signature"] != live_sig),
+                  f"load_tuned(cfg=...) on {path.name}")
+            check(tune.load_tuned(app, spec, smoke=True, cfg=cfg,
+                                  tuned_dir=tmp) == json.loads(
+                                      written.read_text()),
+                  f"load_tuned refused the {path.name} just written")
+            rows.append(dict(app=app, balance=spec.balance,
+                             params=got["params"],
+                             makespan_ns=r["makespan_ns"], ref_ns=ref_ns,
+                             slb_ns=slb_ns, n_sims=r["n_sims"],
+                             launches=n, wall_s=wall))
+            p = r["params"]
+            print(f"  {label:14s} {p.n_victim}/{p.n_steal}/{p.t_interval}/"
+                  f"{p.p_local} {r['makespan_ns']} ns (reference {ref_ns}, "
+                  f"SLB {slb_ns}), {r['n_sims']} sims in {n} launches, "
+                  f"{wall:.3f} s", flush=True)
+    smoke_launches = reg.launch_counts()["sched_step"]
+    wall = sum(x["wall_s"] for x in rows)
+    sims = sum(x["n_sims"] for x in rows)
+    n_stale = sum(a["sim_signature"] != live_sig for a in arts.values())
+    out["smoke"] = dict(
+        artifacts=len(rows), sims=sims, wall_s=wall, sims_per_s=sims / wall,
+        tune_launches=sum(x["launches"] for x in rows),
+        launches=smoke_launches, live_sim_signature=live_sig,
+        stale_signatures=n_stale, rows=rows)
+    print(f"tune (a): {len(rows)} committed artifacts reproduced on "
+          f"cuda_fused: {sims} sims in {wall:.3f} s ({sims / wall:.1f} "
+          f"sims/s), {out['smoke']['tune_launches']} sched_step launches "
+          f"({smoke_launches} with the SLB and reference runs); files equal "
+          f"but for sim_signature ({n_stale} committed under the digest "
+          f"before req_bytes, live {live_sig}) and objective", flush=True)
+
+    # (b) the same search at bench scale, seeded with each app's
+    # hand-tuned reference
+    refs = {a["app"]: a["ref"]["params"] for a in arts.values()}
+    cfg = SimConfig(**TUNE_BENCH)
+    rows = []
+    reg.reset_launches()
+    for app in TUNE_BENCH_APPS:
+        g = apps.build(app, scale="bench")
+        (slb_ns,) = cases(g, cfg, [(SLB_SPEC, {})])
+        for balance in DLB_BALANCERS:
+            spec = dlb_spec(balance)
+            r, wall, n = tuned(g, spec, cfg, refs[app])
+            pick = r["params"].asdict()
+            (ref_ns,) = cases(g, cfg, [(spec, refs[app])])
+            check(r["makespan_ns"] <= ref_ns, f"bench {app} {balance}: "
+                  f"pick {r['makespan_ns']} > reference {ref_ns}")
+            (serial_ns,) = cases(g, cfg, [(spec, pick)], strategy="serial")
+            check(serial_ns == r["makespan_ns"], f"bench {app} {balance}: "
+                  f"serial re-run {serial_ns} != {r['makespan_ns']}")
+            ref_backend_ns = None
+            if app in TUNE_REFERENCE_APPS:
+                (ref_backend_ns,) = cases(g, cfg, [(spec, pick)],
+                                          strategy="serial",
+                                          backend="reference")
+                check(ref_backend_ns == r["makespan_ns"],
+                      f"bench {app} {balance}: reference backend "
+                      f"{ref_backend_ns} != {r['makespan_ns']}")
+            rows.append(dict(app=app, balance=balance, params=pick,
+                             makespan_ns=r["makespan_ns"], ref_ns=ref_ns,
+                             slb_ns=slb_ns, n_configs=r["n_configs"],
+                             n_sims=r["n_sims"], launches=n, wall_s=wall,
+                             sims_per_s=r["n_sims"] / wall,
+                             reference_backend_ns=ref_backend_ns))
+            print(f"  {app:8s} {balance} {pick['n_victim']}/"
+                  f"{pick['n_steal']}/{pick['t_interval']}/"
+                  f"{pick['p_local']} {r['makespan_ns']} ns (reference "
+                  f"{ref_ns}, SLB {slb_ns}, {slb_ns / r['makespan_ns']:.3f}x"
+                  f" over SLB), {r['n_sims']} sims in {n} launches, "
+                  f"{wall:.3f} s ({r['n_sims'] / wall:.1f} sims/s); serial"
+                  + (", reference" if ref_backend_ns is not None else "")
+                  + " equal", flush=True)
+    wall = sum(x["wall_s"] for x in rows)
+    sims = sum(x["n_sims"] for x in rows)
+    out["bench"] = dict(
+        tunes=len(rows), sims=sims, wall_s=wall, sims_per_s=sims / wall,
+        tune_launches=sum(x["launches"] for x in rows),
+        launches=reg.launch_counts()["sched_step"],
+        beats_reference=sum(x["makespan_ns"] < x["ref_ns"] for x in rows),
+        rows=rows)
+    print(f"tune (b): {len(rows)} bench-scale tunes (W={cfg.n_workers}), "
+          f"{sims} sims in {wall:.3f} s ({sims / wall:.1f} sims/s), "
+          f"{out['bench']['tune_launches']} sched_step launches; every pick "
+          f"<= its reference ({out['bench']['beats_reference']} strictly "
+          "below)", flush=True)
+
+    # one bench tune twice through a fresh result cache: the second takes
+    # every case from it and launches nothing
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultCache(tmp)
+        g = apps.build("fib", scale="bench")
+        cold, cold_s, cold_n = tuned(g, dlb_spec("na_ws"), cfg, refs["fib"],
+                                     cache=store)
+        misses = store.misses
+        warm, warm_s, warm_n = tuned(g, dlb_spec("na_ws"), cfg, refs["fib"],
+                                     cache=store)
+        check(warm == cold, f"the warm tune differs: {warm} vs {cold}")
+        check(store.hits == warm["n_sims"] and store.misses == misses
+              and warm_n == 0, f"warm tune: {store.hits} hits, "
+              f"{store.misses - misses} misses, {warm_n} launches")
+    out["cache"] = dict(cold_s=cold_s, warm_s=warm_s, cold_launches=cold_n,
+                        warm_launches=warm_n, sims=cold["n_sims"])
+    print(f"tune cache: fib na_ws at bench scale cold {cold_s:.3f} s "
+          f"({cold_n} launches), warm {warm_s:.3f} s (all {store.hits} "
+          "cases from the cache, no launch)", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"tune phase took {out['phase_s']:.1f} s", flush=True)
+    launches = (out["smoke"]["tune_launches"] + out["bench"]["tune_launches"]
+                + cold_n)
+    return launches, out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.exists():
         return fail("run from the repository root (src/repro_torch and "
@@ -1736,6 +1968,7 @@ def run(torch) -> int:
                  replaces=reg.KERNELS[k["name"]].replaces,
                  # each kernel's launches on the path it serves: the queue
                  # kernels on phase 3's cuda runs, sched_step on the sweep
+                 # (and, added after phase 10, the tuner)
                  launches=(sweep_launches if k["name"] == "sched_step"
                            else main_launches)[k["name"]])
 
@@ -1750,6 +1983,13 @@ def run(torch) -> int:
     # 8. this slice's path: serving moonshot_v1_16b_a3b at full width
     moe_row, report["serve_moe"] = moe_phase(torch, dev, reg)
     kernels.append(moe_row)
+
+    # 10. this slice's path: Table I by search on cuda_fused
+    tune_launches, report["tune"] = tune_phase(torch, dev, reg)
+    check(tune_launches > 0, "the tuner never launched sched_step")
+    for k in kernels:
+        if k["name"] == "sched_step":
+            k["launches"] += tune_launches
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -1776,6 +2016,9 @@ def run(torch) -> int:
         "prefill_s", "decode_tok_per_s", "first_prefill_s",
         "first_decode_tok_per_s", "peak_gib", "routing",
         "model_bitwise")}}))
+    print(json.dumps({"tune": {
+        part: {k: v for k, v in report["tune"][part].items() if k != "rows"}
+        for part in ("smoke", "bench", "cache")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,8 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import torch
+
 from repro_torch.core.costs import CostModel
 
 
@@ -130,3 +132,44 @@ def episode_for(barrier_name: str, n_workers: int, costs: CostModel,
     if topology is None or topology.is_flat:
         return tree_episode(n_workers, costs)
     return tree_episode_topo(n_workers, topology, costs)
+
+
+def episode_arrays(barrier_id, n_workers, costs: CostModel) -> BarrierStats:
+    """Tensor-valued episode selector: ``barrier_id`` indexes
+    ``spec.BARRIERS`` (0 = centralized_count pays the centralized barrier,
+    1 = tree pays the tree barrier), ``barrier_id`` and ``n_workers`` are
+    tensors or ints, and the result holds int32 tensors equal to
+    ``centralized_episode`` / ``tree_episode``.  The sweeps charge the
+    episode on the host (:func:`episode_for`); this is the form for code
+    that keeps both on the device."""
+    nw = torch.as_tensor(n_workers, dtype=torch.int32)
+    cent_t = 2 * (nw - 1) * (costs.c_atomic + costs.c_contend)
+    cent_a = 2 * (nw - 1)
+    depth = torch.clamp(
+        torch.ceil(torch.log2(nw.to(torch.float32))).to(torch.int32), min=1)
+    tree_t = depth * (costs.c_atomic + costs.c_zone) + depth * costs.c_zone
+    tree_a = nw - 1
+    is_cent = torch.as_tensor(barrier_id, device=nw.device) == 0
+    return BarrierStats(
+        time_ns=torch.where(is_cent, cent_t, tree_t).to(torch.int32),
+        atomic_ops=torch.where(is_cent, cent_a, tree_a).to(torch.int32))
+
+
+def tree_gathered(idle: torch.Tensor, n_workers: int) -> torch.Tensor:
+    """Pure predicate used by tests: bottom-up AND over a binary tree —
+    worker w is gathered iff it is idle and both children (2w+1, 2w+2) are
+    gathered.  Returns per-worker gathered flags; the root flag is the
+    barrier's release trigger."""
+    W = n_workers
+    gathered = idle
+    # iterate depth times: flags propagate up one level per pass
+    depth = max(1, math.ceil(math.log2(W))) + 1
+    idx = torch.arange(W, device=idle.device)
+    left, right = 2 * idx + 1, 2 * idx + 2
+    for _ in range(depth):
+        lg = torch.where(left < W, gathered[torch.clamp(left, max=W - 1)],
+                         True)
+        rg = torch.where(right < W, gathered[torch.clamp(right, max=W - 1)],
+                         True)
+        gathered = idle & lg & rg
+    return gathered

@@ -43,6 +43,10 @@ def uniform(s: torch.Tensor) -> torch.Tensor:
     return (s >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def zone_of(w: torch.Tensor, zone_size: int) -> torch.Tensor:
+    return w // zone_size
+
+
 def remote_weight_table(me: torch.Tensor, n_workers, zone_size, topo,
                         restrict: str | None = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,7 +74,7 @@ def remote_weight_table(me: torch.Tensor, n_workers, zone_size, topo,
         same_n = (topo.node[dom_me.long()][:, None]
                   == topo.node[dom_j.long()][None, :])
         remote = remote & (same_n if restrict == "node_local" else ~same_n)
-    dmax = torch.where(remote, d, 0).max(dim=1, keepdim=True).values
+    dmax = torch.where(remote, d, 0).amax(dim=1, keepdim=True)
     wgt = torch.where(remote, dmax - d + 1, 0)                      # (W, W)
     cum = torch.cumsum(wgt, dim=1, dtype=I32)
     return cum, cum[:, -1]

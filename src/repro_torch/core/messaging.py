@@ -26,6 +26,18 @@ import torch
 
 I32 = torch.int32
 
+ROUND_BITS = 40  # paper layout: 40-bit round | 24-bit worker id
+
+
+def pack(thief_id: int, round_: int) -> int:
+    """Reference 64-bit packing (host-side, used by tests)."""
+    return ((int(thief_id) << ROUND_BITS)
+            | (int(round_) & ((1 << ROUND_BITS) - 1)))
+
+
+def unpack(req: int) -> Tuple[int, int]:
+    return int(req) >> ROUND_BITS, int(req) & ((1 << ROUND_BITS) - 1)
+
 
 class Cells(NamedTuple):
     round: torch.Tensor      # (W,) int32, victim-owned

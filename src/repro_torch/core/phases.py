@@ -590,6 +590,11 @@ def exec_phase(st: SimState, task, ts, found, *, g: GraphArrays,
     return st._replace(clock=st.clock + _atomic_cost(counted, costs))
 
 
+#: the pipeline in step order (adopt_phase is the NA-RP pre-push hook)
+PHASES = ("adopt_phase", "spawn_phase", "dequeue_phase", "thief_phase",
+          "victim_phase", "exec_phase")
+
+
 # ---------------- the composed step ----------------
 def run_gate(st: SimState, g: GraphArrays, max_steps: int) -> torch.Tensor:
     """The run loop's liveness predicate (0-dim bool): incomplete, under

@@ -27,6 +27,10 @@ from repro_torch.core.spec import DLB_BALANCERS, RuntimeSpec, resolve_spec
 from repro_torch.core.taskgraph import TaskGraph
 from repro_torch.core.topology import MachineTopology
 
+#: legacy alias — balancers whose DLB knobs (n_victim/n_steal/t_interval/
+#: p_local) are live
+DLB_MODES = DLB_BALANCERS
+
 
 @dataclasses.dataclass(frozen=True, init=False)
 class CaseSpec:

@@ -26,12 +26,16 @@ from repro_torch.core import arrivals as arrivals_mod
 from repro_torch.core import backends as backends_mod
 from repro_torch.core import barrier as barrier_mod
 from repro_torch.core import topology as topology_mod
-from repro_torch.core.spec import RuntimeSpec, resolve_spec
+from repro_torch.core.spec import MODE_SPECS, RuntimeSpec, resolve_spec
 from repro_torch.core.state import (CTR, CTR_NAMES, GraphArrays, Params,
                                     SimConfig, SimState, SweepCase,
                                     batch_of_one, graph_arrays, init_batch,
                                     lane, make_case, make_params, to_device)
 from repro_torch.core.taskgraph import TaskGraph
+
+#: legacy five-rung ladder names (see repro_torch.core.spec for the lattice)
+MODES = tuple(MODE_SPECS)
+MODE_ID = {m: i for i, m in enumerate(MODES)}
 
 
 def resolve_device(device=None) -> torch.device:

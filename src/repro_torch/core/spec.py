@@ -194,6 +194,15 @@ LATTICE: Tuple[RuntimeSpec, ...] = tuple(
 OFF_LADDER: Tuple[RuntimeSpec, ...] = tuple(
     s for s in LATTICE if s not in _SPEC_MODES)
 
+#: the paper's SLB baseline (XQueue + tree barrier + static round-robin)
+SLB_SPEC = RuntimeSpec()
+
+
+def dlb_spec(balance: str) -> RuntimeSpec:
+    """The paper's DLB runtime for ``balance``: XQueue + tree + balancer."""
+    assert balance in DLB_BALANCERS, (balance, DLB_BALANCERS)
+    return RuntimeSpec(balance=balance)
+
 
 def resolve_spec(spec: "RuntimeSpec | str | None",
                  mode: "str | RuntimeSpec | None",

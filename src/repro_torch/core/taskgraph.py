@@ -405,6 +405,12 @@ GENERATORS = {
     "strassen": strassen, "uts": uts, "health": health, "fp": floorplan,
     "align": align, "posp": posp,
 }
+#: the JAX package's name for the same table
+BUILDERS = GENERATORS
+
+#: Ordering used in the paper's figures (by mean task size, small -> large).
+BOTS_APPS = ("fib", "nqueens", "fp", "health", "uts", "fft", "strassen",
+             "sort", "align")
 
 
 def build(name: str, **kw) -> TaskGraph:

@@ -45,6 +45,11 @@ def make(n_workers: int, capacity: int, device="cpu") -> XQ:
     )
 
 
+def sizes(xq: XQ) -> torch.Tensor:
+    """(W, W) occupancy, consumer-major."""
+    return xq.tail - xq.head
+
+
 def capacity(xq: XQ) -> int:
     return xq.buf.shape[-1]
 
@@ -156,7 +161,7 @@ def pop_compute(buf, ts, head, tail, rot, mask, n_active):
     sz = tail - head                                      # (W, W) [c, p]
     cand = (sz > 0) & (p < torch.clamp(n_active, min=1))
     pos_m = torch.where(cand, pos, W + 1)
-    best = pos_m.min(dim=1).values
+    best = pos_m.amin(dim=1)
     found_any = best <= W
     found = mask & found_any
     src = torch.where(found_any, pos_m.argmin(dim=1).to(I32), me)

@@ -309,3 +309,117 @@ def test_ws_transfer_matches_jax(seed):
     same_tree(none_t[0], none_j[0], "ws idle")
     for a, b in zip(none_t[1:], none_j[1:]):
         same(a, b, "ws idle")
+
+
+# ---------------- the rest of the core's public names ----------------
+#: (thief id, round) at the edges of the 24-bit id and the 40-bit round,
+#: and rounds past 40 bits (masked on packing)
+PACK_CASES = [(0, 0), (0, 1), (1, 0), (23, 5), (2 ** 24 - 1, 2 ** 40 - 1),
+              (2 ** 24 - 1, 0), (0, 2 ** 40 - 1), (5, 2 ** 40),
+              (7, 2 ** 40 + 3), (2 ** 23, 2 ** 39)]
+
+
+@pytest.mark.parametrize("tid, rnd", PACK_CASES)
+def test_pack_and_unpack_match_jax(tid, rnd):
+    assert t_msg.ROUND_BITS == j_msg.ROUND_BITS == 40
+    req = t_msg.pack(tid, rnd)
+    assert type(req) is int and req == j_msg.pack(tid, rnd)
+    assert t_msg.unpack(req) == j_msg.unpack(req)
+    assert t_msg.unpack(req) == (tid, rnd & (2 ** 40 - 1))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_sizes_and_zone_of_match_jax(seed):
+    rs = np.random.default_rng(700 + seed)
+    t_q, j_q = random_xq(rs)
+    same(t_xq.sizes(t_q), j_xq.sizes(j_q), ("sizes", seed))
+    # the roundtrip of tests/test_xqueue.py: one push to every master queue
+    me = np.arange(W, dtype=np.int32)
+    t_q, _ = t_xq.push(t_xq.make(W, Q), T(me), T(me), T(me * 10), T(me * 0),
+                       T(np.ones(W, bool)))
+    assert np.array_equal(t_xq.sizes(t_q).numpy().diagonal(), np.ones(W))
+    ids = rs.integers(0, 200, 64).astype(np.int32)
+    for zs in (1, 2, 3, 6, 8, 24):
+        same(t_dlb.zone_of(T(ids), zs), j_dlb.zone_of(J(ids), zs),
+             ("zone_of", zs))
+
+
+def test_episode_arrays_and_tree_gathered_match_jax():
+    from repro.core import barrier as j_bar
+    from repro.core.spec import LATTICE
+    from repro_torch.core import barrier as t_bar
+    from repro_torch.core.state import SimConfig
+
+    costs = SimConfig().costs
+    # tests/test_sweep.py's parity grid, against the JAX selector and the
+    # port's own host-side episodes
+    for spec in LATTICE:
+        for w in (1, 8, 16, 48, 64):
+            got = t_bar.episode_arrays(torch.tensor(spec.barrier_id,
+                                                    dtype=torch.int32),
+                                       torch.tensor(w, dtype=torch.int32),
+                                       costs)
+            want = j_bar.episode_arrays(jnp.int32(spec.barrier_id),
+                                        jnp.int32(w), costs)
+            host = (t_bar.centralized_episode(w, costs)
+                    if spec.barrier == "centralized_count"
+                    else t_bar.tree_episode(w, costs))
+            for k in ("time_ns", "atomic_ops"):
+                assert getattr(got, k).dtype == torch.int32
+                same(getattr(got, k), getattr(want, k), (spec, w, k))
+                assert int(getattr(got, k)) == int(getattr(host, k))
+    # vectors of ids and widths, as an in-graph consumer would pass them
+    bid = np.array([0, 1, 1, 0, 1], np.int32)
+    nw = np.array([2, 3, 5, 17, 200], np.int32)
+    got = t_bar.episode_arrays(T(bid), T(nw), costs)
+    want = j_bar.episode_arrays(J(bid), J(nw), costs)
+    same(got.time_ns, want.time_ns, "episode vectors")
+    same(got.atomic_ops, want.atomic_ops, "episode vectors")
+    # tests/test_barrier.py's gather cases, then random idle sets
+    cases = [(8, np.ones(8, bool)), (8, np.arange(8) != 7),
+             (8, np.arange(8) != 5)]
+    rs = np.random.default_rng(11)
+    cases += [(w, rs.random(w) < 0.85) for w in (1, 2, 3, 7, 16, 33)]
+    for w, idle in cases:
+        same(t_bar.tree_gathered(T(idle), w),
+             j_bar.tree_gathered(J(idle), w), ("gathered", w))
+    g = t_bar.tree_gathered(T(np.arange(8) != 5), 8)
+    assert not bool(g[2]) and not bool(g[0]) and bool(g[1])
+
+
+def test_spec_plan_scheduler_phase_and_registry_names_match_jax():
+    from repro.core import phases as j_ph
+    from repro.core import plan as j_plan
+    from repro.core import scheduler as j_sch
+    from repro.core import spec as j_spec
+    from repro.core import taskgraph as j_tg
+    from repro_torch.core import phases as t_ph
+    from repro_torch.core import plan as t_plan
+    from repro_torch.core import scheduler as t_sch
+    from repro_torch.core import spec as t_spec
+    from repro_torch.core import taskgraph as t_tg
+
+    assert t_spec.SLB_SPEC.asdict() == j_spec.SLB_SPEC.asdict()
+    assert t_spec.SLB_SPEC.slug == j_spec.SLB_SPEC.slug == "xqueue-tree-static_rr"
+    for bal in t_spec.DLB_BALANCERS:
+        assert t_spec.dlb_spec(bal).asdict() == j_spec.dlb_spec(bal).asdict()
+    for bad in ("static_rr", "na_xx"):
+        with pytest.raises(AssertionError):
+            t_spec.dlb_spec(bad)
+    assert t_sch.MODES == j_sch.MODES
+    assert t_sch.MODE_ID == j_sch.MODE_ID
+    assert t_plan.DLB_MODES == j_plan.DLB_MODES
+    assert t_ph.PHASES == j_ph.PHASES
+    assert all(callable(getattr(t_ph, name)) for name in t_ph.PHASES)
+    assert t_tg.BOTS_APPS == j_tg.BOTS_APPS
+    assert list(t_tg.BUILDERS) == list(j_tg.BUILDERS)
+    assert t_tg.BUILDERS is t_tg.GENERATORS
+    # the same graphs at a tiny size (the apps registry's tiny presets)
+    from repro import apps as j_apps
+    for name in t_tg.BUILDERS:
+        kw = j_apps.get(name).kwargs("tiny")
+        a, b = t_tg.BUILDERS[name](**kw), j_tg.BUILDERS[name](**kw)
+        assert a.name == b.name, name
+        for f in ("dur", "first_child", "n_children", "notify", "join_dep"):
+            assert np.array_equal(np.asarray(getattr(a, f)),
+                                  np.asarray(getattr(b, f))), (name, f)

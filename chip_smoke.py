@@ -9,9 +9,10 @@ In order, it
    nvcc, one process per source, all started together, timing the build and
    printing the compiler's register report; then each flash kernel
    instantiation's registers and spills and its HGMMA and UTMALDG count in
-   the SASS (cuobjdump), failing if a bf16 (wgmma) instantiation spills or
-   lacks either, and each ``sched_step_kernel`` instantiation's registers,
-   stack frame and spills, failing on a stack frame or a spill;
+   the SASS (cuobjdump), failing if a bf16 (wgmma) instantiation (one per
+   head dim of ``HEAD_DIMS``, 80 included) spills or lacks either, and
+   each ``sched_step_kernel`` instantiation's registers, stack frame and
+   spills, failing on a stack frame or a spill;
 2. reproduces the 10 cases of ``tests/golden_modes.json`` bitwise on the
    card: through ``run_schedule`` on the ``cuda`` and the ``cuda_fused``
    backends, and through ``run_cases`` on ``cuda_fused`` with the serial,
@@ -57,10 +58,11 @@ In order, it
    (printed, not gated), a traced prefill (flash's device time), the full
    model in float32 at batch 2 through the kernel and through its plain
    twin (last-position logits within 1e-3), the kernels against their twin
-   per call on the 16 ``FLASH_CASES`` (bf16 on the wgmma kernel at every
-   head dim, S = 1, 129, 1000 and 8192, windows that bite; float32 on the
-   FMA kernel), a poisoned neighbour (KV head 1's V all inf: head 0 finite
-   and bitwise what it gives alone) at every head dim, two calls bitwise
+   per call on the 24 ``FLASH_CASES`` (bf16 on the wgmma kernel at every
+   head dim, S = 1, 129, 1000 and 8192, windows that bite, bidirectional
+   layers at Dh = 80; float32 on the FMA kernel), a poisoned neighbour
+   (KV head 1's V all inf: head 0 finite and bitwise what it gives alone)
+   at every head dim, two calls bitwise
    equal, and the time at gemma2_2b's and moonshot_v1_16b_a3b's prefill
    shapes beside the twin's, ``scaled_dot_product_attention``'s and the
    bound;
@@ -93,8 +95,10 @@ In order, it
    more shapes, and its time beside the twin's, one ``index_put_`` call's
    and its bound;
 9. after phase 10, prints the ``kernels`` JSON line (``sched_step``'s
-   launches are the sweep's and the tuner's), the end-to-end rates, the
-   tuner's summary, the card line and last the device line;
+   launches are the sweep's and the tuner's, ``flash_attention``'s those
+   of phases 6, 8 and 11), the end-to-end rates, the ``serve_hybrid`` line
+   of phase 11, the tuner's summary, the card line and last the device
+   line;
 10. runs the eleventh slice's path, Table I by search, between phase 8
    and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
    ``cuda_fused``, launch counts zeroed before each part.  (a) Each of the
@@ -112,7 +116,25 @@ In order, it
    and uts also through ``reference``) with an equal makespan; then one
    tune twice through a fresh result cache, the second from the cache
    alone with no launch.  It prints each pick beside the reference and
-   SLB makespans, and the walls, simulations per second and launches.
+   SLB makespans, and the walls, simulations per second and launches;
+11. runs the twelfth slice's path between phases 8 and 10, every earlier
+   model freed first, each model at its published widths and depth with
+   random bf16 weights made on the card from seed 0: hymba_1_5b (32
+   layers of parallel attention and SSM heads, head dim 64, window 1024)
+   and pixtral_12b (40 layers, head dim 128; its prompt is 256 image
+   patches and 768 text tokens) through ``serve.main`` with batch 4,
+   prompt 1024, 32 new tokens, launch counts zeroed just before and read
+   just after (one flash launch per layer in the prefill, none while
+   decoding, no other kernel), then warm and with a traced prefill;
+   hubert_xlarge's encoder ``forward`` on 4 x 1024 frames (48 flash
+   launches, every one bidirectional at head dim 80); each model in
+   float32 at batch 2 through the kernel and through its twin (hymba's
+   and pixtral's last-position prefill logits and 3 decode steps, each
+   from its own prefill's state; hubert's logits at every position;
+   within 1e-3; pixtral's 49 GB of float32 weights at full depth); then
+   flash at the three prefill shapes
+   beside its twin, its bound and one ``scaled_dot_product_attention``
+   call (the same function at all three).
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -216,26 +238,37 @@ SERVE_B, SERVE_S, SERVE_GEN = 4, 1024, 32
 SERVE_ARGV = ("--arch", "gemma2_2b", "--batch", str(SERVE_B), "--prompt-len",
               str(SERVE_S), "--gen", str(SERVE_GEN), "--seed", "0")
 #: the flash kernel against its twin: (label, B, H, KV, S, Dh, dtype,
-#: window, softcap) — the serving shape (a local and a full layer), a
-#: window that bites, ragged sequences and a small head; the bf16 path at
-#: every head dim, S = 1, 129 and 1000, and a window of 200 over S = 1000
+#: window, softcap, causal) — the serving shape (a local and a full layer),
+#: a window that bites, ragged sequences and a small head; the bf16 path at
+#: every head dim, S = 1, 129 and 1000, and a window of 200 over S = 1000;
+#: then phase 11's layers (hymba's local layer, pixtral's, hubert's
+#: bidirectional one at Dh = 80) and Dh = 80 in float32, at a ragged S,
+#: with a window on both sides and causal with a window that bites
 FLASH_CASES = (
-    ("serve_local", 4, 8, 4, 1024, 256, "bfloat16", 4096, 50.0),
-    ("serve_full", 4, 8, 4, 1024, 256, "bfloat16", 0, 50.0),
-    ("window_bf16", 1, 8, 4, 8192, 256, "bfloat16", 4096, 50.0),
-    ("window_f32", 1, 8, 4, 8192, 256, "float32", 4096, 50.0),
-    ("ragged_64", 2, 4, 2, 1000, 64, "bfloat16", 0, None),
-    ("ragged_128", 2, 4, 2, 1000, 128, "float32", 300, None),
-    ("small_f32", 2, 4, 4, 96, 16, "float32", 0, 20.0),
-    ("moonshot", 4, 16, 16, 1024, 128, "bfloat16", 0, None),
-    ("s1_256", 1, 2, 1, 1, 256, "bfloat16", 0, 50.0),
-    ("s129_256", 1, 4, 2, 129, 256, "bfloat16", 0, 50.0),
-    ("s1000_256", 2, 4, 2, 1000, 256, "bfloat16", 0, 50.0),
-    ("window_mid", 1, 4, 2, 1000, 256, "bfloat16", 200, 50.0),
-    ("window_128", 1, 4, 2, 1000, 128, "bfloat16", 100, None),
-    ("head_192", 1, 4, 1, 300, 192, "bfloat16", 100, None),
-    ("dh32_bf16", 2, 4, 4, 300, 32, "bfloat16", 0, None),
-    ("dh16_bf16", 2, 4, 2, 200, 16, "bfloat16", 0, 20.0),
+    ("serve_local", 4, 8, 4, 1024, 256, "bfloat16", 4096, 50.0, True),
+    ("serve_full", 4, 8, 4, 1024, 256, "bfloat16", 0, 50.0, True),
+    ("window_bf16", 1, 8, 4, 8192, 256, "bfloat16", 4096, 50.0, True),
+    ("window_f32", 1, 8, 4, 8192, 256, "float32", 4096, 50.0, True),
+    ("ragged_64", 2, 4, 2, 1000, 64, "bfloat16", 0, None, True),
+    ("ragged_128", 2, 4, 2, 1000, 128, "float32", 300, None, True),
+    ("small_f32", 2, 4, 4, 96, 16, "float32", 0, 20.0, True),
+    ("moonshot", 4, 16, 16, 1024, 128, "bfloat16", 0, None, True),
+    ("s1_256", 1, 2, 1, 1, 256, "bfloat16", 0, 50.0, True),
+    ("s129_256", 1, 4, 2, 129, 256, "bfloat16", 0, 50.0, True),
+    ("s1000_256", 2, 4, 2, 1000, 256, "bfloat16", 0, 50.0, True),
+    ("window_mid", 1, 4, 2, 1000, 256, "bfloat16", 200, 50.0, True),
+    ("window_128", 1, 4, 2, 1000, 128, "bfloat16", 100, None, True),
+    ("head_192", 1, 4, 1, 300, 192, "bfloat16", 100, None, True),
+    ("dh32_bf16", 2, 4, 4, 300, 32, "bfloat16", 0, None, True),
+    ("dh16_bf16", 2, 4, 2, 200, 16, "bfloat16", 0, 20.0, True),
+    ("hymba_local", 4, 25, 5, 1024, 64, "bfloat16", 1024, None, True),
+    ("pixtral", 4, 32, 8, 1024, 128, "bfloat16", 0, None, True),
+    ("hubert_bf16", 4, 16, 16, 1024, 80, "bfloat16", 0, None, False),
+    ("hubert_f32", 2, 16, 16, 1024, 80, "float32", 0, None, False),
+    ("dh80_ragged", 2, 4, 4, 1000, 80, "bfloat16", 0, None, False),
+    ("dh80_bidir_win", 1, 4, 2, 300, 80, "float32", 100, None, False),
+    ("dh80_window", 1, 4, 2, 1000, 80, "bfloat16", 100, None, True),
+    ("dh80_s1", 1, 2, 1, 1, 80, "bfloat16", 0, None, False),
 )
 #: the two flash kernels as the profiler names them (the wrapper's
 #: ``KERNEL_NAMES``): bf16 on the tensor cores, float32 on FMAs
@@ -243,7 +276,7 @@ FLASH_KERNEL_KEYS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")
 #: the poisoned-neighbour check: (B, H, KV, S) at each head dim of the bf16
 #: path; KV head 1's V is all inf, so head 0's rows must never read it
 POISON_SHAPE = (1, 4, 2, 1000)
-POISON_HEAD_DIMS = (256, 192, 128, 64, 32, 16)
+POISON_HEAD_DIMS = (256, 192, 128, 80, 64, 32, 16)
 #: atol = rtol per output type: bf16 rounds at 2^-8, float32 only sums in
 #: another order
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -266,12 +299,21 @@ def traced_generate(torch, serve, params, cfg, tokens, gen, kernel_key):
     """One ``serve.generate`` under the profiler: device busy time and
     share of the wall time, kernel launches, the device time of the
     kernels whose names hold ``kernel_key`` (one string or a tuple) and of
-    the flash kernels, and the largest device ops."""
+    the flash kernels, and the largest device ops.  ``tokens`` is the
+    batch's tokens, or the whole batch (a dict)."""
     from torch.profiler import ProfilerActivity, profile
 
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run = serve.generate(params, cfg, {"tokens": tokens}, gen)
+        run = serve.generate(params, cfg, batch, gen)
+    return trace_summary(torch, prof, (run.prefill_s + run.decode_s) * 1e6,
+                         kernel_key)
+
+
+def trace_summary(torch, prof, wall_us, kernel_key):
+    """What :func:`traced_generate` reads from a profile of ``wall_us``
+    microseconds of host time."""
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
@@ -280,7 +322,6 @@ def traced_generate(torch, serve, params, cfg, tokens, gen, kernel_key):
                   if any(k in e.key for k in keys))
     flash_us = sum(e.self_device_time_total for e in kern
                    if any(k in e.key for k in FLASH_KERNEL_KEYS))
-    wall_us = (run.prefill_s + run.decode_s) * 1e6
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_busy_share=busy_us / wall_us,
@@ -299,9 +340,6 @@ def flash_checks(torch, dev):
     bitwise equal; then the time at gemma2_2b's and moonshot_v1_16b_a3b's
     prefill shapes beside the twin's, ``scaled_dot_product_attention``'s
     and the bound.  Returns ``{"flash_errors", "flash_timed"}``."""
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as fref
 
@@ -314,10 +352,12 @@ def flash_checks(torch, dev):
                                  ).to(dtype) for n in (h, kv, kv))
 
     errs = {}
-    for label, b, h, kv, s, dh, dtype, window, softcap in FLASH_CASES:
+    for label, b, h, kv, s, dh, dtype, window, softcap, causal in \
+            FLASH_CASES:
         q, k, v = qkv(b, h, kv, s, dh, getattr(torch, dtype))
-        got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
-        want = fref.flash_attention(q, k, v, True, window, softcap)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+        want = fref.flash_attention(q, k, v, causal, window, softcap)
         torch.cuda.synchronize()
         tol = FLASH_TOL[dtype]
         errs[label] = float((got.float() - want.float()).abs().max())
@@ -325,7 +365,7 @@ def flash_checks(torch, dev):
               f"flash_attention {label}: max abs err {errs[label]} beyond "
               f"{tol}")
         print(f"  flash {label:12s} B={b} H={h} KV={kv} S={s} Dh={dh} "
-              f"{dtype} window={window} softcap={softcap} "
+              f"{dtype} causal={causal} window={window} softcap={softcap} "
               f"({fa.KERNEL_NAMES[q.dtype]}): max abs err "
               f"{errs[label]:.3g} (tol {tol})", flush=True)
 
@@ -352,43 +392,72 @@ def flash_checks(torch, dev):
     for name, (b, h, kv, s, dh), softcap in (
             ("gemma2_2b", (SERVE_B, 8, 4, SERVE_S, 256), 50.0),
             ("moonshot_v1_16b_a3b", (SERVE_B, 16, 16, SERVE_S, 128), None)):
-        q, k, v = qkv(b, h, kv, s, dh, torch.bfloat16)
-        first = fa.flash_attention(q, k, v, softcap=softcap)
-        second = fa.flash_attention(q, k, v, softcap=softcap)
-        torch.cuda.synchronize()
-        check(torch.equal(first, second),
-              f"two flash calls at the {name} shape differ")
-        ms = cuda_time_ms(
-            lambda i: fa.flash_attention(q, k, v, softcap=softcap), 50,
-            torch)
-        plain_ms = cuda_time_ms(
-            lambda i: fref.flash_attention(q, k, v, True, 0, softcap), 10,
-            torch)
-        ke, ve = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
-        lib_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-            q, ke, ve, is_causal=True), 50, torch)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fa.flash_attention(q, k, v, softcap=softcap)
-            torch.cuda.synchronize()
-        dev_us = kernel_device_us(prof, FLASH_KERNEL_KEYS)
-        flops = 4 * dh * b * h * s * (s + 1) / 2
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-        timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           device_us=dev_us, flops=flops, bytes=nbytes,
-                           bound_ms=bnd, bound_by=by,
-                           tflops=flops / ms / 1e9)
-        print(f"flash_attention at {name}'s {b}x{h}/{kv}x{s}x{dh} bf16 "
-              f"(softcap {softcap}): {ms:.4f} ms a call "
-              f"({flops / ms / 1e9:.2f} TFLOP/s, {ms / bnd:.2f}x its bound; "
-              f"device {f'{dev_us:.1f} us' if dev_us else 'not measured'}), "
-              f"bound {bnd:.5f} ms ({by}), twin {plain_ms:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms "
-              f"({ms / lib_ms:.2f}x its time); two calls bitwise equal",
-              flush=True)
+        timed[name] = flash_time(torch, dev, name, (b, h, kv, s, dh),
+                                 softcap=softcap)
     return dict(flash_errors=errs, flash_timed=timed)
+
+
+def flash_time(torch, dev, name, shape, *, causal=True, window=0,
+               softcap=None) -> dict:
+    """The bf16 flash kernel at a model's prefill shape ``(B, H, KV, S,
+    Dh)``: two calls bitwise equal, then ms a call (CUDA events) beside
+    the twin's, one ``scaled_dot_product_attention`` call's and the bound,
+    and the device time a launch (profiler).  SDPA (causal as the layer
+    is, k and v repeated to H heads) computes the same function only
+    without a softcap and a window that bites (``same_function``); it is
+    timed either way, as the yardstick of the kernel's time."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as fref
+
+    b, h, kv, s, dh = shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev
+                           ).to(torch.bfloat16) for n in (h, kv, kv))
+
+    def call(i=0):
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    check(torch.equal(first, second),
+          f"two flash calls at the {name} shape differ")
+    ms = cuda_time_ms(call, 50, torch)
+    plain_ms = cuda_time_ms(
+        lambda i: fref.flash_attention(q, k, v, causal, window, softcap),
+        10, torch)
+    same = softcap is None and (window == 0 or window >= s)
+    ke, ve = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+    lib_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        q, ke, ve, is_causal=causal), 50, torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    dev_us = kernel_device_us(prof, FLASH_KERNEL_KEYS)
+    # every visible (query, key) pair is a Dh product for s and one for
+    # P V, two operations a multiply-add; a window past S hides nothing
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops = 4 * dh * b * h * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    print(f"flash_attention at {name}'s {b}x{h}/{kv}x{s}x{dh} bf16 "
+          f"(causal {causal}, window {window}, softcap {softcap}): "
+          f"{ms:.4f} ms a call ({flops / ms / 1e9:.2f} TFLOP/s, "
+          f"{ms / bnd:.2f}x its bound; device "
+          f"{f'{dev_us:.1f} us' if dev_us else 'not measured'}), bound "
+          f"{bnd:.5f} ms ({by}), twin {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms ({ms / lib_ms:.2f}x "
+          f"its time; {'the' if same else 'not the'} same function); two "
+          "calls bitwise equal", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                same_function=same,
+                device_us=dev_us, flops=flops, bytes=nbytes, bound_ms=bnd,
+                bound_by=by, tflops=flops / ms / 1e9)
 
 
 def flash_build_report(lib, log: str) -> dict:
@@ -441,7 +510,9 @@ def flash_build_report(lib, log: str) -> dict:
             check(not sass or (sass[name]["HGMMA"] > 0
                                and sass[name]["UTMALDG"] > 0),
                   f"{name} has no HGMMA or UTMALDG: {sass.get(name)}")
-    check(sum("wgmma" in n for n in found) == 6,
+    from repro_torch.kernels import flash_attention as fa
+
+    check(sum("wgmma" in n for n in found) == len(fa.HEAD_DIMS),
           f"ptxas reported {sorted(found)}")
     return dict(ptxas=found, sass=sass)
 
@@ -1222,6 +1293,326 @@ def moe_phase(torch, dev, reg):
     return row, out
 
 
+#: phase 11: hymba_1_5b and pixtral_12b served as a user runs them (the
+#: same batch and lengths as gemma2_2b's; pixtral's prompt is 256 patches
+#: and 768 text tokens), hubert_xlarge's encoder forward on 4 x 1024 frames
+HYMBA_ARGV = ("--arch", "hymba_1_5b", "--batch", str(SERVE_B),
+              "--prompt-len", str(SERVE_S), "--gen", str(SERVE_GEN),
+              "--seed", "0")
+PIXTRAL_ARGV = ("--arch", "pixtral_12b", "--batch", str(SERVE_B),
+                "--prompt-len", str(SERVE_S), "--gen", str(SERVE_GEN),
+                "--seed", "0")
+#: the flash kernel at the three models' prefill layers: (model, (B, H, KV,
+#: S, Dh), causal, window); no softcap, and hymba's window of 1024 does not
+#: bite at S = 1024, so SDPA computes the same function at all three
+HYBRID_FLASH_SHAPES = (
+    ("hymba_1_5b", (SERVE_B, 25, 5, SERVE_S, 64), True, 1024),
+    ("pixtral_12b", (SERVE_B, 32, 8, SERVE_S, 128), True, 0),
+    ("hubert_xlarge", (SERVE_B, 16, 16, SERVE_S, 80), False, 0),
+)
+def serve_main_run(torch, reg, serve, argv, cfg, label):
+    """``serve.main(argv)`` with the launch counts zeroed just before and
+    read just after: one flash launch per layer in the prefill, no kernel
+    while decoding, finite logits, ids in range.  Returns (generation,
+    report)."""
+    B, GEN = SERVE_B, SERVE_GEN
+    reg.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = serve.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = reg.launch_counts()
+    zero = dict.fromkeys(reg.KERNELS, 0)
+    L = cfg.n_layers
+    check(launches == dict(zero, flash_attention=L),
+          f"serving {label} launched {launches} for {L} attention layers")
+    check(g.launches == {"prefill": dict(zero, flash_attention=L),
+                         "decode": zero},
+          f"{label}: kernel launches by phase: {g.launches}")
+    check(tuple(g.ids.shape) == (B, GEN)
+          and bool(((g.ids >= 0) & (g.ids < cfg.vocab)).all()),
+          f"{label}: generated ids of shape {tuple(g.ids.shape)} out of "
+          "range")
+    check(bool(torch.isfinite(g.prefill_logits.float()).all()),
+          f"{label}: non-finite prefill logits")
+    out = dict(main_wall_s=wall, launches=launches,
+               first_prefill_s=g.prefill_s,
+               first_decode_tok_per_s=B * (GEN - 1) / g.decode_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               ids_lane0=g.ids[0].tolist())
+    print(f"serve_hybrid: {label} {B}x{SERVE_S} + {GEN} tokens through "
+          f"serve.main: prefill {g.launches['prefill']['flash_attention']} "
+          f"flash launches, decode none; first prefill {g.prefill_s:.4f} s, "
+          f"decode {out['first_decode_tok_per_s']:.1f} tok/s; peak "
+          f"{out['peak_gib']:.2f} GiB; lane 0 ids {out['ids_lane0']}",
+          flush=True)
+    return g, out
+
+
+def f32_generate_check(torch, dev, cfg, batch, steps, max_len, label):
+    """The float32 model through the kernels and through their plain twins
+    (``set_impl("ref")``): the last-position prefill logits, then a decode
+    step per column of ``steps``, each run from its own prefill's state;
+    every logit within ``F32_LOGITS_TOL`` (atol = rtol).  Returns the max
+    abs errors (prefill, decode)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    params = tfm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    seqs = {}
+    with torch.inference_mode():
+        for impl in (None, "ref"):
+            ops.set_impl(impl)
+            try:
+                last, state = tfm.prefill(params, cfg, batch, max_len)
+                seq = [last]
+                for t in range(steps.shape[1]):
+                    step, state = tfm.decode_step(params, cfg, state,
+                                                  steps[:, t])
+                    seq.append(step)
+            finally:
+                ops.set_impl(None)
+            seqs[impl] = seq
+            del state
+    torch.cuda.synchronize()
+    del params
+    errs = [float((a - b).abs().max()) for a, b in zip(seqs[None],
+                                                       seqs["ref"])]
+    check(all(bool(torch.isfinite(a).all()) and within(a, b, F32_LOGITS_TOL)
+              for a, b in zip(seqs[None], seqs["ref"])),
+          f"float32 {label}: kernel and plain logits differ by {errs} "
+          f"(prefill, {steps.shape[1]} decode steps; beyond "
+          f"{F32_LOGITS_TOL})")
+    big = float(seqs["ref"][0].abs().max())
+    print(f"serve_hybrid (float32, {cfg.n_layers} layers, "
+          f"{batch['tokens'].shape[0]}x{max_len - steps.shape[1]}): {label} "
+          f"kernel against plain path, last-position logits max abs err "
+          f"{errs[0]:.3g}, {steps.shape[1]} decode steps {max(errs[1:]):.3g} "
+          f"(atol = rtol = {F32_LOGITS_TOL}; |logit| <= {big:.3f})",
+          flush=True)
+    return errs[0], max(errs[1:])
+
+
+def hybrid_phase(torch, dev, reg):
+    """Phase 11: serve hymba_1_5b and pixtral_12b at full width through
+    the flash kernel, run hubert_xlarge's encoder forward through it (Dh
+    = 80, bidirectional), hold each float32 model to its plain twin, and
+    time flash at the three prefill shapes.  Returns (the flash launches
+    of the three main-path runs, report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["free_gib_at_start"] = torch.cuda.mem_get_info()[0] / 2**30
+    launches = {}
+
+    def card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+                if k != "targets"}
+
+    def decode_tokens(cfg):
+        """Three teacher-forced decode tokens for each of 2 lanes."""
+        return torch.randint(0, cfg.vocab, (2, 3), device=dev,
+                             generator=torch.Generator(device=dev
+                                                       ).manual_seed(1))
+
+    def warm_and_traced(label, cfg, batch):
+        """The same weights again, warm, and a traced prefill."""
+        params = tfm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        serve.generate(params, cfg, batch, GEN)
+        warm = serve.generate(params, cfg, batch, GEN)
+        check(bool(torch.isfinite(warm.prefill_logits.float()).all()),
+              f"{label}: non-finite prefill logits (warm)")
+        traced = traced_generate(torch, serve, params, cfg, batch, 1,
+                                 FLASH_KERNEL_KEYS)
+        del params
+        r = dict(prefill_s=warm.prefill_s,
+                 decode_tok_per_s=B * (GEN - 1) / warm.decode_s,
+                 decode_step_s=warm.decode_s / (GEN - 1),
+                 traced_prefill=traced)
+        print(f"serve_hybrid (warm): {label} prefill {r['prefill_s']:.4f} s, "
+              f"decode {r['decode_tok_per_s']:.1f} tok/s "
+              f"({1e3 * r['decode_step_s']:.1f} ms a step); traced prefill: "
+              f"device busy {traced['device_busy_ms']:.2f} ms of "
+              f"{traced['wall_ms']:.2f} ms wall "
+              f"({100 * traced['device_busy_share']:.1f} %), "
+              f"{traced['launches']} kernel launches, flash "
+              f"{traced['flash_ms']:.3f} ms; top: {traced['top'][:5]}",
+              flush=True)
+        return r
+
+    # hymba_1_5b: parallel attention + SSM heads, 32 layers
+    cfg = cb.get("hymba_1_5b")
+    g, rep = serve_main_run(torch, reg, serve, HYMBA_ARGV, cfg, "hymba_1_5b")
+    launches["hymba_1_5b"] = rep["launches"]["flash_attention"]
+    del g
+    batch = card(batch_for(cfg, 0, B, S))
+    rep.update(warm_and_traced("hymba_1_5b", cfg, batch))
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    rep["f32_logits_max_abs_err"], rep["f32_decode_max_abs_err"] = \
+        f32_generate_check(torch, dev, cfg32,
+                           {"tokens": batch["tokens"][:2]},
+                           decode_tokens(cfg), S + 3, "hymba_1_5b")
+    out["hymba_1_5b"] = rep
+    del batch
+    torch.cuda.empty_cache()
+
+    # pixtral_12b: 256 image patches before 768 text tokens, 40 layers
+    cfg = cb.get("pixtral_12b")
+    g, rep = serve_main_run(torch, reg, serve, PIXTRAL_ARGV, cfg,
+                            "pixtral_12b")
+    launches["pixtral_12b"] = rep["launches"]["flash_attention"]
+    del g
+    batch = card(batch_for(cfg, 0, B, S))
+    check(batch["tokens"].shape[1] + cfg.frontend_len == S
+          and tuple(batch["patches"].shape) == (B, cfg.frontend_len,
+                                                cfg.frontend_dim),
+          f"pixtral batch {[tuple(v.shape) for v in batch.values()]}")
+    rep.update(warm_and_traced("pixtral_12b", cfg, batch))
+    torch.cuda.empty_cache()
+    # 49 GB of float32 weights at full depth, with every earlier model
+    # freed
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    b2 = {k: v[:2] for k, v in batch.items()}
+    rep["f32_logits_max_abs_err"], rep["f32_decode_max_abs_err"] = \
+        f32_generate_check(torch, dev, cfg32, b2, decode_tokens(cfg),
+                           S + 3, "pixtral_12b")
+    out["pixtral_12b"] = rep
+    del batch, b2
+    torch.cuda.empty_cache()
+
+    # hubert_xlarge: the encoder's forward on 512-wide frames, 48
+    # bidirectional layers at Dh = 80 (encoder-only: no serve.main)
+    cfg = cb.get("hubert_xlarge")
+    rep = {}
+    frames = card(batch_for(cfg, 0, B, S))
+    check(tuple(frames["frames"].shape) == (B, S, cfg.frontend_dim),
+          f"hubert frames {tuple(frames['frames'].shape)}")
+    params = tfm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    calls = []
+    kernel = fa.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape[-1], kw.get("causal", True),
+                      kw.get("window", 0)))
+        return kernel(q, k, v, **kw)
+
+    reg.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _ = tfm.forward(params, cfg, frames)
+        torch.cuda.synchronize()
+        rep["first_forward_s"] = time.perf_counter() - t0
+    finally:
+        fa.flash_attention = kernel
+    got = reg.launch_counts()
+    zero = dict.fromkeys(reg.KERNELS, 0)
+    check(got == dict(zero, flash_attention=cfg.n_layers),
+          f"hubert_xlarge's forward launched {got} for {cfg.n_layers} "
+          "attention layers")
+    check(calls == [(cfg.head_dim, False, 0)] * cfg.n_layers,
+          f"hubert_xlarge's flash calls (Dh, causal, window): "
+          f"{sorted(set(calls))} x {len(calls)}")
+    check(tuple(logits.shape) == (B, S, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"hubert logits {tuple(logits.shape)} or not finite")
+    launches["hubert_xlarge"] = got["flash_attention"]
+    rep.update(launches=got,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with torch.inference_mode():
+        tfm.forward(params, cfg, frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tfm.forward(params, cfg, frames)
+        torch.cuda.synchronize()
+        rep["forward_s"] = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tfm.forward(params, cfg, frames)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rep["traced_forward"] = trace_summary(torch, prof, wall * 1e6,
+                                          FLASH_KERNEL_KEYS)
+    t = rep["traced_forward"]
+    print(f"serve_hybrid: hubert_xlarge forward {B}x{S} frames: "
+          f"{got['flash_attention']} flash launches (Dh {cfg.head_dim}, "
+          "causal=False); "
+          f"first {rep['first_forward_s']:.4f} s, warm "
+          f"{rep['forward_s']:.4f} s; peak {rep['peak_gib']:.2f} GiB; "
+          f"traced: device busy {t['device_busy_ms']:.2f} ms of "
+          f"{t['wall_ms']:.2f} ms wall ({100 * t['device_busy_share']:.1f} "
+          f"%), {t['launches']} kernel launches, flash {t['flash_ms']:.3f} "
+          f"ms; top: {t['top'][:5]}", flush=True)
+    del params, logits
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params = tfm.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    f2 = {"frames": frames["frames"][:2]}
+    with torch.inference_mode():
+        k_log, _ = tfm.forward(params, cfg32, f2)
+        ops.set_impl("ref")
+        try:
+            r_log, _ = tfm.forward(params, cfg32, f2)
+        finally:
+            ops.set_impl(None)
+    torch.cuda.synchronize()
+    err = float((k_log - r_log).abs().max())
+    rep["f32_logits_max_abs_err"] = err
+    check(bool(torch.isfinite(k_log).all())
+          and within(k_log, r_log, F32_LOGITS_TOL),
+          f"float32 hubert_xlarge: kernel and plain logits differ by {err} "
+          f"(beyond {F32_LOGITS_TOL})")
+    print(f"serve_hybrid (float32, 2x{S}): hubert_xlarge kernel against "
+          f"plain path, every position's logits max abs err {err:.3g} "
+          f"(atol = rtol = {F32_LOGITS_TOL}; |logit| <= "
+          f"{float(r_log.abs().max()):.3f})", flush=True)
+    out["hubert_xlarge"] = rep
+    del params, k_log, r_log, frames, f2
+    torch.cuda.empty_cache()
+
+    # flash at the three prefill shapes; beside the five-call profile (which
+    # may record no launch this late in a process, after the long traces),
+    # the device time a launch in the model's own traced prefill
+    out["flash_timed"] = {
+        name: flash_time(torch, dev, name, shape, causal=causal,
+                         window=window)
+        for name, shape, causal, window in HYBRID_FLASH_SHAPES}
+    for name, t in out["flash_timed"].items():
+        tr = out[name].get("traced_prefill") or out[name]["traced_forward"]
+        t["device_us_in_model"] = 1e3 * tr["flash_ms"] / launches[name]
+        print(f"flash_attention in {name}'s traced model run: "
+              f"{t['device_us_in_model']:.1f} us of device time a launch",
+              flush=True)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"hybrid and frontend phase took {out['phase_s']:.1f} s",
+          flush=True)
+    return sum(launches.values()), out
+
+
 #: phase 10: the committed smoke artifacts, and the benchmark harness's two
 #: machines (``benchmarks/common.py``'s ``SIM`` with ``BENCH_SMOKE=1`` and
 #: without)
@@ -1984,6 +2375,17 @@ def run(torch) -> int:
     moe_row, report["serve_moe"] = moe_phase(torch, dev, reg)
     kernels.append(moe_row)
 
+    # 11. this slice's path: hymba_1_5b and pixtral_12b served,
+    # hubert_xlarge's forward, all through the flash kernel
+    hybrid_launches, report["serve_hybrid"] = hybrid_phase(torch, dev, reg)
+    # flash's launches over every main-path run that goes through it
+    flash_row["launches"] += (
+        report["serve_moe"]["launches"]["flash_attention"] + hybrid_launches)
+    flash_row["max_abs_err"] = max(
+        report["serve"]["flash_errors"][k] for k in (
+            "serve_local", "serve_full", "hymba_local", "pixtral",
+            "hubert_bf16"))
+
     # 10. this slice's path: Table I by search on cuda_fused
     tune_launches, report["tune"] = tune_phase(torch, dev, reg)
     check(tune_launches > 0, "the tuner never launched sched_step")
@@ -2016,6 +2418,19 @@ def run(torch) -> int:
         "prefill_s", "decode_tok_per_s", "first_prefill_s",
         "first_decode_tok_per_s", "peak_gib", "routing",
         "model_bitwise")}}))
+    hy = report["serve_hybrid"]
+    print(json.dumps({"serve_hybrid": dict(
+        {m: {k: hy[m][k] for k in (
+            "prefill_s", "decode_tok_per_s", "first_prefill_s",
+            "first_decode_tok_per_s", "f32_logits_max_abs_err",
+            "f32_decode_max_abs_err", "peak_gib",
+            "forward_s", "first_forward_s") if k in hy[m]}
+         for m in ("hymba_1_5b", "pixtral_12b", "hubert_xlarge")},
+        flash_launches=hy["launches"],
+        flash_timed={m: {k: t[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "device_us", "device_us_in_model", "same_function")}
+            for m, t in hy["flash_timed"].items()})}))
     print(json.dumps({"tune": {
         part: {k: v for k, v in report["tune"][part].items() if k != "rows"}
         for part in ("smoke", "bench", "cache")}}))

@@ -10,13 +10,15 @@
 // the shared-memory attribute call, or cudaErrorInvalidValue when a tensor
 // map cannot be encoded).
 //
-// What both kernels compute, in the order of the TPU kernel: q * Dh^-0.5 in
-// float32, s = q k^T, the softcap cap * tanh(s / cap) (a division, as in the
-// reference), the causal and window masks to -1e30 (a finite value, as in
-// the reference), the online max / sum / accumulator in float32, and
-// acc / max(l, 1e-30) cast to the output type.  q is (B, H, S, Dh); k, v are
-// (B, KV, S, Dh); query head h reads KV head h / (H / KV) in place, which
-// equals the TPU wrapper's jnp.repeat of k and v without materialising it.
+// What both kernels compute, in the order of the TPU kernel (causal,
+// sliding-window and bidirectional layers, with or without a softcap):
+// q * Dh^-0.5 in float32, s = q k^T, the softcap cap * tanh(s / cap) (a
+// division, as in the reference), the causal and window masks to -1e30
+// (a finite value, as in the reference), the online max / sum /
+// accumulator in float32, and acc / max(l, 1e-30) cast to the output
+// type.  q is (B, H, S, Dh); k, v are (B, KV, S, Dh); query head h reads
+// KV head h / (H / KV) in place, which equals the TPU wrapper's jnp.repeat
+// of k and v without materialising it.
 // Any S: each kernel masks its own ragged edge.  Key tiles that lie wholly
 // above the diagonal or wholly outside the window are skipped.  Skipping
 // such a tile changes nothing: with the finite -1e30, a row's contribution
@@ -46,9 +48,20 @@
 //   taking P from registers (rounded to bf16: the one rounding the
 //   reference does not make, within the bf16 output's 2^-8) and V from
 //   shared memory as it lies, MN-major, through the descriptor's transpose
-//   bit.  Tiles are boxes of 64 columns (128 bytes) with the 128-byte
-//   swizzle that the wgmma descriptors name (Dh = 32 and 16: one box of 64
-//   or 32 bytes, swizzled to match).  K and V are described to TMA as 3-D
+//   bit.  A tile of Dh columns is Dh / COLS boxes of COLS columns, COLS
+//   the widest of 64, 32 and 16 that divides Dh, each box swizzled over
+//   its row (128, 64 or 32 bytes) as the wgmma descriptors name it: one
+//   box of 32 or 16 columns at Dh = 32 and 16, boxes of 64 at 64, 128,
+//   192 and 256.  Dh = 80 (hubert_xlarge: 1280 over 16 heads) is five
+//   boxes of 16 columns with the 32-byte swizzle of the Dh = 16 path, not
+//   a box of 64 beside a box of 16: 160 bytes a row are no whole number
+//   of 128-byte boxes, and one box width keeps one loader, one descriptor
+//   rule and the n16 P V product the Dh = 16 path already runs (a tile's
+//   P V is 20 m64n16k16 products instead of 4 n64 + 4 n16; attention is
+//   a small share of hubert's layer, so the simpler layout goes first).
+//   Tile<DH> refuses at compile time a Dh that its boxes do not cover
+//   (DH % COLS), so no head dim can lose columns.  q, k and v are not
+//   padded to a wider head.  K and V are described to TMA as 3-D
 //   tensors (Dh, S, B * KV) and Q as (Dh, S, B * H), so rows past S are
 //   out of bounds and arrive as zeros: a tile never reads the next head,
 //   whose values may be anything (0 * inf in P V would be NaN).  The scale
@@ -116,6 +129,7 @@ __global__ void __launch_bounds__(NT)
                      const float* __restrict__ v, float* __restrict__ out,
                      int H, int KV, int S, int causal, int window,
                      int has_softcap, float softcap, float scale) {
+  static_assert(DH % 16 == 0, "a thread's columns are tx + 16 c");
   constexpr int QS = DH + 1;  // padded row stride of Q and K (floats)
   constexpr int PS = BK + 1;  // padded row stride of P
   constexpr int CPT = DH / 16;
@@ -282,13 +296,15 @@ constexpr int NT = 384;  // a producer and two consumer warpgroups
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The shared-memory layout of one head dim.  A row tile of Dh columns is
-// NCB boxes of COLS columns, each box ROWB bytes a row, swizzled over ROWB
-// bytes (the 128-, 64- or 32-byte pattern of TMA and of the wgmma
-// descriptor's LAYOUT).  Q (BQ rows), then STAGES stages of K and V (BK
-// rows each), then the mbarriers; every box starts on a 1024-byte line.
+// NCB boxes of COLS columns (the widest of 64, 32 and 16 that divides Dh),
+// each box ROWB bytes a row, swizzled over ROWB bytes (the 128-, 64- or
+// 32-byte pattern of TMA and of the wgmma descriptor's LAYOUT).  Q (BQ
+// rows), then STAGES stages of K and V (BK rows each), then the mbarriers;
+// every box starts on a 1024-byte line.
 template <int DH>
 struct Tile {
-  static constexpr int COLS = DH < 64 ? DH : 64;
+  static constexpr int COLS = DH % 64 == 0 ? 64 : DH % 32 == 0 ? 32 : 16;
+  static_assert(DH % COLS == 0, "the boxes must cover every column");
   static constexpr int NCB = DH / COLS;
   static constexpr int ROWB = 2 * COLS;
   static constexpr int LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
@@ -826,6 +842,7 @@ int by_head_dim(int Dh, F&& f) {
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
     case 128: return f(std::integral_constant<int, 128>{});
     case 192: return f(std::integral_constant<int, 192>{});
     case 256: return f(std::integral_constant<int, 256>{});

@@ -2,7 +2,8 @@
 
 The port of the JAX package's Pallas kernel
 (``src/repro/kernels/flash_attention.py``, ``flash_attention_pallas``):
-causal / sliding-window attention forward with an online softmax, float32
+causal / sliding-window / bidirectional attention forward with an online
+softmax, float32
 accumulators and a tanh softcap, written by hand in CUDA C++ for Hopper
 (``csrc/flash_attention.cu``; the source says what bounds it and what its
 design does about it).  The input type picks the kernel
@@ -38,8 +39,9 @@ from repro_torch.kernels import registry as reg
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 #: head dims the kernel is instantiated for (multiples of 16 up to 256:
-#: the smoke configs, repro_100m, the 128-wide heads, nemotron, gemma2)
-HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+#: the smoke configs, repro_100m and hymba's 64, hubert's 80, the 128-wide
+#: heads, nemotron, gemma2)
+HEAD_DIMS = (16, 32, 64, 80, 128, 192, 256)
 #: the kernel's I/O types, by the code its C entry point takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the CUDA kernel each I/O type runs, as the profiler names it

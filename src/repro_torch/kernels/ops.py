@@ -1,5 +1,6 @@
 """Public kernel API with implementation dispatch (the port of the JAX
-package's ``kernels/ops.py``: its attention, RWKV6 and MoE entry points).
+package's ``kernels/ops.py``: its attention, RWKV6, SSM and MoE entry
+points).
 
 Models call these wrappers.  ``set_impl`` forces a path, for every op that
 has a kernel or for the ops it names:
@@ -10,11 +11,13 @@ has a kernel or for the ops it names:
                       kernel, a CPU tensor takes the plain twin
   set_impl("ref", "moe_dispatch")   only that op's twin, the rest as set
 
-``decode_attention``, ``rwkv6_decode`` and ``moe_combine`` have no kernel in
-either package: they are the plain ops.  The JAX ``rwkv6`` reads a chunk
-from the environment (``REPRO_RWKV_CHUNK``); the chunk does not change the
-result (its chunked form runs the same sequential steps), so here ``rwkv6``
-takes none and its twin walks the steps one by one (``ref.rwkv6_naive``).
+``decode_attention``, ``rwkv6_decode``, ``ssm_scan``, ``ssm_decode`` and
+``moe_combine`` have no kernel in either package: they are the plain ops.
+The JAX ``rwkv6`` and ``ssm_scan`` read a chunk from the environment
+(``REPRO_RWKV_CHUNK``, ``REPRO_SSM_CHUNK``); the chunk does not change the
+result (the chunked forms run the same sequential steps), so here neither
+takes one: ``rwkv6``'s twin walks the steps one by one
+(``ref.rwkv6_naive``), and so does ``ssm_scan`` (``ref.ssm_scan``).
 """
 
 from __future__ import annotations
@@ -75,6 +78,14 @@ def rwkv6(r, k, v, w, u, state):
 
 def rwkv6_decode(r, k, v, w, u, state):
     return ref.rwkv6_decode(r, k, v, w, u, state)
+
+
+def ssm_scan(x, dt, A, Bm, Cm, D, state):
+    return ref.ssm_scan(x, dt, A, Bm, Cm, D, state)
+
+
+def ssm_decode(x, dt, A, Bm, Cm, D, state):
+    return ref.ssm_decode(x, dt, A, Bm, Cm, D, state)
 
 
 def moe_dispatch(x, expert, pos, *, n_experts: int, capacity: int):

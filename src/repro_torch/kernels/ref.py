@@ -1,6 +1,5 @@
 """Plain PyTorch references (oracles) for the model stack's kernels: the
-port of the attention, RWKV6 and MoE parts of the JAX package's
-``kernels/ref.py``.
+port of the JAX package's ``kernels/ref.py`` but the attention backward.
 
 ``flash_attention`` is the plain twin of the hand-written CUDA kernel of
 :mod:`repro_torch.kernels.flash_attention`: the CPU path, and what the
@@ -21,6 +20,12 @@ oracle and ``rwkv6_decode`` the one-token step (no kernel in either
 package).  All three compute in float32 and return ``out`` in ``r.dtype``
 and the state in float32.  Layout: r, k, v, w ``(B, H, T, Dh)``; u
 ``(H, Dh)``; the state ``(B, H, Dh, Dh)`` maps key dim to value dim.
+
+``ssm_scan`` and ``ssm_decode`` are the selective-SSM scan and step of
+hymba's parallel SSM heads; neither package has a kernel for them.
+``ssm_scan`` walks the steps (any T); ``ssm_chunked`` keeps the
+reference's chunking for the parity tests.  Layout: x, dt ``(B, T, Di)``;
+A ``(Di, N)``; Bm, Cm ``(B, T, N)``; the state ``(B, Di, N)``.
 
 ``moe_dispatch`` is the plain twin of the MoE-dispatch kernel of
 :mod:`repro_torch.kernels.moe_dispatch` (the reference's scatter, with the
@@ -196,6 +201,85 @@ def rwkv6_decode(r, k, v, w, u, state):
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     new, out = _rwkv6_step(state.float(), rf, kf, vf, wf, u.float())
     return out.to(r.dtype), new
+
+
+# ---------------------------------------------------------------------------
+# Selective SSM scan (mamba-style, for hymba's parallel SSM heads)
+# ---------------------------------------------------------------------------
+
+#: steps whose elementwise terms ``ssm_scan`` computes in one pass
+SSM_STEP_BLOCK = 64
+
+
+def _ssm_steps(xf, dtf, Af, Bf, Cf, h):
+    """``h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t``, ``y_t = C_t h_t``
+    over the T steps of float32 ``(B, T, Di)`` / ``(B, T, N)`` rows, from
+    the ``(B, Di, N)`` state ``h``.  The elementwise terms ``exp(dt A)``
+    and ``(dt x) B`` of a block of steps are computed in one pass each (the
+    same operations, so the same values); the Python loop is left with
+    the recurrence, and the C·h contractions of a block run as one batched
+    product.  Returns (h, y (B, T, Di))."""
+    T = xf.shape[1]
+    ys = []
+    for t0 in range(0, T, SSM_STEP_BLOCK):
+        part = slice(t0, min(t0 + SSM_STEP_BLOCK, T))
+        # time-major (tb, B, ...) so that the rows of step t are contiguous
+        dtb = dtf[:, part].transpose(0, 1)
+        dA = torch.exp(dtb[..., None] * Af)                 # (tb, B, Di, N)
+        dBx = ((dtb * xf[:, part].transpose(0, 1))[..., None]
+               * Bf[:, part].transpose(0, 1)[:, :, None, :])
+        hs = torch.empty_like(dA)
+        for t in range(dA.shape[0]):
+            torch.mul(dA[t], h, out=hs[t])
+            h = hs[t].add_(dBx[t])
+        ys.append(torch.matmul(hs, Cf[:, part].transpose(0, 1)[..., None])
+                  [..., 0].transpose(0, 1))
+    return h.clone(), torch.cat(ys, dim=1)
+
+
+def ssm_scan(x, dt, A, Bm, Cm, D, state):
+    """``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``, ``y_t = C_t h_t + D
+    x_t``, step by step, any T.  x/dt: (B, T, Di); A: (Di, N); Bm/Cm:
+    (B, T, N); D: (Di,); state: (B, Di, N).  Everything is cast to float32
+    first and ``h`` is carried in float32; returns (y in ``x.dtype``,
+    state float32)."""
+    xf, dtf = x.float(), dt.float()
+    h, y = _ssm_steps(xf, dtf, A.float(), Bm.float(), Cm.float(),
+                      state.float())
+    y = y + xf * D.float()[None, None, :]
+    return y.to(x.dtype), h
+
+
+def ssm_chunked(x, dt, A, Bm, Cm, D, state, chunk=256):
+    """The scan in ``T // C`` chunks of ``C = min(chunk, T)`` steps, as the
+    reference chunks it (the sequential form inside each chunk, so it
+    equals ``ssm_scan``).  A T that is longer than the chunk and not a
+    multiple of it raises ``ValueError`` (the reference fails on a reshape
+    there)."""
+    T = x.shape[1]
+    C = min(chunk, T)
+    if C < 1 or T % C:
+        raise ValueError(f"T = {T} is not a multiple of the chunk {C}")
+    ys = []
+    for i in range(T // C):
+        part = slice(i * C, (i + 1) * C)
+        y, state = ssm_scan(x[:, part], dt[:, part], A, Bm[:, part],
+                            Cm[:, part], D, state)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def ssm_decode(x, dt, A, Bm, Cm, D, state):
+    """One-token SSM step.  x/dt: (B, Di); Bm/Cm: (B, N); state: (B, Di,
+    N).  Nothing is cast but ``dt`` inside the exponent: the rest follows
+    type promotion, as in the reference (``dt`` is float32 there because
+    ``dt_bias`` is, so ``h`` and ``y`` are float32).  Returns (y in
+    ``x.dtype``, h)."""
+    dA = torch.exp(dt.float()[..., None] * A[None])
+    h = dA * state + dt[..., None] * x[..., None] * Bm[:, None, :]
+    y = (torch.matmul(h, Cm[..., None].to(h.dtype))[..., 0]
+         + x * D[None])
+    return y.to(x.dtype), h
 
 
 # ---------------------------------------------------------------------------

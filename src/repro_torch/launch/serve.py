@@ -1,5 +1,6 @@
 """Serving driver: prefill a batch of prompts, then greedy decode (KV
-caches for attention stacks, the O(1) state for RWKV6).  The port of the
+caches for attention stacks, the O(1) state for RWKV6, KV caches beside
+the SSM state and conv carry for hymba's hybrid blocks).  The port of the
 JAX package's ``launch/serve.py`` (its single-replica loop; the
 ``--production`` mesh is distributed work and is not ported).
 
@@ -9,17 +10,31 @@ JAX package's ``launch/serve.py`` (its single-replica loop; the
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch moonshot_v1_16b_a3b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral_12b \\
+      --smoke --prompt-len 24 --device cpu
+
+``--prompt-len`` counts every position of the prompt, as in the JAX
+package: for pixtral_12b the ``frontend_len`` image patches (256; 8 in the
+smoke config) and the text tokens behind them.  An encoder-only config
+(hubert_xlarge) does not decode and is refused; its path is
+``models.transformer.forward``.
 
 Without ``--device`` it runs on the CUDA device and raises when there is
 none.  On the card, the prefill goes through the hand-written kernels:
-every attention layer through the flash-attention kernel
-(``kernels/csrc/flash_attention.cu``), every RWKV layer through the
-RWKV6-recurrence kernel (``kernels/csrc/rwkv6_scan.cu``), every MoE layer
-through the MoE-dispatch kernel (``kernels/csrc/moe_dispatch.cu``).
-Decoding uses the plain attention and RWKV6 ops (``decode_attention``,
-``rwkv6_decode``), as in the JAX package, and the MoE-dispatch kernel in
-every MoE layer of every step.  MoE layers route with the JAX package's
-defaults (``PRNGKey(0)``, 16 expert groups).  ``Generation.launches``
+every attention layer (hymba's and pixtral's too) through the
+flash-attention kernel (``kernels/csrc/flash_attention.cu``), every RWKV
+layer through the RWKV6-recurrence kernel (``kernels/csrc/rwkv6_scan.cu``),
+every MoE layer through the MoE-dispatch kernel
+(``kernels/csrc/moe_dispatch.cu``).  hymba's SSM heads run the plain
+``ssm_scan`` (prefill) and ``ssm_decode`` ops, which have no kernel in
+either package, and pixtral's patch projection is a plain matrix product.
+Decoding uses the plain attention, RWKV6 and SSM ops
+(``decode_attention``, ``rwkv6_decode``, ``ssm_decode``), as in the JAX
+package, and the MoE-dispatch kernel in every MoE layer of every step.
+MoE layers route with the JAX package's defaults (``PRNGKey(0)``, 16
+expert groups).  ``Generation.launches``
 counts every kernel of the package, by name, in each phase.  Weights are
 random, drawn from ``--seed``.
 """
@@ -55,14 +70,16 @@ def _sync(device: torch.device) -> None:
 @torch.inference_mode()
 def generate(params, cfg: cb.ModelConfig, batch: dict, gen: int
              ) -> Generation:
-    """Prefill ``batch["tokens"]`` (B, S), then ``gen - 1`` greedy decode
-    steps: ``gen`` new tokens per lane, the first from the prefill."""
-    tokens = batch["tokens"]
-    device = tokens.device
+    """Prefill ``batch`` (``tokens`` (B, S), and the ``patches`` of a vision
+    config), then ``gen - 1`` greedy decode steps: ``gen`` new tokens per
+    lane, the first from the prefill.  The caches hold every prompt
+    position (patches included) and the ``gen`` new tokens."""
+    device = batch["tokens"].device
     n0 = registry.launch_counts()
     _sync(device)
     t0 = time.perf_counter()
-    logits, state = tfm.prefill(params, cfg, batch, tokens.shape[1] + gen)
+    logits, state = tfm.prefill(params, cfg, batch,
+                                tfm.prompt_len(cfg, batch) + gen)
     tok = torch.argmax(logits, -1).to(torch.int32)
     _sync(device)
     prefill_s = time.perf_counter() - t0

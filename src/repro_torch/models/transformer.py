@@ -1,17 +1,18 @@
-"""The decoder stack: the port of the dense, MoE and RWKV parts of the JAX
-package's ``models/transformer.py``.
+"""The decoder / encoder stack: the port of the JAX package's
+``models/transformer.py`` on one device (its inference paths).
 
 Layers are grouped into a repeating *pattern* of P block kinds (gemma2:
-(local, full); llama4: (dense, moe)); parameters are stacked per pattern
-position with a leading dim of ``n_layers / P``, as in the JAX package,
-and the stack is applied by a Python loop over that dim (the JAX package's
-``lax.scan``).  There is no rematerialisation: that is for training.
+(local, full); llama4: (dense, moe); hymba: (full, local x7)); parameters
+are stacked per pattern position with a leading dim of ``n_layers / P``,
+as in the JAX package, and the stack is applied by a Python loop over that
+dim (the JAX package's ``lax.scan``).  There is no rematerialisation: that
+is for training.
 
 Parameters are a :class:`ParamTree`, an ``nn.Module`` whose parameters map
 one to one onto the JAX parameter tree's leaves (``embed``,
-``final_norm``, ``lm_head`` when the head is untied, and ``streams``: one
-tree per pattern position); ``params_from_numpy`` carries a JAX tree
-across leaf for leaf.
+``final_norm``, ``lm_head`` when the head is untied, ``frontend.proj``
+for a modality frontend, and ``streams``: one tree per pattern position);
+``params_from_numpy`` carries a JAX tree across leaf for leaf.
 
 Public API:
   pattern(cfg)                              -> tuple of BlockKind
@@ -22,12 +23,17 @@ Public API:
   init_decode_state(cfg, B, max_len, dev)   -> DecodeState (zeros)
   decode_step(params, cfg, state, tokens, rng) -> (logits, DecodeState)
 
-Dense attention stacks, MoE stacks (an MoE block every ``interleave``-th
-layer, routed by :mod:`repro_torch.models.moe`) and RWKV6 stacks
-(``family == "ssm"``: one block kind, time mix and channel mix, O(1)
-decode state) are ported; configs with SSM heads or a modality frontend
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
-``loss_fn`` waits for training.
+Every block kind runs: dense attention, MoE (an MoE block every
+``interleave``-th layer, routed by :mod:`repro_torch.models.moe`), RWKV6
+(``family == "ssm"``: time mix and channel mix, O(1) decode state) and
+hymba's parallel attention + SSM heads (:mod:`repro_torch.models.ssm`,
+``0.5 * (rmsnorm(attn_ln, a) + rmsnorm(ssm_ln, s))``, with the SSM state
+and conv carry in the decode cache).  Two stub frontends embed the
+inputs: ``audio_frames`` projects precomputed frames and has no token
+embedding (hubert, encoder-only: ``forward`` only), ``vit_patches``
+prepends projected patches to the embedded text (pixtral), so a prompt
+of S text tokens fills ``frontend_len + S`` cache slots.  ``loss_fn``
+waits for training.
 
 The routing key ``rng`` is a pair of uint32 words
 (:mod:`repro_torch.core.prng`), ``PRNGKey(0)`` by default as in the JAX
@@ -48,7 +54,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
-from repro_torch.models import layers, moe, rwkv
+from repro_torch.models import layers, moe, rwkv, ssm
 
 AUX_KEYS = ("lb_loss", "ntasks_static", "ntasks_stolen_local",
             "ntasks_stolen_remote", "ntasks_dropped", "max_load")
@@ -72,19 +78,6 @@ def pattern(cfg: ModelConfig):
                   moe=bool(cfg.moe) and (i % ilv == ilv - 1),
                   ssm=cfg.parallel_ssm, rwkv=False)
         for i in range(P))
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this port does not run
-    yet."""
-    if cfg.ssm is not None or cfg.parallel_ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM heads are not ported yet (ROADMAP §1 item 9, "
-            "hybrid and frontend families)")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP §1 item 9, hybrid and frontend families)")
 
 
 class ParamTree(nn.Module):
@@ -130,6 +123,10 @@ def _block_init(cfg: ModelConfig, kind: BlockKind, n: int, generator,
         p["rwkv"] = rwkv.rwkv_init(cfg, generator, device, lead=(n,))
         return p
     p["attn"] = layers.attn_init(cfg, generator, device, lead=(n,))
+    if kind.ssm:
+        p["ssm"] = ssm.ssm_init(cfg, generator, device, lead=(n,))
+        p["attn_ln"] = zeros()
+        p["ssm_ln"] = zeros()
     p["mlp"] = (moe.moe_init(cfg, generator, device, lead=(n,)) if kind.moe
                 else layers.mlp_init(cfg, cfg.d_ff, generator, device,
                                      lead=(n,)))
@@ -145,10 +142,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     ``device``) with the JAX package's scales: embeddings N(0, 1), dense
     weights N(0, 1/fan_in), norm scales 0.  The MoE experts' leaves are
     drawn one layer at a time (see :func:`repro_torch.models.moe.moe_init`);
-    every other leaf in one draw per stacked leaf.  The JAX package draws
-    other numbers from its keys; tests carry its weights across with
+    every other leaf in one draw per stacked leaf; the frontend's
+    projection is drawn last, so the other leaves of a config are the
+    same with or without one.  The JAX package draws other numbers from
+    its keys; tests carry its weights across with
     :func:`params_from_numpy`."""
-    check_ported(cfg)
     kinds = pattern(cfg)
     P = len(kinds)
     if cfg.n_layers % P:
@@ -167,6 +165,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     if not cfg.tie_embeddings:
         tree["lm_head"] = layers._dense_init(
             (cfg.d_model, cfg.vocab), cfg.pdtype, generator, device)
+    if cfg.frontend:
+        tree["frontend"] = {"proj": layers._dense_init(
+            (cfg.frontend_dim, cfg.d_model), cfg.pdtype, generator, device)}
     return ParamTree(tree)
 
 
@@ -180,10 +181,10 @@ def _tensor_from_numpy(a) -> torch.Tensor:
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu"
                       ) -> ParamTree:
     """The JAX parameter tree (``embed``, ``final_norm``, optional
-    ``lm_head``, ``streams``), given as numpy arrays, as the port's
-    parameters.  Both packages keep weights ``(in, out)``, so each leaf is
-    copied as it is, never transposed; its key path, shape and dtype must
-    be the ones :func:`init_params` makes for ``cfg``."""
+    ``lm_head`` and ``frontend``, ``streams``), given as numpy arrays, as
+    the port's parameters.  Both packages keep weights ``(in, out)``, so
+    each leaf is copied as it is, never transposed; its key path, shape and
+    dtype must be the ones :func:`init_params` makes for ``cfg``."""
     want = init_params(cfg, None, "meta")
 
     def conv(node, spec, path):
@@ -214,9 +215,10 @@ def _zero_aux(device):
 
 
 def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups):
-    """Prefill block.  Returns (x, cache_src, aux): what decode needs (k/v,
-    or the RWKV state and token-shift tails, already final), and the MoE
-    layer's counters (None for other blocks)."""
+    """Prefill block.  Returns (x, cache_src, aux): what decode needs (k/v
+    and, with SSM heads, the SSM state and conv carry; or the RWKV state
+    and token-shift tails; all final), and the MoE layer's counters (None
+    for other blocks)."""
     h = layers.rmsnorm(bp["ln1"], x)
     if kind.rwkv:
         state0 = torch.zeros((x.shape[0], cfg.n_heads, cfg.head_dim,
@@ -229,6 +231,12 @@ def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups):
         return x + m, {"rwkv_state": state, "tm_last": tail,
                        "cm_last": tail2}, None
     a, (kt, vt) = layers.attn_apply(bp["attn"], h, cfg, kind.attn)
+    src = {"k": kt, "v": vt}
+    if kind.ssm:
+        s_out, src["ssm_state"], src["ssm_conv"] = ssm.ssm_apply(
+            bp["ssm"], h, cfg)
+        a = 0.5 * (layers.rmsnorm(bp["attn_ln"], a)
+                   + layers.rmsnorm(bp["ssm_ln"], s_out))
     if cfg.post_block_norms:
         a = layers.rmsnorm(bp["pln1"], a)
     x = x + a
@@ -241,7 +249,7 @@ def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups):
         m = layers.mlp_apply(bp["mlp"], h2, cfg)
     if cfg.post_block_norms:
         m = layers.rmsnorm(bp["pln2"], m)
-    return x + m, {"k": kt, "v": vt}, aux
+    return x + m, src, aux
 
 
 def _embed_tokens(params, cfg: ModelConfig, tok):
@@ -254,7 +262,23 @@ def _embed_tokens(params, cfg: ModelConfig, tok):
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch):
-    return _embed_tokens(params, cfg, batch["tokens"])
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].to(cfg.cdtype) @ params["frontend"]["proj"]
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    if cfg.frontend == "vit_patches":
+        xp = batch["patches"].to(cfg.cdtype) @ params["frontend"]["proj"]
+        x = torch.cat([xp, x], dim=1)
+    return x
+
+
+def prompt_len(cfg: ModelConfig, batch) -> int:
+    """Positions a prefill of ``batch`` fills: the frames of an audio
+    batch; the text tokens, behind ``frontend_len`` patches for a vision
+    batch."""
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].shape[1]
+    S = batch["tokens"].shape[1]
+    return S + cfg.frontend_len if cfg.frontend == "vit_patches" else S
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -286,9 +310,8 @@ def forward(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
     """Full-sequence forward.  Returns (logits, aux[, cache_srcs]): aux is
     the JAX package's MoE counters summed over the layers (all zero for a
     stack without MoE layers); cache_srcs holds per pattern position the
-    stacked ``(n, B, KV, S, Dh)`` k and v, or the stacked RWKV states and
-    tails."""
-    check_ported(cfg)
+    stacked ``(n, B, KV, S, Dh)`` k and v (with the stacked SSM states and
+    conv carries of SSM heads), or the stacked RWKV states and tails."""
     kinds = pattern(cfg)
     keys = _layer_keys(rng, cfg)
     x = _embed_inputs(params, cfg, batch)
@@ -323,7 +346,6 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(cfg: ModelConfig, B: int, max_len: int,
                       device="cpu") -> DecodeState:
-    check_ported(cfg)
     kinds = pattern(cfg)
     n = cfg.n_layers // len(kinds)
     caches = []
@@ -339,8 +361,12 @@ def init_decode_state(cfg: ModelConfig, B: int, max_len: int,
                                        device=device)})
             continue
         c = layers.attn_cache_init(cfg, kind.attn, B, max_len, device=device)
-        caches.append({f: getattr(c, f)[None].repeat(
-            (n,) + (1,) * getattr(c, f).dim()) for f in CACHE_KEYS})
+        d = c._asdict()
+        if kind.ssm:
+            d["ssm_state"], d["ssm_conv"] = ssm.ssm_state_init(cfg, B,
+                                                               device)
+        caches.append({f: t[None].repeat((n,) + (1,) * t.dim())
+                       for f, t in d.items()})
     return DecodeState(caches=tuple(caches),
                        length=torch.zeros((B,), dtype=torch.int32,
                                           device=device))
@@ -355,7 +381,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int, rng=None, *,
     logits, _aux, srcs = forward(params, cfg, batch, rng,
                                  ep_groups=ep_groups, collect_cache=True)
     kinds = pattern(cfg)
-    S = batch["tokens"].shape[1]
+    S = prompt_len(cfg, batch)
     caches = []
     for kind, src in zip(kinds, srcs):
         if kind.rwkv:
@@ -366,6 +392,9 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int, rng=None, *,
             for i in range(src["k"].shape[0])]
         caches.append({f: torch.stack([getattr(c, f) for c in per_layer])
                        for f in CACHE_KEYS})
+        for extra in ("ssm_state", "ssm_conv"):
+            if extra in src:
+                caches[-1][extra] = src[extra]
     B = logits.shape[0]
     state = DecodeState(caches=tuple(caches),
                         length=torch.full((B,), S, dtype=torch.int32,
@@ -389,6 +418,13 @@ def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length,
         return x + m
     ac = layers.AttnCache(*(cache[f] for f in CACHE_KEYS))
     a, _ = layers.attn_decode(bp["attn"], h, cfg, kind.attn, ac, length)
+    if kind.ssm:
+        s_out, s_state, s_conv = ssm.ssm_decode_step(
+            bp["ssm"], h, cfg, cache["ssm_state"], cache["ssm_conv"])
+        a = 0.5 * (layers.rmsnorm(bp["attn_ln"], a)
+                   + layers.rmsnorm(bp["ssm_ln"], s_out))
+        cache["ssm_state"].copy_(s_state)
+        cache["ssm_conv"].copy_(s_conv)
     if cfg.post_block_norms:
         a = layers.rmsnorm(bp["pln1"], a)
     x = x + a
@@ -408,12 +444,11 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens,
                 rng=None, *, ep_groups=16):
     """One autoregressive step.  tokens: (B,) int.  Returns (logits,
     state).  The caches of ``state`` are updated in place (see
-    :func:`repro_torch.models.layers.attn_decode`; RWKV states and tails
-    alike); the returned state holds the same cache tensors and the
-    advanced lengths."""
+    :func:`repro_torch.models.layers.attn_decode`; RWKV and SSM states,
+    tails and conv carries alike); the returned state holds the same cache
+    tensors and the advanced lengths."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
-    check_ported(cfg)
     kinds = pattern(cfg)
     keys = _layer_keys(rng, cfg)
     x = _embed_tokens(params, cfg, tokens)

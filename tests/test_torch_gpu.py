@@ -2,7 +2,8 @@
 PyTorch twin at the main path's width, the golden cases bitwise on the
 ``cuda`` and ``cuda_fused`` backends and through the sweep service, and
 smoke-config serving (gemma2, rwkv6 and moonshot) on the card against
-the CPU.  Every
+the CPU, and the hybrid and frontend families (hymba, pixtral, hubert)
+through the kernels against their plain twins.  Every
 test skips without a card (the kernels have no CPU mode); on one, run them
 with
 
@@ -485,6 +486,81 @@ def test_flash_kernel_never_reads_the_next_head(Dh, dtype):
                                v[:, :1].contiguous(), softcap=50.0)
     assert torch.isfinite(got).all()
     assert torch.equal(got, alone)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_kernel_at_head_dim_80(dtype, causal):
+    """hubert_xlarge's head dim: five 16-column boxes on the wgmma path,
+    five columns a thread on the FMA path; every column against the twin,
+    at hubert's shape and at a ragged S with and without a window that
+    bites (2e-2 on bf16, 1e-4 on float32)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for (B, H, KV, S), window in (((2, 16, 16, 1024), 0),
+                                  ((2, 4, 2, 1000), 0),
+                                  ((1, 4, 2, 1000), 100)):
+        q, k, v = _flash_inputs(B, H, KV, S, 80, dtype)
+        reg.reset_launches()
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert reg.KERNELS["flash_attention"].launches == 1
+        want = ref.flash_attention(q, k, v, causal, window, None)
+        assert got.dtype == q.dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        # the last 16 columns (past one 64-column box) carry the values
+        assert float(got[..., 64:].float().abs().max()) > 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "pixtral_12b",
+                                  "hubert_xlarge"])
+def test_smoke_hybrid_and_frontend_models_through_the_kernels(arch):
+    """The smoke models on the card through the kernels against the plain
+    twins (``set_impl("ref")``) on the same weights: one flash launch per
+    layer; hymba's and pixtral's prefill and 3 decode steps (the SSM state
+    and conv carry, the patches counted in ``length``), hubert's encoder
+    logits at every position; 1e-4 (float32 smoke configs)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import ops
+
+    cfg = cb.smoke_config(arch)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             "cpu").cuda()
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in batch_for(cfg, 0, 2, 40).items() if k != "targets"}
+    steps = torch.randint(0, cfg.vocab, (2, 3),
+                          generator=torch.Generator().manual_seed(1)).cuda()
+    runs = {}
+    for impl in (None, "ref"):
+        ops.set_impl(impl)
+        reg.reset_launches()
+        try:
+            with torch.inference_mode():
+                if cfg.encoder_only:
+                    seq = [tfm.forward(params, cfg, batch)[0]]
+                else:
+                    last, state = tfm.prefill(params, cfg, batch, 43)
+                    assert state.length.tolist() == [40, 40]
+                    seq = [last]
+                    for t in range(3):
+                        step, state = tfm.decode_step(params, cfg, state,
+                                                      steps[:, t])
+                        seq.append(step)
+        finally:
+            ops.set_impl(None)
+        torch.cuda.synchronize()
+        runs[impl] = (seq, reg.KERNELS["flash_attention"].launches)
+    assert runs[None][1] == cfg.n_layers and runs["ref"][1] == 0
+    for a, b in zip(runs[None][0], runs["ref"][0]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
 
 @pytest.mark.gpu
 def test_smoke_serving_on_the_card_matches_the_cpu():

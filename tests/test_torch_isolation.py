@@ -34,6 +34,7 @@ def test_no_jax_or_repro_imports_in_the_port():
     found = list(_sources())
     assert any(p.endswith("chip_smoke.py") and os.path.exists(p)
                for p in found)
+    assert any(p.endswith(os.path.join("models", "ssm.py")) for p in found)
     for path in found:
         with open(path) as f:
             text = f.read()
@@ -84,6 +85,10 @@ def test_import_and_cpu_run_leave_jax_and_repro_unloaded():
         "g = serve.main(['--arch', 'moonshot_v1_16b_a3b', '--smoke', "
         "'--batch', '1', '--prompt-len', '8', '--gen', '2', '--device', "
         "'cpu'])\n"
+        "assert tuple(g.ids.shape) == (1, 2), g.ids\n"
+        "import repro_torch.models.ssm\n"
+        "g = serve.main(['--arch', 'hymba_1_5b', '--smoke', '--batch', '1', "
+        "'--prompt-len', '8', '--gen', '2', '--device', 'cpu'])\n"
         "assert tuple(g.ids.shape) == (1, 2), g.ids\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"

@@ -300,18 +300,6 @@ def test_local_decode_cache_is_a_ring_of_the_window():
     assert np.array_equal(got.k[0, :, 40 % 32].numpy(), kt[0, :, 40 - 32])
 
 
-@pytest.mark.parametrize("arch", ("hymba_1_5b", "hubert_xlarge",
-                                  "pixtral_12b"))
-def test_families_not_ported_raise(arch):
-    cfg = t_cb.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tfm.forward({}, cfg, {"tokens": torch.zeros((1, 4), dtype=int)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tfm.init_decode_state(cfg, 1, 8)
-
-
 @pytest.mark.parametrize("name", ALL)
 def test_registry_and_smoke_config_equal_jax(name):
     for fn in ("get", "smoke_config"):

@@ -108,6 +108,11 @@ def test_main_without_a_device_needs_a_gpu():
         serve.main(["--smoke"])
 
 
-def test_main_refuses_a_family_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "hymba_1_5b", "--smoke", "--device", "cpu"])
+def test_main_refuses_an_encoder_only_config():
+    """hubert_xlarge does not decode: ``serve.main`` exits, as the JAX
+    ``serve.main`` asserts, and ``prefill`` raises."""
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve.main(["--arch", "hubert_xlarge", "--smoke", "--device", "cpu"])
+    cfg = t_cb.smoke_config("hubert_xlarge")
+    with pytest.raises(ValueError, match="encoder-only"):
+        t_tfm.prefill(None, cfg, {"frames": torch.zeros((1, 4, 32))}, 8)

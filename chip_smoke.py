@@ -9,8 +9,9 @@ In order, it
    nvcc, one process per source, all started together, timing the build and
    printing the compiler's register report; then each flash kernel
    instantiation's registers and spills and its HGMMA and UTMALDG count in
-   the SASS (cuobjdump), failing if a bf16 (wgmma) instantiation (one per
-   head dim of ``HEAD_DIMS``, 80 included) spills or lacks either, and
+   the SASS (cuobjdump), failing if a bf16 (wgmma) instantiation (two per
+   head dim of ``HEAD_DIMS``, 80 included: without and with the lse store
+   of training) spills or lacks either, and
    each ``sched_step_kernel`` instantiation's registers, stack frame and
    spills, failing on a stack frame or a spill;
 2. reproduces the 10 cases of ``tests/golden_modes.json`` bitwise on the
@@ -94,11 +95,11 @@ In order, it
    twin per call, bitwise, at the model's own layer-0 routing and seven
    more shapes, and its time beside the twin's, one ``index_put_`` call's
    and its bound;
-9. after phase 10, prints the ``kernels`` JSON line (``sched_step``'s
+9. after phase 12, prints the ``kernels`` JSON line (``sched_step``'s
    launches are the sweep's and the tuner's, ``flash_attention``'s those
-   of phases 6, 8 and 11), the end-to-end rates, the ``serve_hybrid`` line
-   of phase 11, the tuner's summary, the card line and last the device
-   line;
+   of phases 6, 8, 11 and 12's two training runs), the end-to-end rates,
+   the ``serve_hybrid`` line of phase 11, the tuner's summary, the
+   ``train`` line of phase 12, the card line and last the device line;
 10. runs the eleventh slice's path, Table I by search, between phase 8
    and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
    ``cuda_fused``, launch counts zeroed before each part.  (a) Each of the
@@ -134,7 +135,37 @@ In order, it
    within 1e-3; pixtral's 49 GB of float32 weights at full depth); then
    flash at the three prefill shapes
    beside its twin, its bound and one ``scaled_dot_product_attention``
-   call (the same function at all three).
+   call (the same function at all three);
+12. runs the thirteenth slice's path, training, after phase 10 and before
+   the lines of 9, every earlier model freed first: (a) the flash
+   backward (``FlashAttention``: the kernel's forward with its lse output,
+   the reference's chunked ``_attn_bwd`` ported) against the twin's
+   ``autograd.Function`` on ``TRAIN_FLASH_CASES`` (gemma2_2b's training
+   shape in bf16 and float32 with a window of 4096 and one of 256 that
+   bites, repro_100m's, a ragged S = 1000, hubert's bidirectional Dh =
+   80): out within 2e-2 / 1e-4, lse within 1e-3 / 1e-5, dq, dk, dv within
+   3e-2 / 1e-4 of their largest magnitude, two calls bitwise; then at
+   gemma2's shape the forward with and without lse, forward + backward
+   beside the twin's, the backward alone and one
+   ``scaled_dot_product_attention`` forward + backward; (b) gemma2_2b
+   trained at full width (26 layers, d_model 2304, vocab 256000; bf16
+   weights and float32 AdamW state from seed 0) through
+   ``launch.train.run`` (what ``main`` runs) at batch 4 × 1024 for 6
+   steps, launch counts zeroed just before and read just after: exactly
+   2 × 26 flash launches a step (every layer's forward again in the
+   backward's recompute of its checkpointed group), no other kernel,
+   every loss and gradient norm finite; the peak memory, the warm step
+   seconds and tokens/s, and a traced step (flash forward, GEMMs, the
+   backward's attention, the CE, AdamW, the device-busy share); (c) the
+   float32 model at full depth, batch 2 × 1024: ``loss_fn`` and every
+   gradient through the kernels and through their twins
+   (``ops.set_impl("ref")``), the loss within 1e-4 and the gradient norm
+   within 1e-3 (relative), every leaf's error printed; (d) repro_100m
+   (float32, the FMA flash kernel) as the quick example runs it (60 steps
+   of 4 × 128, checkpoints every 20, a node failure at step 30): the loss
+   falls, one restart from step 20 or later, 2 × 12 flash launches a step
+   run; then 14 steps uninterrupted against 10, save, restore and 4 more,
+   the last losses within 1e-5.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -146,6 +177,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -470,12 +502,17 @@ def flash_build_report(lib, log: str) -> dict:
     import re
     import shutil
 
+    def label(m):
+        # kernel<Dh>, or kernel<Dh, lse> for the instantiation with the store
+        return (f"{m.group(1)}<{m.group(2)}"
+                f"{', lse' if m.group(3) == '1' else ''}>")
+
     found, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(flash_fwd_\w*?kernel)"
-                      r"I\w*?Li(\d+)E", line)
+                      r"I\w*?Li(\d+)ELb([01])E", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = label(m)
             found[name] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -493,9 +530,10 @@ def flash_build_report(lib, log: str) -> dict:
         dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, timeout=300).stdout
         for part in dump.split("Function : ")[1:]:
-            m = re.match(r"\w*?(flash_fwd_\w*?kernel)I\w*?Li(\d+)E", part)
+            m = re.match(r"\w*?(flash_fwd_\w*?kernel)I\w*?Li(\d+)ELb([01])E",
+                         part)
             if m:
-                sass[f"{m.group(1)}<{m.group(2)}>"] = {
+                sass[label(m)] = {
                     op: len(re.findall(rf"\b{op}\b", part))
                     for op in ("HGMMA", "UTMALDG")}
     for name, info in found.items():
@@ -512,7 +550,7 @@ def flash_build_report(lib, log: str) -> dict:
                   f"{name} has no HGMMA or UTMALDG: {sass.get(name)}")
     from repro_torch.kernels import flash_attention as fa
 
-    check(sum("wgmma" in n for n in found) == len(fa.HEAD_DIMS),
+    check(sum("wgmma" in n for n in found) == 2 * len(fa.HEAD_DIMS),
           f"ptxas reported {sorted(found)}")
     return dict(ptxas=found, sass=sass)
 
@@ -1826,6 +1864,398 @@ def tune_phase(torch, dev, reg):
     return launches, out
 
 
+#: phase 12: training.  (a) the flash backward, kernel (forward and lse)
+#: against twin: (label, B, H, KV, S, Dh, dtype, window, softcap, causal):
+#: gemma2_2b's training shape (a local layer's window of 4096 hides
+#: nothing at S = 1024; a window of 256 bites), repro_100m's, a ragged S
+#: in both types and hubert's bidirectional Dh = 80
+TRAIN_FLASH_CASES = (
+    ("gemma2_local_bf16", 4, 8, 4, 1024, 256, "bfloat16", 4096, 50.0, True),
+    ("gemma2_w256_bf16", 4, 8, 4, 1024, 256, "bfloat16", 256, 50.0, True),
+    ("gemma2_local_f32", 4, 8, 4, 1024, 256, "float32", 4096, 50.0, True),
+    ("gemma2_w256_f32", 4, 8, 4, 1024, 256, "float32", 256, 50.0, True),
+    ("repro_100m_f32", 4, 10, 5, 128, 64, "float32", 0, None, True),
+    ("ragged_bf16", 2, 4, 2, 1000, 128, "bfloat16", 0, None, True),
+    ("ragged_f32", 2, 4, 2, 1000, 64, "float32", 0, 30.0, True),
+    ("hubert_f32", 2, 16, 16, 512, 80, "float32", 0, None, False),
+)
+#: per output type: out (atol = rtol), lse (atol = rtol), and dq / dk / dv
+#: relative to each tensor's largest magnitude.  bf16: the kernel rounds P
+#: to bf16 before P V and its out is bf16, so the backward's Drow differs
+#: at 2^-8; float32: sums in another order
+TRAIN_FLASH_TOL = {"bfloat16": dict(out=2e-2, lse=1e-3, grad=3e-2),
+                   "float32": dict(out=1e-4, lse=1e-5, grad=1e-4)}
+#: (b) gemma2_2b at full width through the train driver: bf16 weights,
+#: float32 AdamW state, batch 4 x 1024, 6 steps, no checkpoints
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 6
+TRAIN_ARGV = ("--arch", "gemma2_2b", "--steps", str(TRAIN_STEPS),
+              "--global-batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+              "--seed", "0", "--log-every", "1")
+#: (c) the float32 model at full depth, kernels against twins: the loss
+#: relative to the twin's, and the global gradient norm
+TRAIN_F32_B = 2
+TRAIN_F32_LOSS_TOL, TRAIN_F32_GNORM_TOL = 1e-4, 1e-3
+#: (d) repro_100m through the train driver as the quick example runs it
+#: (a node failure at step 30, checkpoints every 20), then a resume
+QUICK_ARGV = ("--arch", "repro_100m", "--steps", "60", "--global-batch",
+              "4", "--seq", "128", "--ckpt-every", "20", "--fault-at", "30",
+              "--log-every", "10", "--seed", "0")
+RESUME_TOL = 1e-5
+#: the profiler ranges the port marks on the training path
+TRAIN_RANGES = ("flash_attention_backward", "cross_entropy",
+                "cross_entropy_backward", "adamw_update")
+GEMM_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def rel_err(got, want) -> float:
+    """Largest absolute difference over the largest magnitude of ``want``."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def train_flash_checks(torch, dev):
+    """(a): ``FlashAttention`` (the kernel's forward with lse, the ported
+    backward) against the twin's ``autograd.Function`` on
+    ``TRAIN_FLASH_CASES``; two calls bitwise; then at gemma2_2b's training
+    shape the forward with and without lse, forward + backward against
+    the twin's, the backward alone and one ``scaled_dot_product_attention``
+    forward + backward (a yardstick)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as fref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(b, h, kv, s, dh, dtype):
+        q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev
+                               ).to(dtype).requires_grad_(True)
+                   for n in (h, kv, kv))
+        dout = torch.randn((b, h, s, dh), generator=gen, device=dev
+                           ).to(dtype)
+        return q, k, v, dout
+
+    def fwd_bwd(fn, q, k, v, dout):
+        out = fn(q, k, v)
+        return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+
+    errs = {}
+    for label, b, h, kv, s, dh, dtype, window, softcap, causal in \
+            TRAIN_FLASH_CASES:
+        q, k, v, dout = inputs(b, h, kv, s, dh, getattr(torch, dtype))
+        tol = TRAIN_FLASH_TOL[dtype]
+
+        def kern(q, k, v):
+            return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
+
+        def twin(q, k, v):
+            return fref.flash_attention(q, k, v, causal, window, softcap)
+
+        got = fwd_bwd(kern, q, k, v, dout)
+        want = fwd_bwd(twin, q, k, v, dout)
+        with torch.no_grad():
+            lse = fa.launch_forward(q, k, v, causal, window, softcap, True)[1]
+            lse_want = fref._attn_fwd(q, k, v, causal, window, softcap,
+                                      1024, 1024)[1]
+        again = fwd_bwd(kern, q, k, v, dout)
+        torch.cuda.synchronize()
+        e = dict(out=float((got[0].float() - want[0].float()).abs().max()),
+                 lse=float((lse - lse_want).abs().max()),
+                 **{n: rel_err(g, w) for n, g, w in
+                    zip(("dq", "dk", "dv"), got[1:], want[1:])})
+        errs[label] = e
+        check(got[0].dtype == q.dtype and within(got[0], want[0], tol["out"]),
+              f"flash backward {label}: out max abs err {e['out']} beyond "
+              f"{tol['out']}")
+        check(within(lse, lse_want, tol["lse"]),
+              f"flash backward {label}: lse max abs err {e['lse']} beyond "
+              f"{tol['lse']}")
+        check(all(g.dtype == w.dtype for g, w in zip(got[1:], (q, k, v)))
+              and max(e[n] for n in ("dq", "dk", "dv")) <= tol["grad"],
+              f"flash backward {label}: gradients {e} beyond {tol['grad']} "
+              "of their largest magnitude")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash backward {label}: two calls differ")
+        print(f"  flash train {label:18s} B={b} H={h} KV={kv} S={s} Dh={dh} "
+              f"{dtype} causal={causal} window={window} softcap={softcap}: "
+              f"out {e['out']:.3g}, lse {e['lse']:.3g}, dq/dk/dv "
+              f"{e['dq']:.3g}/{e['dk']:.3g}/{e['dv']:.3g} of max (tol "
+              f"{tol}); two calls bitwise", flush=True)
+
+    # the time at gemma2_2b's training shape (bf16, a local layer)
+    b, h, kv, s, dh = TRAIN_B, 8, 4, TRAIN_S, 256
+    q, k, v, dout = inputs(b, h, kv, s, dh, torch.bfloat16)
+    window, softcap = 4096, 50.0
+    with torch.no_grad():
+        out, lse = fa.launch_forward(q, k, v, True, window, softcap, True)
+    timed = dict(
+        fwd_ms=cuda_time_ms(lambda i: fa.launch_forward(
+            q, k, v, True, window, softcap, False), 50, torch),
+        fwd_lse_ms=cuda_time_ms(lambda i: fa.launch_forward(
+            q, k, v, True, window, softcap, True), 50, torch),
+        fwd_bwd_ms=cuda_time_ms(lambda i: fwd_bwd(
+            lambda q, k, v: fa.flash_attention(
+                q, k, v, window=window, softcap=softcap), q, k, v, dout),
+            10, torch),
+        twin_fwd_bwd_ms=cuda_time_ms(lambda i: fwd_bwd(
+            lambda q, k, v: fref.flash_attention(q, k, v, True, window,
+                                                 softcap), q, k, v, dout),
+            10, torch),
+        bwd_ms=cuda_time_ms(lambda i: fref._attn_bwd(
+            q, k, v, out, lse, dout, True, window, softcap, 1024, 1024),
+            10, torch))
+    ke, ve = (t.detach().repeat_interleave(h // kv, dim=1).requires_grad_(True)
+              for t in (k, v))
+    timed["sdpa_fwd_bwd_ms"] = cuda_time_ms(lambda i: fwd_bwd(
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+        q, ke, ve, dout), 10, torch)
+    # the backward's products: s, dp, dq, dk and dv over every (query,
+    # key) pair of the full S x S chunk, in float32
+    bwd_flops = 5 * 2 * b * h * s * s * dh
+    timed["bwd_bound_ms"] = bwd_flops / PEAK_OPS_PER_S * 1e3
+    print(f"flash at gemma2_2b's training shape {b}x{h}/{kv}x{s}x{dh} bf16 "
+          f"(window {window}, softcap {softcap}): forward {timed['fwd_ms']:.4f}"
+          f" ms, with lse {timed['fwd_lse_ms']:.4f} ms; forward + backward "
+          f"{timed['fwd_bwd_ms']:.3f} ms (twin {timed['twin_fwd_bwd_ms']:.3f}"
+          f", scaled_dot_product_attention {timed['sdpa_fwd_bwd_ms']:.3f}, "
+          f"not the same function: no softcap); the backward alone "
+          f"{timed['bwd_ms']:.3f} ms ({bwd_flops / 1e9:.1f} GFLOP of float32"
+          f" products, {timed['bwd_bound_ms']:.3f} ms at 67 TFLOP/s)",
+          flush=True)
+    return dict(flash_train_errors=errs, flash_train_timed=timed)
+
+
+def train_trace_summary(torch, prof, wall_us) -> dict:
+    """A traced train step: device busy share, the flash forward's and the
+    GEMMs' kernel time, and the device time of the ranges the port marks
+    (``TRAIN_RANGES``: the backward's attention, the cross-entropy and its
+    backward, AdamW)."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages()
+            if e.device_type == cuda and e.key not in TRAIN_RANGES]
+    busy_us = sum(e.self_device_time_total for e in kern)
+
+    def kernel_us(keys):
+        return sum(e.self_device_time_total for e in kern
+                   if any(k in e.key.lower() for k in keys))
+
+    ranges = {n: 0.0 for n in TRAIN_RANGES}
+    for e in prof.events():
+        if e.device_type == cpu and e.name in ranges:
+            ranges[e.name] += e.device_time_total
+    return dict(
+        wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / wall_us,
+        launches=sum(e.count for e in kern),
+        flash_fwd_ms=kernel_us(tuple(k.lower() for k in FLASH_KERNEL_KEYS))
+        / 1e3,
+        gemm_ms=kernel_us(GEMM_KEYS) / 1e3,
+        **{f"{n}_ms": (us / 1e3 if us else None) for n, us in ranges.items()},
+        top=[(e.key[:70], e.self_device_time_total, e.count)
+             for e in sorted(kern, key=lambda e: -e.self_device_time_total)
+             [:8]])
+
+
+def train_phase(torch, dev, reg):
+    """Phase 12: the flash backward against its twin; gemma2_2b trained at
+    full width through ``launch.train``; the float32 model's gradients,
+    kernels against twins; repro_100m through the quick example's run
+    (fault, recovery) and a resume.  Returns (the flash launches of the
+    two main-path runs, report)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init, global_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["free_gib_at_start"] = torch.cuda.mem_get_info()[0] / 2**30
+
+    # (a) the flash backward, kernel against twin
+    out.update(train_flash_checks(torch, dev))
+    torch.cuda.empty_cache()
+
+    # (b) gemma2_2b at full width through the train driver, launch counts
+    # zeroed just before and read just after
+    cfg = cb.get("gemma2_2b")
+    reg.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.run(list(TRAIN_ARGV))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = reg.launch_counts()
+    # every layer's forward runs once in the step's forward and once more
+    # in the backward, which recomputes each checkpointed group
+    # (_remat_group(13) = 1: every pattern step is a group)
+    want = 2 * cfg.n_layers * TRAIN_STEPS
+    check(launches == dict(dict.fromkeys(reg.KERNELS, 0),
+                           flash_attention=want),
+          f"gemma2_2b training launched {launches}; expected {want} "
+          "flash_attention launches (2 a layer a step) and nothing else")
+    check(len(run.losses) == TRAIN_STEPS and all(
+        math.isfinite(x) for x in run.losses + run.grad_norms),
+        f"gemma2_2b losses {run.losses}, grad norms {run.grad_norms}")
+    step_s = sum(run.step_s[1:]) / len(run.step_s[1:])
+    out["gemma2_2b"] = dict(
+        wall_s=wall, flash_launches=launches["flash_attention"],
+        flash_launches_per_step=launches["flash_attention"] / TRAIN_STEPS,
+        losses=run.losses, grad_norms=run.grad_norms, step_s=run.step_s,
+        warm_step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    g = out["gemma2_2b"]
+    print(f"train: gemma2_2b {TRAIN_B}x{TRAIN_S}, {TRAIN_STEPS} steps "
+          f"through train.run: {g['flash_launches']} flash launches "
+          f"({g['flash_launches_per_step']:.0f} a step), losses "
+          f"{[round(x, 4) for x in run.losses]}, grad norms "
+          f"{[round(x, 3) for x in run.grad_norms]}; warm step "
+          f"{step_s:.4f} s ({g['tokens_per_s']:.0f} tokens/s; first "
+          f"{run.step_s[0]:.3f} s); peak {g['peak_gib']:.2f} GiB", flush=True)
+    # a traced step on the trained state
+    train_step = steps.make_train_step(cfg, dev, total_steps=TRAIN_STEPS)
+    batch = batch_for(cfg, TRAIN_STEPS, TRAIN_B, TRAIN_S)
+    params, opt = run.params, run.opt
+    del run
+    params, opt, _ = train_step(params, opt, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, metrics = train_step(params, opt, batch,
+                                          TRAIN_STEPS + 1)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    g["traced"] = t = train_trace_summary(torch, prof, wall_us)
+    print(f"train (traced step): device busy {t['device_busy_ms']:.1f} ms of "
+          f"{t['wall_ms']:.1f} ms wall ({100 * t['device_busy_share']:.1f} "
+          f"%), {t['launches']} kernel launches; flash forward "
+          f"{t['flash_fwd_ms']:.2f} ms, GEMMs {t['gemm_ms']:.1f} ms, the "
+          f"backward's attention {t['flash_attention_backward_ms']} ms, CE "
+          f"{t['cross_entropy_ms']} + {t['cross_entropy_backward_ms']} ms, "
+          f"AdamW {t['adamw_update_ms']} ms; top: {t['top'][:5]}",
+          flush=True)
+    del params, opt, metrics, prof, train_step
+    torch.cuda.empty_cache()
+
+    # (c) the float32 model at full depth: loss and gradients through the
+    # kernels and through their twins
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params = tfm.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), dev
+    ).requires_grad_(True)
+    leaves = tfm.tree_leaves(params)
+    names = ["/".join(p) for p, _ in tfm.tree_items(params)]
+    batch = {"tokens": torch.as_tensor(
+        batch_for(cfg, 0, TRAIN_F32_B, TRAIN_S)["tokens"], device=dev)}
+
+    def loss_and_grads():
+        loss, _ = tfm.loss_fn(params, cfg32, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    k_loss, k_grads = loss_and_grads()
+    ops.set_impl("ref")
+    try:
+        r_loss, r_grads = loss_and_grads()
+    finally:
+        ops.set_impl(None)
+    k_gn, r_gn = float(global_norm(k_grads)), float(global_norm(r_grads))
+    leaf_errs = {n: rel_err(a, b)
+                 for n, a, b in zip(names, k_grads, r_grads)}
+    loss_err = abs(float(k_loss) - float(r_loss)) / abs(float(r_loss))
+    gn_err = abs(k_gn - r_gn) / r_gn
+    out["f32"] = dict(loss=float(k_loss), twin_loss=float(r_loss),
+                      loss_rel_err=loss_err, grad_norm=k_gn,
+                      twin_grad_norm=r_gn, grad_norm_rel_err=gn_err,
+                      leaf_rel_errs=leaf_errs)
+    check(math.isfinite(float(k_loss)) and loss_err <= TRAIN_F32_LOSS_TOL
+          and gn_err <= TRAIN_F32_GNORM_TOL,
+          f"float32 gemma2_2b: loss {float(k_loss)} vs {float(r_loss)}, "
+          f"grad norm {k_gn} vs {r_gn}")
+    print(f"train (float32, {TRAIN_F32_B}x{TRAIN_S}, full depth): loss "
+          f"{float(k_loss):.6f} (twin {float(r_loss):.6f}, rel err "
+          f"{loss_err:.3g} <= {TRAIN_F32_LOSS_TOL}); grad norm {k_gn:.6f} "
+          f"(twin {r_gn:.6f}, rel err {gn_err:.3g} <= {TRAIN_F32_GNORM_TOL});"
+          f" every leaf, max abs err over max |twin|: "
+          + ", ".join(f"{n} {e:.2g}" for n, e in leaf_errs.items()),
+          flush=True)
+    del params, leaves, k_grads, r_grads
+    torch.cuda.empty_cache()
+
+    # (d) repro_100m as the quick example runs it, then a resume
+    cfg100 = cb.get("repro_100m")
+    with tempfile.TemporaryDirectory() as d:
+        reg.reset_launches()
+        t0 = time.perf_counter()
+        run = train.run(list(QUICK_ARGV) + ["--ckpt-dir", d])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        quick_launches = reg.launch_counts()["flash_attention"]
+    first, last5 = run.losses[0], sum(run.losses[-5:]) / 5
+    # 12 layers in 4 checkpointed groups of 3: each forward twice a step
+    want = 2 * cfg100.n_layers * len(run.losses)
+    check(quick_launches == want,
+          f"repro_100m: {quick_launches} flash launches, expected {want}")
+    check(last5 < first and run.restarts == 1
+          and (run.recovered_from or 0) >= 20,
+          f"repro_100m: loss {first} -> {last5}, restarts {run.restarts}, "
+          f"recovered from {run.recovered_from}")
+    recovered = run.recovered_from
+    del run
+
+    def trained(n, start=0, state=None):
+        step = steps.make_train_step(cfg100, dev, total_steps=14)
+        if state is None:
+            p = tfm.init_params(
+                cfg100, torch.Generator(device=dev).manual_seed(0), dev)
+            state = (p, adamw_init(p))
+        p, o = state
+        for i in range(start, n):
+            p, o, m = step(p, o, batch_for(cfg100, i, 4, 128), i)
+        return (p, o), float(m["loss"])
+
+    _, l_full = trained(14)
+    with tempfile.TemporaryDirectory() as d:
+        state, _ = trained(10)
+        tree = {"p": state[0], "o": state[1]}
+        ckpt.save(d, 10, tree)
+        restored, s = ckpt.restore(d, tree)
+        del state, tree
+        _, l_resumed = trained(14, 10, (restored["p"], restored["o"]))
+    resume_err = abs(l_resumed - l_full) / abs(l_full)
+    check(s == 10 and resume_err <= RESUME_TOL,
+          f"resume: loss {l_resumed} vs uninterrupted {l_full}")
+    out["repro_100m"] = dict(wall_s=wall, flash_launches=quick_launches,
+                             first_loss=first, last5_loss=last5,
+                             restarts=1, recovered_from=recovered,
+                             resume_loss=l_resumed,
+                             uninterrupted_loss=l_full,
+                             resume_rel_err=resume_err)
+    print(f"train: repro_100m 4x128, 60 steps with a fault at 30 through "
+          f"train.run ({wall:.1f} s): loss {first:.4f} -> {last5:.4f} (mean "
+          f"of the last 5), 1 restart from step {recovered}, "
+          f"{quick_launches} flash launches; resume after 10 steps: loss {l_resumed:.6f} against "
+          f"{l_full:.6f} uninterrupted (rel err {resume_err:.3g} <= "
+          f"{RESUME_TOL})", flush=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"training phase took {out['phase_s']:.1f} s", flush=True)
+    return launches["flash_attention"] + quick_launches, out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.exists():
         return fail("run from the repository root (src/repro_torch and "
@@ -2392,6 +2822,11 @@ def run(torch) -> int:
     for k in kernels:
         if k["name"] == "sched_step":
             k["launches"] += tune_launches
+
+    # 12. this slice's path: training (gemma2_2b at full width, repro_100m
+    # through the quick example's run), the flash backward against its twin
+    train_launches, report["train"] = train_phase(torch, dev, reg)
+    flash_row["launches"] += train_launches
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -2434,6 +2869,19 @@ def run(torch) -> int:
     print(json.dumps({"tune": {
         part: {k: v for k, v in report["tune"][part].items() if k != "rows"}
         for part in ("smoke", "bench", "cache")}}))
+    tr = report["train"]
+    print(json.dumps({"train": dict(
+        gemma2_2b={k: tr["gemma2_2b"][k] for k in (
+            "warm_step_s", "tokens_per_s", "peak_gib",
+            "flash_launches_per_step", "losses", "grad_norms")},
+        traced_step={k: v for k, v in tr["gemma2_2b"]["traced"].items()
+                     if k != "top"},
+        f32={k: v for k, v in tr["f32"].items() if k != "leaf_rel_errs"},
+        repro_100m=tr["repro_100m"],
+        flash_train_timed=tr["flash_train_timed"],
+        flash_train_max_errors={
+            k: max(e[k] for e in tr["flash_train_errors"].values())
+            for k in ("out", "lse", "dq", "dk", "dv")})}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

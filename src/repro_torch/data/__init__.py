@@ -1,1 +1,1 @@
-"""Deterministic synthetic data (numpy)."""
+"""Deterministic synthetic data (numpy) and its prefetching pipeline."""

@@ -16,9 +16,15 @@
 // division, as in the reference), the causal and window masks to -1e30
 // (a finite value, as in the reference), the online max / sum /
 // accumulator in float32, and acc / max(l, 1e-30) cast to the output
-// type.  q is (B, H, S, Dh); k, v are (B, KV, S, Dh); query head h reads
-// KV head h / (H / KV) in place, which equals the TPU wrapper's jnp.repeat
-// of k and v without materialising it.
+// type.  Where the caller passes an lse pointer (training: the backward
+// needs it), each kernel also writes the float32 (B, H, S) row statistic
+// m + log(max(l, 1e-30)) of the reference's _attn_fwd, in natural-log
+// units over the scaled, softcapped and masked scores; serving passes
+// null and runs the instantiations without the store (the store is a
+// template argument: two instantiations of each kernel a head dim).  q is
+// (B, H, S, Dh); k, v are (B, KV, S, Dh); query head h reads KV head
+// h / (H / KV) in place, which equals the TPU wrapper's jnp.repeat of k
+// and v without materialising it.
 // Any S: each kernel masks its own ragged edge.  Key tiles that lie wholly
 // above the diagonal or wholly outside the window are skipped.  Skipping
 // such a tile changes nothing: with the finite -1e30, a row's contribution
@@ -123,12 +129,13 @@ constexpr size_t smem_bytes() {
 // score columns tx + 16 j (j < 4) of each key tile and accumulator columns
 // tx + 16 c (c < Dh / 16).  The 16 threads of a row group are 16
 // consecutive lanes of one warp, so row max and row sum are 4 xor shuffles.
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int H, int KV, int S, int causal, int window,
-                     int has_softcap, float softcap, float scale) {
+                     float* __restrict__ lse, int H, int KV, int S,
+                     int causal, int window, int has_softcap, float softcap,
+                     float scale) {
   static_assert(DH % 16 == 0, "a thread's columns are tx + 16 c");
   constexpr int QS = DH + 1;  // padded row stride of Q and K (floats)
   constexpr int PS = BK + 1;  // padded row stride of P
@@ -264,22 +271,26 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       ob[size_t(qp) * DH + tx + 16 * c] = acc[i][c] / l_safe;
+    // m and l are the same in the 16 threads of the row group
+    if constexpr (LSE) {
+      if (tx == 0) lse[(size_t(b) * H + h) * S + qp] = m[i] + logf(l_safe);
+    }
   }
 }
 
-template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KV, int S, int causal, int window, int has_softcap,
-           float softcap, float scale, cudaStream_t stream) {
+template <int DH, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int KV, int S, int causal, int window,
+           int has_softcap, float softcap, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DH, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<DH><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<DH, LSE><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, KV, S,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, KV, S,
       causal, window, has_softcap, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -522,13 +533,13 @@ __device__ __forceinline__ void mma_rs(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-    int H, int KV, int S, int causal, int window, int has_softcap,
-    float softcap, float scale) {
+    float* __restrict__ lse, int H, int KV, int S, int causal, int window,
+    int has_softcap, float softcap, float scale) {
   using T = Tile<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -749,6 +760,11 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
       const float l_safe = fmaxf(lt, 1e-30f), r_l = 1.f / l_safe;
       const int qp = row0 + 8 * i2;
       if (qp >= S) continue;
+      // m[i2] is the row's maximum in each of the row's four lanes
+      if constexpr (LSE) {
+        if (t % 4 == 0)
+          lse[(size_t(b) * H + h) * S + qp] = m[i2] + logf(l_safe);
+      }
       __nv_bfloat16* orow = out + ((size_t(b) * H + h) * S + qp) * DH;
 #pragma unroll
       for (int c = 0; c < T::NCB; ++c)
@@ -812,10 +828,10 @@ bool encode(CUtensorMap* map, const void* base, int dh, int s, int n,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KV, int S, int causal, int window, int has_softcap,
-           float softcap, float scale, cudaStream_t stream) {
+template <int DH, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int KV, int S, int causal, int window,
+           int has_softcap, float softcap, float scale, cudaStream_t stream) {
   using T = Tile<DH>;
   CUtensorMap mq, mk, mv;
   if (!encode(&mq, q, DH, S, B * H, T::COLS, BQ, T::ROWB) ||
@@ -823,13 +839,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       !encode(&mv, v, DH, S, B * KV, T::COLS, BK, T::ROWB))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      flash_fwd_wgmma_kernel<DH, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
-  flash_fwd_wgmma_kernel<DH><<<grid, NT, T::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, KV, S, causal, window,
-      has_softcap, softcap, scale);
+  flash_fwd_wgmma_kernel<DH, LSE><<<grid, NT, T::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, H, KV, S, causal,
+      window, has_softcap, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -855,23 +871,33 @@ int by_head_dim(int Dh, F&& f) {
 extern "C" {
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel); q,
-// k, v and out alike.
-int fa_forward(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int KV, int S, int Dh, int dtype, int causal,
-               int window, int has_softcap, float softcap, float scale,
-               void* stream) {
+// k, v and out alike.  lse: a float32 (B, H, S) buffer for the row
+// statistic, or null.
+int fa_forward(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int H, int KV, int S, int Dh, int dtype,
+               int causal, int window, int has_softcap, float softcap,
+               float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  // the lse store is a template argument, so the serving instantiations
+  // (null) are the kernels without it
   if (dtype == 0)
     return by_head_dim(Dh, [&](auto d) {
-      return launch<decltype(d)::value>(q, k, v, out, B, H, KV, S, causal,
-                                        window, has_softcap, softcap, scale,
-                                        st);
+      constexpr int D = decltype(d)::value;
+      if (l != nullptr)
+        return launch<D, true>(q, k, v, out, l, B, H, KV, S, causal, window,
+                               has_softcap, softcap, scale, st);
+      return launch<D, false>(q, k, v, out, l, B, H, KV, S, causal, window,
+                              has_softcap, softcap, scale, st);
     });
   if (dtype == 1)
     return by_head_dim(Dh, [&](auto d) {
-      return wg::launch<decltype(d)::value>(q, k, v, out, B, H, KV, S,
-                                            causal, window, has_softcap,
-                                            softcap, scale, st);
+      constexpr int D = decltype(d)::value;
+      if (l != nullptr)
+        return wg::launch<D, true>(q, k, v, out, l, B, H, KV, S, causal,
+                                   window, has_softcap, softcap, scale, st);
+      return wg::launch<D, false>(q, k, v, out, l, B, H, KV, S, causal,
+                                  window, has_softcap, softcap, scale, st);
     });
   return static_cast<int>(cudaErrorInvalidValue);
 }

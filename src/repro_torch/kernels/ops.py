@@ -18,9 +18,19 @@ The JAX ``rwkv6`` and ``ssm_scan`` read a chunk from the environment
 result (the chunked forms run the same sequential steps), so here neither
 takes one: ``rwkv6``'s twin walks the steps one by one
 (``ref.rwkv6_naive``), and so does ``ssm_scan`` (``ref.ssm_scan``).
+
+Gradients: ``flash_attention`` is differentiable on both paths (the
+kernel's forward with the reference's chunked backward on the card, the
+twin's ``autograd.Function`` on the CPU).  The RWKV6 and MoE-dispatch
+kernels have no backward in either package, so on the card ``rwkv6`` and
+``moe_dispatch`` raise ``NotImplementedError`` where grad is enabled and an
+input requires grad, instead of cutting the graph; their plain twins stay
+differentiable.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_dispatch as md
@@ -41,6 +51,16 @@ def _plain(op: str, x, name: str) -> bool:
         raise RuntimeError(f"set_impl('cuda') needs CUDA tensors; {name} is "
                            f"on {x.device}")
     return _FORCE[op] == "ref"
+
+
+def _no_backward(op: str, *tensors) -> None:
+    """Refuse a kernel launch whose output autograd would have to go
+    through: the kernel has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{op} on the card has no backward: its kernel's gradient waits "
+            "for ROADMAP item 10b (train on the CPU, or under "
+            "set_impl('ref'))")
 
 
 def set_impl(impl, *ops) -> None:
@@ -73,6 +93,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
 def rwkv6(r, k, v, w, u, state):
     if _plain("rwkv6", r, "r"):
         return rk.plain(r, k, v, w, u, state)
+    if r.is_cuda:
+        _no_backward("rwkv6", r, k, v, w, u, state)
     return rk.rwkv6(r, k, v, w, u, state)
 
 
@@ -91,6 +113,8 @@ def ssm_decode(x, dt, A, Bm, Cm, D, state):
 def moe_dispatch(x, expert, pos, *, n_experts: int, capacity: int):
     if _plain("moe_dispatch", x, "x"):
         return ref.moe_dispatch(x, expert, pos, n_experts, capacity)
+    if x.is_cuda:
+        _no_backward("moe_dispatch", x)
     return md.moe_dispatch(x, expert, pos, n_experts=n_experts,
                            capacity=capacity)
 

@@ -1,5 +1,5 @@
 """Plain PyTorch references (oracles) for the model stack's kernels: the
-port of the JAX package's ``kernels/ref.py`` but the attention backward.
+port of the JAX package's ``kernels/ref.py``.
 
 ``flash_attention`` is the plain twin of the hand-written CUDA kernel of
 :mod:`repro_torch.kernels.flash_attention`: the CPU path, and what the
@@ -11,8 +11,15 @@ when it is longer than one), its finite ``NEG_INF`` mask value and its
 Layout: q ``(B, H, S, Dh)``; k, v ``(B, KV, S, Dh)``; GQA via
 ``H % KV == 0`` (query head ``h`` reads KV head ``h // (H // KV)``).
 
-The chunked backward (the reference's ``_attn_bwd``) belongs to training
-and is not ported yet.
+Its gradient is the reference's custom VJP: :class:`FlashAttention`
+saves ``(q, k, v, out, lse)`` from ``_attn_fwd`` and its backward is the
+chunked ``_attn_bwd`` (``_bwd_q_iter`` per query chunk, the reference's
+loop nest, ``Drow = rowsum(dout * out)`` in float32, dq / dk / dv cast to
+the input types).  ``flash_attention`` goes through it where grad is
+enabled and an input requires grad.  The kernel's own backward on the card
+(:class:`repro_torch.kernels.flash_attention.FlashAttention`) is this
+``_attn_bwd`` too, fed the kernel's out and lse: neither package has a
+backward kernel.
 
 ``rwkv6_chunked`` is the plain twin of the RWKV6-recurrence kernel of
 :mod:`repro_torch.kernels.rwkv6_scan`; ``rwkv6_naive`` is the step-by-step
@@ -45,6 +52,13 @@ def _softcap(s, cap: Optional[float]):
     if cap is None:
         return s
     return cap * torch.tanh(s / cap)
+
+
+def _softcap_grad(s_capped, cap: Optional[float]):
+    """d softcap / d s, expressed from the *capped* value."""
+    if cap is None:
+        return torch.ones_like(s_capped)
+    return 1.0 - (s_capped / cap) ** 2
 
 
 def _block_mask(qpos, kpos, causal: bool, window: int):
@@ -102,9 +116,100 @@ def _attn_fwd(q, k, v, causal, window, softcap, q_chunk, kv_chunk):
     return out, lse
 
 
+def _attn_bwd(q, k, v, out, lse, dout, causal, window, softcap,
+              q_chunk, kv_chunk):
+    """The reference's chunked backward: for each key chunk ``j`` (its
+    ``lax.scan``) a loop over the query chunks (its ``fori_loop``), dq
+    accumulated in float32 across key chunks.  Returns (dq, dk, dv) in the
+    types of q, k and v."""
+    B, H, S, Dh = q.shape
+    KV = k.shape[1]
+    rep = H // KV
+    scale = Dh ** -0.5
+    Cq = min(q_chunk, S)
+    Ck = min(kv_chunk, S)
+    nq, nk = S // Cq, S // Ck
+    dev = q.device
+
+    qf = (q.float() * scale).reshape(B, KV, rep, S, Dh)
+    kf = k.float()
+    vf = v.float()
+    dof = dout.float().reshape(B, KV, rep, S, Dh)
+    lsef = lse.reshape(B, KV, rep, S)
+    # D_i = rowsum(dout * out)
+    Drow = torch.sum(dof * out.float().reshape(B, KV, rep, S, Dh), dim=-1)
+
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for j in range(nk):
+        k_blk = kf[:, :, j * Ck:(j + 1) * Ck]
+        v_blk = vf[:, :, j * Ck:(j + 1) * Ck]
+        kpos = j * Ck + torch.arange(Ck, device=dev)
+        dk_j = torch.zeros((B, KV, Ck, Dh), dtype=torch.float32, device=dev)
+        dv_j = torch.zeros((B, KV, Ck, Dh), dtype=torch.float32, device=dev)
+        for i in range(nq):
+            dk_j, dv_j = _bwd_q_iter(i, dk_j, dv_j, dq, qf, dof, lsef, Drow,
+                                     k_blk, v_blk, kpos, Cq, causal, window,
+                                     softcap, scale)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    dk = torch.cat(dks, dim=2)
+    dv = torch.cat(dvs, dim=2)
+    return (dq.reshape(B, H, S, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_q_iter(i, dk_j, dv_j, dq, qf, dof, lsef, Drow, k_blk, v_blk, kpos,
+                Cq, causal, window, softcap, scale):
+    """Query chunk ``i`` against one key chunk: adds its share to ``dq`` in
+    place and returns the key chunk's (dk_j, dv_j)."""
+    part = slice(i * Cq, (i + 1) * Cq)
+    q_blk = qf[:, :, :, part]
+    do_blk = dof[:, :, :, part]
+    lse_blk = lsef[:, :, :, part]
+    dr_blk = Drow[:, :, :, part]
+    qpos = i * Cq + torch.arange(Cq, device=qf.device)
+    s_raw = torch.einsum("bgrqd,bgkd->bgrqk", q_blk, k_blk)
+    s = _softcap(s_raw, softcap)
+    mask = _block_mask(qpos, kpos, causal, window)
+    s_m = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s_m - lse_blk[..., None])
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", do_blk, v_blk)
+    ds = p * (dp - dr_blk[..., None])
+    ds = ds * _softcap_grad(torch.where(mask, s, 0.0), softcap)
+    dq_blk = torch.einsum("bgrqk,bgkd->bgrqd", ds, k_blk) * scale
+    dk_j = dk_j + torch.einsum("bgrqk,bgrqd->bgkd", ds, q_blk)
+    dv_j = dv_j + torch.einsum("bgrqk,bgrqd->bgkd", p, do_blk)
+    dq[:, :, :, part] += dq_blk
+    return dk_j, dv_j
+
+
+class FlashAttention(torch.autograd.Function):
+    """``_attn_fwd`` saving ``(q, k, v, out, lse)``, and ``_attn_bwd``: the
+    reference's ``_flash_fwd_rule`` and ``_flash_bwd_rule``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_chunk, kv_chunk):
+        out, lse = _attn_fwd(q, k, v, causal, window, softcap, q_chunk,
+                             kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, softcap, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _attn_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, causal=True, window=0, softcap=None,
                     q_chunk=1024, kv_chunk=1024):
-    """Chunked attention with online softmax; O(S * chunk) live memory."""
+    """Chunked attention with online softmax; O(S * chunk) live memory.
+    Differentiable in q, k and v (:class:`FlashAttention`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, softcap,
+                                    q_chunk, kv_chunk)
     out, _ = _attn_fwd(q, k, v, causal, window, softcap, q_chunk, kv_chunk)
     return out
 

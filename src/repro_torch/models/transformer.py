@@ -1,12 +1,18 @@
 """The decoder / encoder stack: the port of the JAX package's
-``models/transformer.py`` on one device (its inference paths).
+``models/transformer.py`` on one device (its inference and training
+paths).
 
 Layers are grouped into a repeating *pattern* of P block kinds (gemma2:
 (local, full); llama4: (dense, moe); hymba: (full, local x7)); parameters
 are stacked per pattern position with a leading dim of ``n_layers / P``,
 as in the JAX package, and the stack is applied by a Python loop over that
-dim (the JAX package's ``lax.scan``).  There is no rematerialisation: that
-is for training.
+dim (the JAX package's ``lax.scan``).  Training rematerialises as the JAX
+package does: with ``cfg.remat``, grad enabled and no cache collected,
+each group of ``_remat_group(cfg, n)`` pattern steps runs under
+``torch.utils.checkpoint`` (non-reentrant), so only a group's input is kept
+and its activations are recomputed in the backward (gemma2_2b: 13 groups
+of one pattern step, so each attention layer's forward runs twice a
+step).
 
 Parameters are a :class:`ParamTree`, an ``nn.Module`` whose parameters map
 one to one onto the JAX parameter tree's leaves (``embed``,
@@ -19,6 +25,7 @@ Public API:
   init_params(cfg, generator, device)       -> ParamTree
   params_from_numpy(tree, cfg, device)      -> ParamTree
   forward(params, cfg, batch, rng)          -> (logits, aux)
+  loss_fn(params, cfg, batch, rng)          -> (loss, metrics)
   prefill(params, cfg, batch, max_len, rng) -> (last logits, DecodeState)
   init_decode_state(cfg, B, max_len, dev)   -> DecodeState (zeros)
   decode_step(params, cfg, state, tokens, rng) -> (logits, DecodeState)
@@ -33,7 +40,14 @@ inputs: ``audio_frames`` projects precomputed frames and has no token
 embedding (hubert, encoder-only: ``forward`` only), ``vit_patches``
 prepends projected patches to the embedded text (pixtral), so a prompt
 of S text tokens fills ``frontend_len + S`` cache slots.  ``loss_fn``
-waits for training.
+is the mean next-token cross-entropy (encoder-only: against
+``targets``; vision: over the text positions) plus 0.01 times the MoE
+load-balance loss, through :class:`_ce_mean`, the reference's custom VJP:
+no ``(N, V)`` float32 gradient is kept.  RWKV6, MoE and hymba training
+need backwards the port does not have yet (ROADMAP item 10b): the RWKV6
+and MoE-dispatch kernels refuse under grad on the card (see
+:mod:`repro_torch.kernels.ops`), and the plain SSM scan writes its steps
+in place.
 
 The routing key ``rng`` is a pair of uint32 words
 (:mod:`repro_torch.core.prng`), ``PRNGKey(0)`` by default as in the JAX
@@ -51,6 +65,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
@@ -84,7 +99,9 @@ class ParamTree(nn.Module):
     """A nested mapping of tensors as a module: a dict becomes a
     ``ParamTree``, a tuple an ``nn.ModuleList``, a tensor a frozen
     ``nn.Parameter``; ``named_parameters()`` paths are the JAX tree's key
-    paths (``streams.0.attn.wq``).  ``tree["key"]`` reads a child."""
+    paths (``streams.0.attn.wq``).  ``tree["key"]`` reads a child.  Serving
+    keeps the parameters frozen; ``requires_grad_()`` (``nn.Module``'s)
+    makes them trainable, as the train step does."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -105,10 +122,61 @@ class ParamTree(nn.Module):
         return list(self._parameters) + list(self._modules)
 
 
+def tree_items(tree, path: tuple = ()):
+    """``(key path, leaf)`` pairs of a tree in the JAX package's leaf
+    order: mapping keys (a dict's, a ``ParamTree``'s) sorted, a
+    NamedTuple's fields in order, a sequence (tuple, list,
+    ``nn.ModuleList``) by index (its path key the index as a string)."""
+    if isinstance(tree, (dict, ParamTree)):
+        for k in sorted(tree.keys()):
+            yield from tree_items(tree[k], path + (k,))
+    elif hasattr(tree, "_fields"):
+        for k in tree._fields:
+            yield from tree_items(getattr(tree, k), path + (k,))
+    elif isinstance(tree, (tuple, list, nn.ModuleList)):
+        for i, x in enumerate(tree):
+            yield from tree_items(x, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in the JAX package's order (see
+    :func:`tree_items`)."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_map(fn, params: ParamTree) -> ParamTree:
+    """A ``ParamTree`` of the same structure holding ``fn(leaf)`` for each
+    parameter."""
+    def plain(node):
+        if isinstance(node, ParamTree):
+            return {k: plain(node[k]) for k in node.keys()}
+        if isinstance(node, nn.ModuleList):
+            return tuple(plain(x) for x in node)
+        return fn(node)
+
+    return ParamTree(plain(params))
+
+
 def _index(tree, i: int) -> dict:
     """Layer ``i`` of a stacked tree, as a dict of views."""
     return {k: _index(tree[k], i) if isinstance(tree[k], (ParamTree, dict))
             else tree[k][i] for k in tree.keys()}
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, as dicts of views: each leaf is
+    unbound once, so its gradient is one stack of the layers' gradients
+    (indexing layer by layer would add a zero-padded stacked-size gradient
+    per layer)."""
+    out = [{} for _ in range(n)]
+    for k in tree.keys():
+        parts = (_unstack(tree[k], n) if isinstance(tree[k], (ParamTree, dict))
+                 else tree[k].unbind(0))
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
 
 
 def _block_init(cfg: ModelConfig, kind: BlockKind, n: int, generator,
@@ -214,6 +282,19 @@ def _zero_aux(device):
             for k in AUX_KEYS}
 
 
+def _remat_group(cfg: ModelConfig, n: int) -> int:
+    """Pattern steps per checkpointed group: ``cfg.remat_group`` where it
+    divides ``n``, else the largest divisor of ``n`` up to ``isqrt(n)``
+    (1 for a prime ``n``)."""
+    if cfg.remat_group and n % cfg.remat_group == 0:
+        return cfg.remat_group
+    best = 1
+    for g in range(2, int(math.isqrt(n)) + 1):
+        if n % g == 0:
+            best = g
+    return best
+
+
 def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups):
     """Prefill block.  Returns (x, cache_src, aux): what decode needs (k/v
     and, with SSM heads, the SSM state and conv carry; or the RWKV state
@@ -316,23 +397,101 @@ def forward(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
     keys = _layer_keys(rng, cfg)
     x = _embed_inputs(params, cfg, batch)
     n = cfg.n_layers // len(kinds)
-    aux = _zero_aux(x.device)
+    layers_p = [_unstack(params["streams"][pidx], n)
+                for pidx in range(len(kinds))]
     srcs = [[] for _ in kinds]
-    for idx in range(n):
-        for pidx, kind in enumerate(kinds):
-            x, src, layer_aux = _apply_block(
-                _index(params["streams"][pidx], idx), x, cfg, kind,
-                keys[idx][pidx], ep_groups)
-            if layer_aux is not None:
-                aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
-            if collect_cache:
-                srcs[pidx].append(src)
+
+    def steps(idxs, x, *aux_vals):
+        """Pattern steps ``idxs`` from ``x``, the aux sums carried along
+        as the JAX package's scan carries them."""
+        aux = dict(zip(AUX_KEYS, aux_vals))
+        for idx in idxs:
+            for pidx, kind in enumerate(kinds):
+                x, src, layer_aux = _apply_block(
+                    layers_p[pidx][idx], x, cfg, kind, keys[idx][pidx],
+                    ep_groups)
+                if layer_aux is not None:
+                    aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
+                if collect_cache:
+                    srcs[pidx].append(src)
+        return (x, *(aux[k] for k in AUX_KEYS))
+
+    carry = (x, *_zero_aux(x.device).values())
+    if cfg.remat and not collect_cache and torch.is_grad_enabled():
+        g = _remat_group(cfg, n)
+        for start in range(0, n, g):
+            carry = checkpoint(steps, range(start, start + g), *carry,
+                               use_reentrant=False)
+    else:
+        carry = steps(range(n), *carry)
+    x, aux = carry[0], dict(zip(AUX_KEYS, carry[1:]))
     logits = _logits(params, cfg, x)
     if collect_cache:
         return logits, aux, tuple(
             {k: torch.stack([s[k] for s in per]) for k in per[0]}
             for per in srcs)
     return logits, aux
+
+
+class _ce_mean(torch.autograd.Function):
+    """Mean cross-entropy over rows.  flat: (N, V) logits (any dtype), idx:
+    (N,) int targets.  The reference's custom VJP, for its memory
+    behaviour: the forward saves only (logits [already live], lse (N,)
+    float32), and the backward rebuilds the softmax from lse *in the
+    logits' dtype*, so no (N, V) float32 gradient is kept."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        with torch.profiler.record_function("cross_entropy"):
+            N = flat.shape[0]
+            rows = torch.arange(N, device=flat.device)
+            idx = idx.long()
+            m = torch.amax(flat, dim=-1)
+            s = (flat - m[:, None]).float().exp_().sum(dim=-1)
+            lse = m.float() + torch.log(s)
+            tgt = flat[rows, idx].float()
+        ctx.save_for_backward(flat, idx, lse)
+        return (lse - tgt).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, idx, lse = ctx.saved_tensors
+        with torch.profiler.record_function("cross_entropy_backward"):
+            N = flat.shape[0]
+            rows = torch.arange(N, device=flat.device)
+            p = flat.to(torch.float32, copy=True).sub_(lse[:, None]).exp_()
+            dflat = p.to(flat.dtype)
+            del p
+            dflat[rows, idx] += torch.tensor(-1.0, dtype=flat.dtype,
+                                             device=flat.device)
+            dflat *= (g / N).to(flat.dtype)
+        return dflat, None
+
+
+def loss_fn(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16):
+    """``(total, metrics)``: total is the mean cross-entropy plus 0.01 times
+    the summed load-balance loss; metrics hold ``ce`` and the
+    :data:`AUX_KEYS` sums.  Next-token targets (``tokens[:, 1:]`` from the
+    positions before them; a vision config's from its text positions
+    only), or an encoder-only config's ``targets`` at every position."""
+    logits, aux = forward(params, cfg, batch, rng, ep_groups=ep_groups)
+
+    def _ce(lg, tg):
+        V = lg.shape[-1]
+        return _ce_mean.apply(lg.reshape(-1, V), tg.reshape(-1))
+
+    if cfg.encoder_only:
+        loss = _ce(logits, batch["targets"])
+    else:
+        tok = batch["tokens"]
+        if cfg.frontend == "vit_patches":
+            # text tokens occupy the tail; predict token t+1 from position
+            # frontend_len + t
+            logits = logits[:, cfg.frontend_len:, :]
+        loss = _ce(logits[:, :-1], tok[:, 1:])
+    total = loss + 0.01 * aux["lb_loss"]
+    metrics = {"ce": loss, **{k: aux[k] for k in AUX_KEYS}}
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 PyTorch twin at the main path's width, the golden cases bitwise on the
 ``cuda`` and ``cuda_fused`` backends and through the sweep service, and
 smoke-config serving (gemma2, rwkv6 and moonshot) on the card against
-the CPU, and the hybrid and frontend families (hymba, pixtral, hubert)
-through the kernels against their plain twins.  Every
+the CPU, the hybrid and frontend families (hymba, pixtral, hubert)
+through the kernels against their plain twins, and training (the flash
+kernel's lse, its gradients against the twin's, the kernels without a
+backward refusing under grad, a smoke train step).  Every
 test skips without a card (the kernels have no CPU mode); on one, run them
 with
 
@@ -892,3 +894,134 @@ def test_smoke_moe_serving_on_the_card_matches_the_cpu():
     torch.testing.assert_close(card.prefill_logits.cpu(),
                                cpu.prefill_logits, atol=1e-4, rtol=1e-4)
     assert torch.equal(card.ids.cpu(), cpu.ids)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernel's lse, the flash backward, the ops without one, a
+# smoke train step
+# ---------------------------------------------------------------------------
+
+#: (B, H, KV, S, Dh, dtype, window, softcap, causal)
+TRAIN_FLASH_SHAPES = {
+    "gemma2_bf16": (2, 8, 4, 1024, 256, "bfloat16", 4096, 50.0, True),
+    "gemma2_w256_f32": (1, 8, 4, 1024, 256, "float32", 256, 50.0, True),
+    "repro_100m_f32": (4, 10, 5, 128, 64, "float32", 0, None, True),
+    "ragged_bf16": (2, 4, 2, 1000, 128, "bfloat16", 0, None, True),
+    "hubert_f32": (2, 16, 16, 300, 80, "float32", 0, None, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(TRAIN_FLASH_SHAPES))
+def test_flash_kernel_lse_matches_its_twin(shape):
+    """The kernel's lse output (the backward's row statistic) against the
+    twin's ``_attn_fwd``: 1e-3 (bf16 inputs) and 1e-5 (float32), atol and
+    rtol; the output with lse is the output without it, bitwise."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, KV, S, Dh, dtype, window, softcap, causal = \
+        TRAIN_FLASH_SHAPES[shape]
+    q, k, v = _flash_inputs(B, H, KV, S, Dh, dtype)
+    out, lse = fa.launch_forward(q, k, v, causal, window, softcap, True)
+    plain, none = fa.launch_forward(q, k, v, causal, window, softcap, False)
+    _, want = ref._attn_fwd(q, k, v, causal, window, softcap, 1024, 1024)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    tol = 1e-3 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(lse, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(TRAIN_FLASH_SHAPES))
+def test_flash_gradients_match_the_twins(shape):
+    """``FlashAttention`` (the kernel's forward, the ported backward)
+    against the twin's ``autograd.Function``: dq, dk, dv within 3e-2
+    (bf16) and 1e-4 (float32) of each one's largest magnitude; one launch
+    a forward."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, KV, S, Dh, dtype, window, softcap, causal = \
+        TRAIN_FLASH_SHAPES[shape]
+    q, k, v = (t.requires_grad_(True)
+               for t in _flash_inputs(B, H, KV, S, Dh, dtype))
+    dout = _flash_inputs(B, H, H, S, Dh, dtype, seed=1)[0]
+    reg.reset_launches()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    assert type(got.grad_fn).__name__ == "FlashAttentionBackward"
+    assert reg.KERNELS["flash_attention"].launches == 1
+    grads = torch.autograd.grad(got, (q, k, v), dout)
+    want = ref.flash_attention(q, k, v, causal, window, softcap)
+    want_grads = torch.autograd.grad(want, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert reg.KERNELS["flash_attention"].launches == 1
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    for g, w, t in zip(grads, want_grads, (q, k, v)):
+        assert g.dtype == t.dtype
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert float(err) <= tol
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_refuse_under_grad():
+    """On the card ``ops.rwkv6`` and ``ops.moe_dispatch`` raise where
+    autograd would need their backward; without grad, and through the
+    twins, they run."""
+    _need_card()
+    from repro_torch.kernels import ops
+
+    r, k, v, w = (torch.rand((1, 2, 8, 64), device="cuda") for _ in range(4))
+    u = torch.rand((2, 64), device="cuda")
+    state = torch.zeros((1, 2, 64, 64), device="cuda")
+    r.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="10b"):
+        ops.rwkv6(r, k, v, w, u, state)
+    with torch.no_grad():
+        ops.rwkv6(r, k, v, w, u, state)
+    ops.set_impl("ref", "rwkv6")
+    try:
+        out, _ = ops.rwkv6(r, k, v, w, u, state)
+        assert out.grad_fn is not None
+    finally:
+        ops.set_impl(None)
+    x = torch.rand((4, 16), device="cuda", requires_grad=True)
+    expert = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    pos = torch.arange(4, dtype=torch.int32, device="cuda")[:, None]
+    with pytest.raises(NotImplementedError, match="moe_dispatch"):
+        ops.moe_dispatch(x, expert, pos, n_experts=1, capacity=4)
+    with torch.no_grad():
+        ops.moe_dispatch(x, expert, pos, n_experts=1, capacity=4)
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_on_the_card_matches_the_cpu():
+    """Two gemma2 smoke train steps (float32) on the card and on the CPU
+    from the same weights: each step's loss and gradient norm within 1e-4
+    (the second step's after one AdamW update on each device); two flash
+    launches per layer a step (remat recomputes each forward)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+
+    cfg = cb.smoke_config("gemma2_2b")
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu").to(device)
+        opt = adamw_init(params)
+        step = steps.make_train_step(cfg, device, total_steps=10)
+        reg.reset_launches()
+        out[device] = []
+        for i in (1, 2):
+            params, opt, metrics = step(params, opt,
+                                        batch_for(cfg, i, 2, 64), i)
+            out[device].append({k: float(metrics[k])
+                                for k in ("loss", "grad_norm", "lr")})
+        out[device].append(reg.launch_counts()["flash_attention"])
+    assert out["cuda"][2] == 2 * 2 * cfg.n_layers
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        for key in want:
+            assert got[key] == pytest.approx(want[key], rel=1e-4), key

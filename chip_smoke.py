@@ -95,11 +95,14 @@ In order, it
    twin per call, bitwise, at the model's own layer-0 routing and seven
    more shapes, and its time beside the twin's, one ``index_put_`` call's
    and its bound;
-9. after phase 12, prints the ``kernels`` JSON line (``sched_step``'s
+9. after phase 13, prints the ``kernels`` JSON line (``sched_step``'s
    launches are the sweep's and the tuner's, ``flash_attention``'s those
-   of phases 6, 8, 11 and 12's two training runs), the end-to-end rates,
-   the ``serve_hybrid`` line of phase 11, the tuner's summary, the
-   ``train`` line of phase 12, the card line and last the device line;
+   of phases 6, 8, 11, 12's two training runs and 13's hymba and
+   moonshot, ``rwkv6_scan``'s phase 7's and 13's rwkv6, ``moe_dispatch``'s
+   phase 8's and 13's moonshot), the end-to-end rates, the
+   ``serve_hybrid`` line of phase 11, the tuner's summary, the ``train``
+   line of phase 12, the ``train_families`` line of phase 13, the card
+   line and last the device line;
 10. runs the eleventh slice's path, Table I by search, between phase 8
    and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
    ``cuda_fused``, launch counts zeroed before each part.  (a) Each of the
@@ -142,14 +145,14 @@ In order, it
    the reference's chunked ``_attn_bwd`` ported) against the twin's
    ``autograd.Function`` on ``TRAIN_FLASH_CASES`` (gemma2_2b's training
    shape in bf16 and float32 with a window of 4096 and one of 256 that
-   bites, repro_100m's, a ragged S = 1000, hubert's bidirectional Dh =
-   80): out within 2e-2 / 1e-4, lse within 1e-3 / 1e-5, dq, dk, dv within
-   3e-2 / 1e-4 of their largest magnitude, two calls bitwise; then at
-   gemma2's shape the forward with and without lse, forward + backward
-   beside the twin's, the backward alone and one
-   ``scaled_dot_product_attention`` forward + backward; (b) gemma2_2b
-   trained at full width (26 layers, d_model 2304, vocab 256000; bf16
-   weights and float32 AdamW state from seed 0) through
+   bites, repro_100m's, a ragged S = 1000, hubert's bidirectional Dh = 80,
+   a hymba local layer's and moonshot's): out within 2e-2 / 1e-4, lse
+   within 1e-3 / 1e-5, dq, dk, dv within 3e-2 / 1e-4 of their largest
+   magnitude, two calls bitwise; then at gemma2's shape the forward with
+   and without lse, forward + backward beside the twin's, the backward
+   alone and one ``scaled_dot_product_attention`` forward + backward; (b)
+   gemma2_2b trained at full width (26 layers, d_model 2304, vocab 256000;
+   bf16 weights and float32 AdamW state from seed 0) through
    ``launch.train.run`` (what ``main`` runs) at batch 4 × 1024 for 6
    steps, launch counts zeroed just before and read just after: exactly
    2 × 26 flash launches a step (every layer's forward again in the
@@ -165,7 +168,33 @@ In order, it
    of 4 × 128, checkpoints every 20, a node failure at step 30): the loss
    falls, one restart from step 20 or later, 2 × 12 flash launches a step
    run; then 14 steps uninterrupted against 10, save, restore and 4 more,
-   the last losses within 1e-5.
+   the last losses within 1e-5;
+13. runs the fourteenth slice's path, training the RWKV6, MoE and hybrid
+   families, after phase 12 and before the lines of 9, every earlier
+   model freed first: (a) ``RWKV6Scan`` (the kernel's forward, the
+   backward as torch ops) against autograd through its twin on
+   ``FAMILY_RWKV_CASES`` (rwkv6_1_6b's training shape in bf16 and float32
+   in the model's layout, a ragged T = 1000, Dh = 16 and 32, from a
+   nonzero state): out and state as phase 7 holds them, dr, dk, dv, dw, du
+   and the initial state's gradient within 3e-2 / 1e-4 of their largest
+   magnitude, two calls bitwise, then the backward's time beside its
+   bound and the twin's; the differentiable SSM scan on the card against
+   the CPU (float32, 1e-5) and its backward's time at hymba's shape; (b)
+   rwkv6_1_6b and (c) hymba_1_5b at full width and depth through
+   ``launch.train.run`` at 4 × 1024 for 3 steps, launch counts zeroed just
+   before and read just after (exactly 2 × 24 ``rwkv6_scan``, and 2 × 32
+   ``flash_attention``, launches a step and no other kernel), every loss
+   and gradient norm finite, the peak memory, warm step seconds and
+   tokens/s, and a traced step; (d) moonshot_v1_16b_a3b at full width and
+   4 of its 48 layers through ``make_train_step`` and AdamW, the same way
+   (2 × 4 flash and 2 × 4 dispatch launches a step), its routing counters
+   and a traced step, then ``MoEDispatch``'s gradient bitwise against the
+   twin's at layer 0's own routing and with most slots dropped, and its
+   time; (e) each model in float32 at full width, 4 layers (hymba 16),
+   batch 2 × 1024, through the kernels against the twins: rwkv6 and hymba
+   the loss within 1e-4 and the gradient norm within 1e-3 (relative),
+   moonshot with only the dispatch swapped loss and every gradient
+   bitwise.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -1868,7 +1897,8 @@ def tune_phase(torch, dev, reg):
 #: against twin: (label, B, H, KV, S, Dh, dtype, window, softcap, causal):
 #: gemma2_2b's training shape (a local layer's window of 4096 hides
 #: nothing at S = 1024; a window of 256 bites), repro_100m's, a ragged S
-#: in both types and hubert's bidirectional Dh = 80
+#: in both types, hubert's bidirectional Dh = 80, and (phase 13's models)
+#: a hymba local layer's and moonshot's
 TRAIN_FLASH_CASES = (
     ("gemma2_local_bf16", 4, 8, 4, 1024, 256, "bfloat16", 4096, 50.0, True),
     ("gemma2_w256_bf16", 4, 8, 4, 1024, 256, "bfloat16", 256, 50.0, True),
@@ -1878,6 +1908,8 @@ TRAIN_FLASH_CASES = (
     ("ragged_bf16", 2, 4, 2, 1000, 128, "bfloat16", 0, None, True),
     ("ragged_f32", 2, 4, 2, 1000, 64, "float32", 0, 30.0, True),
     ("hubert_f32", 2, 16, 16, 512, 80, "float32", 0, None, False),
+    ("hymba_local_bf16", 4, 25, 5, 1024, 64, "bfloat16", 1024, None, True),
+    ("moonshot_bf16", 4, 16, 16, 1024, 128, "bfloat16", 0, None, True),
 )
 #: per output type: out (atol = rtol), lse (atol = rtol), and dq / dk / dv
 #: relative to each tensor's largest magnitude.  bf16: the kernel rounds P
@@ -1903,7 +1935,8 @@ QUICK_ARGV = ("--arch", "repro_100m", "--steps", "60", "--global-batch",
 RESUME_TOL = 1e-5
 #: the profiler ranges the port marks on the training path
 TRAIN_RANGES = ("flash_attention_backward", "cross_entropy",
-                "cross_entropy_backward", "adamw_update")
+                "cross_entropy_backward", "adamw_update", "rwkv6_backward",
+                "moe_dispatch_backward", "ssm_scan_backward")
 GEMM_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
@@ -2027,35 +2060,62 @@ def train_flash_checks(torch, dev):
     return dict(flash_train_errors=errs, flash_train_timed=timed)
 
 
-def train_trace_summary(torch, prof, wall_us) -> dict:
-    """A traced train step: device busy share, the flash forward's and the
-    GEMMs' kernel time, and the device time of the ranges the port marks
-    (``TRAIN_RANGES``: the backward's attention, the cross-entropy and its
-    backward, AdamW)."""
+def train_trace_summary(torch, prof, wall_us,
+                        kernels=(("flash_fwd", FLASH_KERNEL_KEYS),)) -> dict:
+    """A traced train step: device busy share, the GEMMs' kernel time and
+    that of each of ``kernels`` (``(label, name keys)``: the flash forward
+    by default), and the device time of the ranges the port marks
+    (``TRAIN_RANGES``: the backwards in torch ops, the cross-entropy and
+    its backward, AdamW): the kernels launched by the ops that run inside
+    each range on its thread.  Read from the profiler's raw events, not
+    its ``events()`` tree, which takes minutes to build for the 10^5-10^6
+    launches of an RWKV6 or hymba step."""
+    import bisect
+    from collections import defaultdict
+
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages()
-            if e.device_type == cuda and e.key not in TRAIN_RANGES]
-    busy_us = sum(e.self_device_time_total for e in kern)
+    by_name = defaultdict(lambda: [0, 0])        # name -> [ns, launches]
+    by_corr = defaultdict(int)                   # launching op -> kernel ns
+    ops = defaultdict(list)                      # thread -> [(start, op)]
+    spans = []                                   # (thread, start, end, name)
+    for e in prof.profiler.kineto_results.events():
+        dt = e.device_type()
+        if dt == cuda and not e.is_user_annotation():
+            d = e.duration_ns()
+            row = by_name[e.name()]
+            row[0] += d
+            row[1] += 1
+            by_corr[e.linked_correlation_id()] += d
+        elif dt == cpu and e.linked_correlation_id() == 0:
+            if e.name() in TRAIN_RANGES:
+                spans.append((e.start_thread_id(), e.start_ns(), e.end_ns(),
+                              e.name()))
+            else:
+                ops[e.start_thread_id()].append((e.start_ns(),
+                                                 e.correlation_id()))
+    for v in ops.values():
+        v.sort()
+    ranges = dict.fromkeys(TRAIN_RANGES, 0)
+    for thread, start, end, name in spans:
+        v = ops[thread]
+        lo = bisect.bisect_left(v, (start, -1))
+        hi = bisect.bisect_right(v, (end, float("inf")))
+        ranges[name] += sum(by_corr.get(c, 0) for _, c in v[lo:hi])
+    busy_ns = sum(ns for ns, _ in by_name.values())
 
-    def kernel_us(keys):
-        return sum(e.self_device_time_total for e in kern
-                   if any(k in e.key.lower() for k in keys))
+    def kernel_ms(keys):
+        return sum(ns for name, (ns, _) in by_name.items()
+                   if any(k.lower() in name.lower() for k in keys)) / 1e6
 
-    ranges = {n: 0.0 for n in TRAIN_RANGES}
-    for e in prof.events():
-        if e.device_type == cpu and e.name in ranges:
-            ranges[e.name] += e.device_time_total
     return dict(
-        wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-        device_busy_share=busy_us / wall_us,
-        launches=sum(e.count for e in kern),
-        flash_fwd_ms=kernel_us(tuple(k.lower() for k in FLASH_KERNEL_KEYS))
-        / 1e3,
-        gemm_ms=kernel_us(GEMM_KEYS) / 1e3,
-        **{f"{n}_ms": (us / 1e3 if us else None) for n, us in ranges.items()},
-        top=[(e.key[:70], e.self_device_time_total, e.count)
-             for e in sorted(kern, key=lambda e: -e.self_device_time_total)
-             [:8]])
+        wall_ms=wall_us / 1e3, device_busy_ms=busy_ns / 1e6,
+        device_busy_share=busy_ns / 1e3 / wall_us,
+        launches=sum(n for _, n in by_name.values()),
+        **{f"{label}_ms": kernel_ms(keys) for label, keys in kernels},
+        gemm_ms=kernel_ms(GEMM_KEYS),
+        **{f"{n}_ms": (ns / 1e6 if ns else None) for n, ns in ranges.items()},
+        top=[(name[:70], ns / 1e3, n) for name, (ns, n) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])[:8]])
 
 
 def train_phase(torch, dev, reg):
@@ -2254,6 +2314,503 @@ def train_phase(torch, dev, reg):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"training phase took {out['phase_s']:.1f} s", flush=True)
     return launches["flash_attention"] + quick_launches, out
+
+
+#: phase 13: training the RWKV6, MoE and hybrid families.  (a) RWKV6Scan
+#: (the kernel's forward, ``ref.rwkv6_backward``) against autograd through
+#: its twin: (label, B, H, T, Dh, dtype, layout) — rwkv6_1_6b's training
+#: shape in both types in the model's layout, a ragged T, the smoke
+#: config's and the JAX kernel tests' head dims; every one from a nonzero
+#: state with nonzero cotangents of out and of the final state
+FAMILY_RWKV_CASES = (
+    ("train_bf16", 4, 32, 1024, 64, "bfloat16", "model"),
+    ("train_f32", 4, 32, 1024, 64, "float32", "model"),
+    ("ragged_1000", 2, 32, 1000, 64, "bfloat16", "packed"),
+    ("dh16", 2, 4, 256, 16, "float32", "packed"),
+    ("dh32", 2, 8, 256, 32, "bfloat16", "model"),
+)
+#: the gradients relative to each one's largest magnitude (as phase 12's)
+FAMILY_GRAD_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+#: the differentiable SSM scan on the card against the CPU, float32, every
+#: output and gradient relative to its largest magnitude: (B, T, Di, N);
+#: then the backward alone at hymba_1_5b's training shape
+FAMILY_SSM_SHAPE = (2, 300, 256, 16)
+FAMILY_SSM_TOL = 1e-5
+HYMBA_SSM_SHAPE = (4, 1024, 3200, 16)
+#: (b)-(d): bf16 weights, float32 AdamW state, batch 4 x 1024, 3 steps;
+#: moonshot at 4 of its 48 layers (each about 570 M parameters: the 48
+#: need about 340 GB at 12 bytes a parameter, the 4 about 35 GB)
+FAMILY_B, FAMILY_S, FAMILY_STEPS = 4, 1024, 3
+MOONSHOT_TRAIN_LAYERS = 4
+#: the dispatch's gradient, bitwise against the twin's: a capacity so tight
+#: that most slots drop (label, T, D, k, E, C, dtype, token groups)
+FAMILY_MOE_CASES = (("tight", 4096, 2048, 6, 64, 48, "bfloat16", 1),)
+#: (e) float32 at full width, batch 2 x 1024, kernels against twins: 4
+#: layers (hymba: 2 pattern steps, 16 layers); rwkv6 and hymba the loss
+#: and the global gradient norm (relative), moonshot with only the dispatch
+#: swapped for its twin bitwise
+FAMILY_F32_B, FAMILY_F32_LAYERS, HYMBA_F32_LAYERS = 2, 4, 16
+
+
+def family_argv(arch: str) -> list:
+    return ["--arch", arch, "--steps", str(FAMILY_STEPS), "--global-batch",
+            str(FAMILY_B), "--seq", str(FAMILY_S), "--seed", "0",
+            "--log-every", "1"]
+
+
+def family_rwkv_checks(torch, dev):
+    """(a) for RWKV6: ``RWKV6Scan`` against autograd through the twin on
+    ``FAMILY_RWKV_CASES`` (out and final state as phase 7 holds them, the
+    six gradients within ``FAMILY_GRAD_TOL`` of their largest magnitude,
+    two calls bitwise); then at the training shape the kernel's forward,
+    the backward alone beside its bound, and forward + backward beside the
+    twin's."""
+    from repro_torch.kernels import ref as fref
+    from repro_torch.kernels import rwkv6_scan as rk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {}
+    for label, B, H, T, Dh, dtype, layout in FAMILY_RWKV_CASES:
+        leaves = [t.detach().requires_grad_(True) for t in rwkv_inputs(
+            torch, B, H, T, Dh, dtype, True, gen, dev, layout)]
+        dout = torch.randn((B, H, T, Dh), generator=gen, device=dev)
+        dstate = torch.randn((B, H, Dh, Dh), generator=gen, device=dev)
+
+        def fwd_bwd(fn):
+            o, s = fn(*leaves)
+            return (o.detach(), s.detach()) + torch.autograd.grad(
+                (o.float() * dout).sum() + (s * dstate).sum(), leaves)
+
+        got = fwd_bwd(rk.RWKV6Scan.apply)
+        again = fwd_bwd(rk.RWKV6Scan.apply)
+        want = fwd_bwd(rk.plain)
+        torch.cuda.synchronize()
+        names = ("dr", "dk", "dv", "dw", "du", "dstate")
+        e = dict(out=float((got[0].float() - want[0].float()).abs().max()),
+                 state=float((got[1] - want[1]).abs().max()),
+                 **{n: rel_err(g, w) for n, g, w in
+                    zip(names, got[2:], want[2:])})
+        errs[label] = e
+        tol = FAMILY_GRAD_TOL[dtype]
+        check(within(got[0], want[0], FLASH_TOL[dtype])
+              and within(got[1], want[1], RWKV_STATE_TOL),
+              f"RWKV6Scan {label}: out / state max abs err {e['out']} / "
+              f"{e['state']}")
+        check(all(g.dtype == t.dtype and g.shape == t.shape
+                  for g, t in zip(got[2:], leaves))
+              and max(e[n] for n in names) <= tol,
+              f"RWKV6Scan {label}: gradients {e} beyond {tol} of their "
+              "largest magnitude")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"RWKV6Scan {label}: two calls differ")
+        print(f"  rwkv6 train {label:12s} B={B} H={H} T={T} Dh={Dh} {dtype} "
+              f"{layout}: out {e['out']:.3g}, state {e['state']:.3g}, "
+              + ", ".join(f"{n} {e[n]:.3g}" for n in names)
+              + f" of max (tol {tol}); two calls bitwise", flush=True)
+        del leaves, got, again, want
+
+    # the time at rwkv6_1_6b's training shape (bf16, the model's layout)
+    B, H, T, Dh = FAMILY_B, 32, FAMILY_S, 64
+    r, k, v, w, u, state = (t.detach().requires_grad_(True) for t in
+                            rwkv_inputs(torch, B, H, T, Dh, "bfloat16", True,
+                                        gen, dev, "model"))
+    dout = torch.randn((B, H, T, Dh), generator=gen, device=dev
+                       ).to(torch.bfloat16)
+    dstate = torch.randn((B, H, Dh, Dh), generator=gen, device=dev)
+
+    def fwd_bwd(fn):
+        o, s = fn(r, k, v, w, u, state)
+        return torch.autograd.grad((o, s), (r, k, v, w, u, state),
+                                   (dout, dstate))
+
+    with torch.no_grad():
+        timed = dict(
+            fwd_ms=cuda_time_ms(lambda i: rk.rwkv6(r, k, v, w, u, state),
+                                20, torch),
+            bwd_ms=cuda_time_ms(lambda i: fref.rwkv6_backward(
+                r, k, v, w, u, state, dout, dstate), 3, torch))
+    timed["fwd_bwd_ms"] = cuda_time_ms(
+        lambda i: fwd_bwd(rk.RWKV6Scan.apply), 3, torch)
+    timed["twin_fwd_bwd_ms"] = cuda_time_ms(lambda i: fwd_bwd(rk.plain), 2,
+                                            torch)
+    # the backward's float32 work a (b, h, t): the state again (k v^T, then
+    # w S + k v^T: 3 Dh^2), the reverse recurrence (r g^T, then w dS +
+    # r g^T: 3 Dh^2), dr = S g, dk = dS v, dv = dS^T k, dw = rowsum(dS S)
+    # (2 Dh^2 each); its bytes: r, k, v, w, dout and their gradients in
+    # bf16, the two states and their gradients in float32
+    n = B * H * T
+    nops = n * 14 * Dh * Dh
+    nbytes = 9 * n * Dh * 2 + 4 * B * H * Dh * Dh * 4
+    timed["bwd_bound_ms"], timed["bwd_bound_by"] = bound_ms(nbytes, nops)
+    print(f"rwkv6 at the training shape {B}x{H}x{T}x{Dh} bf16: kernel "
+          f"forward {timed['fwd_ms']:.4f} ms; the backward alone "
+          f"{timed['bwd_ms']:.2f} ms (bound {timed['bwd_bound_ms']:.4f} ms "
+          f"by {timed['bwd_bound_by']}: {nops / 1e9:.2f} GFLOP at 67 TFLOP/s)"
+          f"; forward + backward {timed['fwd_bwd_ms']:.2f} ms (the twin's "
+          f"through autograd {timed['twin_fwd_bwd_ms']:.2f})", flush=True)
+    return dict(rwkv_grad_errors=errs, rwkv_timed=timed)
+
+
+def family_ssm_checks(torch, dev):
+    """(a) for the SSM scan: ``ref.ssm_scan`` under grad (``SSMScan``) on
+    the card against the same on the CPU, float32, y, the final state and
+    the seven gradients within ``FAMILY_SSM_TOL`` of their largest
+    magnitude; then ``ssm_backward`` alone at hymba_1_5b's training
+    shape."""
+    from repro_torch.kernels import ref as fref
+
+    gen = torch.Generator().manual_seed(0)
+
+    def draw(B, T, Di, N):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen)
+        return [randn(B, T, Di), torch.nn.functional.softplus(
+                    randn(B, T, Di)), -torch.exp(randn(Di, N)),
+                randn(B, T, N), randn(B, T, N), 1.0 + 0.1 * randn(Di),
+                randn(B, Di, N) * 0.5], randn(B, T, Di), randn(B, Di, N)
+
+    args, gy, gh = draw(*FAMILY_SSM_SHAPE)
+
+    def run(device):
+        leaves = [a.to(device).requires_grad_(True) for a in args]
+        y, h = fref.ssm_scan(*leaves)
+        grads = torch.autograd.grad((y, h), leaves, (gy.to(device),
+                                                     gh.to(device)))
+        return [t.detach().cpu() for t in (y, h, *grads)]
+
+    got, want = run(dev), run("cpu")
+    names = ("y", "state", "dx", "ddt", "dA", "dBm", "dCm", "dD", "dstate0")
+    errs = {n: rel_err(g, w) for n, g, w in zip(names, got, want)}
+    check(max(errs.values()) <= FAMILY_SSM_TOL,
+          f"ssm_scan on the card against the CPU: {errs} beyond "
+          f"{FAMILY_SSM_TOL} of the largest magnitude")
+    print(f"  ssm_scan under grad {FAMILY_SSM_SHAPE}, card against CPU: "
+          + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + f" of max (tol {FAMILY_SSM_TOL})", flush=True)
+    B, T, Di, N = HYMBA_SSM_SHAPE
+    xf, dtf, Bf, Cf, gyf = (torch.randn(s, device=dev) for s in (
+        (B, T, Di), (B, T, Di), (B, T, N), (B, T, N), (B, T, Di)))
+    dtf = torch.nn.functional.softplus(dtf)
+    Af = -torch.exp(torch.randn((Di, N), device=dev))
+    h0 = torch.zeros((B, Di, N), device=dev)
+    starts = []
+    fref._ssm_steps(xf, dtf, Af, Bf, Cf, h0, starts)
+    bwd_ms = cuda_time_ms(lambda i: fref.ssm_backward(
+        xf, dtf, Af, Bf, Cf, starts, gyf, h0), 2, torch)
+    print(f"ssm_backward at hymba_1_5b's training shape {HYMBA_SSM_SHAPE}: "
+          f"{bwd_ms:.1f} ms a layer", flush=True)
+    return dict(ssm_errors=errs, ssm_bwd_ms=bwd_ms)
+
+
+def family_moe_checks(torch, dev, layer0):
+    """(a) for the dispatch: ``MoEDispatch``'s gradient (one launch
+    forward, the twin's gather backward) bitwise against autograd through
+    the twin at moonshot's own layer-0 routing (``layer0``, taken in (d))
+    and on ``FAMILY_MOE_CASES``; then the backward's time at layer 0's
+    shape beside its bound (bytes: each kept row read, each token's row
+    written, the tables read)."""
+    from repro_torch.core import balance
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref as mref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x0, e0, p0, kw0 = layer0
+    cases = [("train_layer0", x0, e0, p0, kw0["n_experts"],
+              kw0["capacity"])]
+    for label, T, D, k, E, C, dtype, G in FAMILY_MOE_CASES:
+        x, ve, pos = moe_inputs(torch, balance, T, D, k, E, C, dtype, G, gen,
+                                dev)
+        cases.append((label, x, ve, pos, G * E, C))
+    for label, x, ve, pos, E, C in cases:
+        x = x.detach().requires_grad_(True)
+        g = torch.randn((E, C, x.shape[1]), generator=gen, device=dev
+                        ).to(x.dtype)
+        out = md.MoEDispatch.apply(x, ve, pos, E, C)
+        (got,) = torch.autograd.grad(out, x, g)
+        (want,) = torch.autograd.grad(mref.moe_dispatch(x, ve, pos, E, C),
+                                      x, g)
+        torch.cuda.synchronize()
+        check(got.dtype == x.dtype and torch.equal(got, want),
+              f"MoEDispatch {label}: gradient max abs err "
+              f"{float((got.float() - want.float()).abs().max())}")
+        print(f"  moe_dispatch train {label:12s} T={x.shape[0]} "
+              f"D={x.shape[1]} k={ve.shape[1]} buffers={E}x{C}: kept "
+              f"{int((ve >= 0).sum())} of {ve.numel()} slots, gradient "
+              "bitwise equal to the twin's", flush=True)
+    E, C = kw0["n_experts"], kw0["capacity"]
+    T, D = x0.shape
+    g = torch.randn((E, C, D), generator=gen, device=dev).to(x0.dtype)
+    bwd_ms = cuda_time_ms(lambda i: mref.moe_dispatch_backward(
+        g, e0, p0, E, C), 20, torch)
+    kept = int((e0 >= 0).sum())
+    nbytes = (kept + T) * D * x0.element_size() + 2 * e0.numel() * 4
+    bnd, by = bound_ms(nbytes, 0)
+    print(f"moe_dispatch backward at layer 0's shape T={T} D={D} "
+          f"k={e0.shape[1]} into {E}x{C} ({kept} kept slots): "
+          f"{bwd_ms:.4f} ms (bound {bnd:.5f} ms by {by})", flush=True)
+    return dict(moe_bwd_ms=bwd_ms, moe_bwd_bound_ms=bnd, moe_bwd_bound_by=by)
+
+
+def family_phase(torch, dev, reg):
+    """Phase 13: the backwards of the RWKV6 kernel, the SSM scan and the
+    MoE dispatch per op; rwkv6_1_6b and hymba_1_5b trained at full width
+    and depth through ``launch.train.run``, moonshot_v1_16b_a3b at full
+    width and 4 layers through ``make_train_step``; each float32 model at
+    4 layers (hymba 16) through the kernels against their twins.  Returns
+    (the launches of the three main-path runs by kernel, report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init, global_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["free_gib_at_start"] = torch.cuda.mem_get_info()[0] / 2**30
+    main_launches = dict.fromkeys(reg.KERNELS, 0)
+    part_s = out["part_s"] = {}
+    last = [t_phase]
+
+    def lap(label):
+        now = time.perf_counter()
+        part_s[label] = now - last[0]
+        last[0] = now
+        print(f"  phase 13 {label}: {part_s[label]:.1f} s", flush=True)
+
+    # (a) the backwards per op
+    out.update(family_rwkv_checks(torch, dev))
+    lap("rwkv6 backward checks")
+    out.update(family_ssm_checks(torch, dev))
+    lap("ssm scan checks")
+    torch.cuda.empty_cache()
+    kern_keys = {"rwkv6_1_6b": (("rwkv6", ("rwkv6_kernel",)),),
+                 "hymba_1_5b": (("flash_fwd", FLASH_KERNEL_KEYS),),
+                 "moonshot_v1_16b_a3b": (("flash_fwd", FLASH_KERNEL_KEYS),
+                                         ("moe_dispatch", MOE_KERNEL_KEYS))}
+
+    def expected(cfg, steps_run):
+        """2 launches of each layer's kernels a step (remat recomputes
+        every checkpointed group)."""
+        want = dict.fromkeys(reg.KERNELS, 0)
+        kinds = tfm.pattern(cfg)
+        n = cfg.n_layers // len(kinds)
+        for kind in kinds:
+            want["rwkv6_scan" if kind.rwkv else "flash_attention"] += \
+                2 * n * steps_run
+            want["moe_dispatch"] += 2 * n * steps_run * kind.moe
+        return want
+
+    def traced_step(arch, cfg, params, opt):
+        step = steps.make_train_step(cfg, dev, total_steps=FAMILY_STEPS)
+        batch = batch_for(cfg, FAMILY_STEPS, FAMILY_B, FAMILY_S)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch, FAMILY_STEPS)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        t0 = time.perf_counter()
+        t = train_trace_summary(torch, prof, wall_us, kern_keys[arch])
+        del prof
+        t["summary_s"] = time.perf_counter() - t0
+        print(f"train {arch} (traced step): device busy "
+              f"{t['device_busy_ms']:.1f} ms of {t['wall_ms']:.1f} ms wall "
+              f"({100 * t['device_busy_share']:.1f} %), {t['launches']} "
+              "kernel launches; "
+              + ", ".join(f"{label} {t[label + '_ms']:.2f} ms"
+                          for label, _ in kern_keys[arch])
+              + f", GEMMs {t['gemm_ms']:.1f} ms, "
+              + ", ".join(f"{n} {t[n + '_ms']}" for n in TRAIN_RANGES
+                          if t[n + "_ms"] is not None)
+              + f" ms; top: {t['top'][:5]}; summarised in "
+              f"{t['summary_s']:.1f} s", flush=True)
+        return t
+
+    def report(arch, cfg, losses, grad_norms, step_s, wall, launches):
+        warm = sum(step_s[1:]) / len(step_s[1:])
+        r = dict(wall_s=wall, launches=launches, losses=losses,
+                 grad_norms=grad_norms, step_s=step_s, warm_step_s=warm,
+                 tokens_per_s=FAMILY_B * FAMILY_S / warm,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 n_layers=cfg.n_layers)
+        print(f"train: {arch} ({cfg.n_layers} layers) {FAMILY_B}x{FAMILY_S},"
+              f" {len(losses)} steps: launches "
+              f"{ {k: v for k, v in launches.items() if v} }, losses "
+              f"{[round(x, 4) for x in losses]}, grad norms "
+              f"{[round(x, 3) for x in grad_norms]}; warm step {warm:.3f} s "
+              f"({r['tokens_per_s']:.0f} tokens/s; first {step_s[0]:.3f} s);"
+              f" peak {r['peak_gib']:.2f} GiB", flush=True)
+        return r
+
+    # (b), (c) rwkv6_1_6b and hymba_1_5b at full width and depth through
+    # the train driver, launch counts zeroed just before and read just
+    # after
+    for arch in ("rwkv6_1_6b", "hymba_1_5b"):
+        cfg = cb.get(arch)
+        reg.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train.run(family_argv(arch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = reg.launch_counts()
+        want = expected(cfg, FAMILY_STEPS)
+        check(launches == want,
+              f"{arch} training launched {launches}; expected {want}")
+        check(len(run.losses) == FAMILY_STEPS and all(
+            math.isfinite(x) for x in run.losses + run.grad_norms),
+            f"{arch} losses {run.losses}, grad norms {run.grad_norms}")
+        for k, v in launches.items():
+            main_launches[k] += v
+        out[arch] = report(arch, cfg, run.losses, run.grad_norms,
+                           run.step_s, wall, launches)
+        params, opt = run.params, run.opt
+        del run
+        lap(f"{arch} train.run")
+        out[arch]["traced"] = traced_step(arch, cfg, params, opt)
+        del params, opt
+        torch.cuda.empty_cache()
+        lap(f"{arch} traced step")
+
+    # (d) moonshot_v1_16b_a3b at full width, 4 of its layers, through
+    # make_train_step and the port's AdamW; layer 0's dispatch inputs of
+    # the first step kept for (a)
+    arch = "moonshot_v1_16b_a3b"
+    cfg = dataclasses.replace(cb.get(arch), n_layers=MOONSHOT_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev).requires_grad_(True)
+    opt = adamw_init(params, getattr(torch, cfg.opt_state_dtype))
+    step = steps.make_train_step(cfg, dev, total_steps=FAMILY_STEPS)
+    layer0 = []
+    dispatch = ops.moe_dispatch
+
+    def first_dispatch(x, expert, pos, **kw):
+        if not layer0:
+            layer0.append((x.detach().clone(), expert.clone(), pos.clone(),
+                           kw))
+        return dispatch(x, expert, pos, **kw)
+
+    losses, gnorms, step_s, routing = [], [], [], []
+    reg.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(FAMILY_STEPS):
+        ops.moe_dispatch = first_dispatch if i == 0 else dispatch
+        try:
+            t1 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch_for(
+                cfg, i, FAMILY_B, FAMILY_S), i)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t1)
+        finally:
+            ops.moe_dispatch = dispatch
+        gnorms.append(float(metrics["grad_norm"]))
+        routing.append({k: int(metrics[k]) for k in tfm.AUX_KEYS
+                        if k != "lb_loss"})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = reg.launch_counts()
+    want = expected(cfg, FAMILY_STEPS)
+    check(launches == want,
+          f"{arch} training launched {launches}; expected {want}")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{arch} losses {losses}, grad norms {gnorms}")
+    for k, v in launches.items():
+        main_launches[k] += v
+    out[arch] = report(arch, cfg, losses, gnorms, step_s, wall, launches)
+    out[arch]["routing"] = routing
+    print(f"train: {arch} routing counters a step (4 layers, "
+          f"{FAMILY_B * FAMILY_S * cfg.moe.top_k * MOONSHOT_TRAIN_LAYERS} "
+          f"slots): {routing}", flush=True)
+    lap(f"{arch} steps")
+    out[arch]["traced"] = traced_step(arch, cfg, params, opt)
+    del params, opt, step, metrics
+    torch.cuda.empty_cache()
+    lap(f"{arch} traced step")
+    x0, e0, p0, kw0 = layer0[0]
+    cap = moe.capacity_for(cfg, FAMILY_B * FAMILY_S)      # 480 at 4 x 1024
+    check(tuple(x0.shape) == (FAMILY_B * FAMILY_S, cfg.d_model)
+          and (kw0["n_experts"], kw0["capacity"]) == (cfg.moe.n_experts,
+                                                      cap),
+          f"layer 0 dispatched {tuple(x0.shape)} into {kw0}")
+    out.update(family_moe_checks(torch, dev, layer0[0]))
+    del layer0, x0, e0, p0
+    torch.cuda.empty_cache()
+    lap("moe_dispatch backward checks")
+
+    # (e) float32 at full width and 4 layers (hymba 16), kernels against
+    # twins
+    f32 = {}
+    for arch, layers, swap in (
+            ("rwkv6_1_6b", FAMILY_F32_LAYERS, ()),
+            ("hymba_1_5b", HYMBA_F32_LAYERS, ()),
+            ("moonshot_v1_16b_a3b", FAMILY_F32_LAYERS, ("moe_dispatch",))):
+        cfg32 = dataclasses.replace(cb.get(arch), n_layers=layers,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+        params = tfm.init_params(
+            cfg32, torch.Generator(device=dev).manual_seed(0), dev
+        ).requires_grad_(True)
+        leaves = tfm.tree_leaves(params)
+        batch = {"tokens": torch.as_tensor(batch_for(
+            cfg32, 0, FAMILY_F32_B, FAMILY_S)["tokens"], device=dev)}
+
+        def loss_and_grads():
+            loss, _ = tfm.loss_fn(params, cfg32, batch)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        k_loss, k_grads = loss_and_grads()
+        ops.set_impl("ref", *swap)
+        try:
+            r_loss, r_grads = loss_and_grads()
+        finally:
+            ops.set_impl(None)
+        k_gn, r_gn = float(global_norm(k_grads)), float(global_norm(r_grads))
+        loss_err = abs(float(k_loss) - float(r_loss)) / abs(float(r_loss))
+        gn_err = abs(k_gn - r_gn) / r_gn
+        leaf_err = max(rel_err(a, b) for a, b in zip(k_grads, r_grads))
+        f32[arch] = dict(layers=layers, loss=float(k_loss),
+                         twin_loss=float(r_loss), loss_rel_err=loss_err,
+                         grad_norm=k_gn, twin_grad_norm=r_gn,
+                         grad_norm_rel_err=gn_err, max_leaf_rel_err=leaf_err)
+        if swap:
+            bitwise = torch.equal(k_loss, r_loss) and all(
+                torch.equal(a, b) for a, b in zip(k_grads, r_grads))
+            f32[arch]["bitwise"] = bitwise
+            check(bitwise, f"float32 {arch} with only the dispatch swapped: "
+                  f"loss {float(k_loss)} vs {float(r_loss)}, largest leaf "
+                  f"error {leaf_err}")
+            gate = "loss and every gradient bitwise equal"
+        else:
+            check(math.isfinite(float(k_loss))
+                  and loss_err <= TRAIN_F32_LOSS_TOL
+                  and gn_err <= TRAIN_F32_GNORM_TOL,
+                  f"float32 {arch}: loss {float(k_loss)} vs {float(r_loss)},"
+                  f" grad norm {k_gn} vs {r_gn}")
+            gate = (f"loss rel err {loss_err:.3g} <= {TRAIN_F32_LOSS_TOL}, "
+                    f"grad norm rel err {gn_err:.3g} <= {TRAIN_F32_GNORM_TOL}")
+        print(f"train (float32, {FAMILY_F32_B}x{FAMILY_S}, {layers} layers) "
+              f"{arch}, kernels against "
+              f"{'the dispatch twin' if swap else 'twins'}: loss "
+              f"{float(k_loss):.6f} (twin {float(r_loss):.6f}), grad norm "
+              f"{k_gn:.6f} (twin {r_gn:.6f}); {gate}; largest leaf error "
+              f"{leaf_err:.3g} of its max", flush=True)
+        del params, leaves, k_grads, r_grads, batch
+        torch.cuda.empty_cache()
+        lap(f"{arch} float32")
+    out["f32"] = f32
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"family training phase took {out['phase_s']:.1f} s", flush=True)
+    return main_launches, out
 
 
 def main() -> int:
@@ -2827,6 +3384,13 @@ def run(torch) -> int:
     # through the quick example's run), the flash backward against its twin
     train_launches, report["train"] = train_phase(torch, dev, reg)
     flash_row["launches"] += train_launches
+
+    # 13. this slice's path: training rwkv6_1_6b, hymba_1_5b and
+    # moonshot_v1_16b_a3b, the backwards of rwkv6_scan and moe_dispatch
+    family_launches, report["train_families"] = family_phase(torch, dev,
+                                                             reg)
+    for row in (flash_row, rwkv_row, moe_row):
+        row["launches"] += family_launches[row["name"]]
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -2882,6 +3446,23 @@ def run(torch) -> int:
         flash_train_max_errors={
             k: max(e[k] for e in tr["flash_train_errors"].values())
             for k in ("out", "lse", "dq", "dk", "dv")})}))
+    tf = report["train_families"]
+    print(json.dumps({"train_families": dict(
+        {arch: dict({k: tf[arch][k] for k in (
+            "n_layers", "warm_step_s", "tokens_per_s", "peak_gib",
+            "losses", "grad_norms", "launches")},
+            traced={k: v for k, v in tf[arch]["traced"].items()
+                    if k != "top"})
+         for arch in ("rwkv6_1_6b", "hymba_1_5b", "moonshot_v1_16b_a3b")},
+        moonshot_routing=tf["moonshot_v1_16b_a3b"]["routing"],
+        f32=tf["f32"], rwkv_timed=tf["rwkv_timed"],
+        rwkv_grad_max_errors={
+            k: max(e[k] for e in tf["rwkv_grad_errors"].values())
+            for k in ("out", "state", "dr", "dk", "dv", "dw", "du",
+                      "dstate")},
+        ssm_errors=tf["ssm_errors"], ssm_bwd_ms=tf["ssm_bwd_ms"],
+        moe_bwd_ms=tf["moe_bwd_ms"], moe_bwd_bound_ms=tf["moe_bwd_bound_ms"],
+        phase_s=tf["phase_s"])}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,11 @@ twin sums the rows (as the reference's ``.at[idx].add``), the kernel keeps
 the row of the highest token (as the Pallas kernel's in-order last write).
 Unlike the TPU wrapper, which dispatches only the first
 ``T // 256 * 256`` tokens, the kernel takes any T.
+
+:class:`MoEDispatch` makes the dispatch differentiable in x: its forward
+is :func:`moe_dispatch` (the kernel on the card), its backward the gather
+of ``ref.moe_dispatch_backward``, the twin's autograd backward op for op,
+so the kernel's gradient equals the twin's bit for bit.
 """
 
 from __future__ import annotations
@@ -109,3 +114,22 @@ def moe_dispatch(x: torch.Tensor, expert: torch.Tensor, pos: torch.Tensor,
         vec_bytes(x.data_ptr(), out.data_ptr(), row_bytes), reg.stream())
     reg.launched("moe_dispatch", err)
     return out
+
+
+class MoEDispatch(torch.autograd.Function):
+    """:func:`moe_dispatch`, and ``ref.moe_dispatch_backward`` (range
+    ``moe_dispatch_backward``) for x; the int32 tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, expert, pos, n_experts, capacity):
+        ctx.save_for_backward(expert, pos)
+        ctx.sizes = (n_experts, capacity)
+        return moe_dispatch(x, expert, pos, n_experts=n_experts,
+                            capacity=capacity)
+
+    @staticmethod
+    def backward(ctx, g):
+        expert, pos = ctx.saved_tensors
+        with torch.profiler.record_function("moe_dispatch_backward"):
+            dx = ref.moe_dispatch_backward(g, expert, pos, *ctx.sizes)
+        return dx, None, None, None, None

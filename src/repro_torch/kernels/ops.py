@@ -19,13 +19,17 @@ result (the chunked forms run the same sequential steps), so here neither
 takes one: ``rwkv6``'s twin walks the steps one by one
 (``ref.rwkv6_naive``), and so does ``ssm_scan`` (``ref.ssm_scan``).
 
-Gradients: ``flash_attention`` is differentiable on both paths (the
-kernel's forward with the reference's chunked backward on the card, the
-twin's ``autograd.Function`` on the CPU).  The RWKV6 and MoE-dispatch
-kernels have no backward in either package, so on the card ``rwkv6`` and
-``moe_dispatch`` raise ``NotImplementedError`` where grad is enabled and an
-input requires grad, instead of cutting the graph; their plain twins stay
-differentiable.
+Gradients: every op is differentiable on both paths.  On the card,
+where grad is enabled and an input requires it, each kernel runs inside
+an ``autograd.Function`` whose forward is the launch and whose backward
+is plain PyTorch (neither package has a backward kernel):
+``flash_attention`` the reference's chunked ``_attn_bwd``, ``rwkv6``
+``ref.rwkv6_backward`` (:class:`~repro_torch.kernels.rwkv6_scan.RWKV6Scan`),
+``moe_dispatch`` the twin's gather
+(:class:`~repro_torch.kernels.moe_dispatch.MoEDispatch`); without grad
+they launch the kernel alone.  On the CPU the twins are differentiated by
+autograd (flash through its own ``autograd.Function``).  ``ssm_scan``
+runs its steps through ``ref.SSMScan`` under grad on either device.
 """
 
 from __future__ import annotations
@@ -53,14 +57,8 @@ def _plain(op: str, x, name: str) -> bool:
     return _FORCE[op] == "ref"
 
 
-def _no_backward(op: str, *tensors) -> None:
-    """Refuse a kernel launch whose output autograd would have to go
-    through: the kernel has no backward."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{op} on the card has no backward: its kernel's gradient waits "
-            "for ROADMAP item 10b (train on the CPU, or under "
-            "set_impl('ref'))")
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def set_impl(impl, *ops) -> None:
@@ -93,8 +91,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
 def rwkv6(r, k, v, w, u, state):
     if _plain("rwkv6", r, "r"):
         return rk.plain(r, k, v, w, u, state)
-    if r.is_cuda:
-        _no_backward("rwkv6", r, k, v, w, u, state)
+    if r.is_cuda and _needs_grad(r, k, v, w, u, state):
+        return rk.RWKV6Scan.apply(r, k, v, w, u, state)
     return rk.rwkv6(r, k, v, w, u, state)
 
 
@@ -113,8 +111,8 @@ def ssm_decode(x, dt, A, Bm, Cm, D, state):
 def moe_dispatch(x, expert, pos, *, n_experts: int, capacity: int):
     if _plain("moe_dispatch", x, "x"):
         return ref.moe_dispatch(x, expert, pos, n_experts, capacity)
-    if x.is_cuda:
-        _no_backward("moe_dispatch", x)
+    if x.is_cuda and _needs_grad(x):
+        return md.MoEDispatch.apply(x, expert, pos, n_experts, capacity)
     return md.moe_dispatch(x, expert, pos, n_experts=n_experts,
                            capacity=capacity)
 

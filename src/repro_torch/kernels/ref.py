@@ -27,16 +27,22 @@ oracle and ``rwkv6_decode`` the one-token step (no kernel in either
 package).  All three compute in float32 and return ``out`` in ``r.dtype``
 and the state in float32.  Layout: r, k, v, w ``(B, H, T, Dh)``; u
 ``(H, Dh)``; the state ``(B, H, Dh, Dh)`` maps key dim to value dim.
+``rwkv6_backward`` is the recurrence's gradient as torch ops, the backward
+of the kernel's ``autograd.Function``; the twins are differentiated by
+autograd.
 
 ``ssm_scan`` and ``ssm_decode`` are the selective-SSM scan and step of
 hymba's parallel SSM heads; neither package has a kernel for them.
-``ssm_scan`` walks the steps (any T); ``ssm_chunked`` keeps the
-reference's chunking for the parity tests.  Layout: x, dt ``(B, T, Di)``;
-A ``(Di, N)``; Bm, Cm ``(B, T, N)``; the state ``(B, Di, N)``.
+``ssm_scan`` walks the steps (any T) in place without grad, and through
+:class:`SSMScan` (the same loop forward, ``ssm_backward`` backward) with
+it; ``ssm_chunked`` keeps the reference's chunking for the parity tests.
+Layout: x, dt ``(B, T, Di)``; A ``(Di, N)``; Bm, Cm ``(B, T, N)``; the
+state ``(B, Di, N)``.
 
 ``moe_dispatch`` is the plain twin of the MoE-dispatch kernel of
 :mod:`repro_torch.kernels.moe_dispatch` (the reference's scatter, with the
-duplicates summed); ``moe_combine`` has no kernel in either package.
+duplicates summed), ``moe_dispatch_backward`` its gradient (the kernel's
+backward); ``moe_combine`` has no kernel in either package.
 """
 
 from __future__ import annotations
@@ -308,6 +314,79 @@ def rwkv6_decode(r, k, v, w, u, state):
     return out.to(r.dtype), new
 
 
+#: steps whose states ``rwkv6_backward`` recomputes and walks in one block
+RWKV_STEP_BLOCK = 64
+
+
+def rwkv6_backward(r, k, v, w, u, state, dout, dstate):
+    """The gradient of the RWKV6 recurrence (of ``rwkv6_naive``, and of the
+    reference's ``rwkv6_chunked``, which the chunk does not change), as
+    torch ops.  r/k/v/w ``(B, H, T, Dh)`` and u, state as the forward took
+    them; ``dout`` the cotangent of ``out``, ``dstate`` of the final state.
+    Returns (dr, dk, dv, dw, du, dstate0), each in its input's dtype.
+
+    Going backward from ``dS_T = dstate``, with ``g_t = dout_t``:
+    ``dr_t = S_{t-1} g_t + u k_t (v_t · g_t)``, ``du = Σ r_t k_t (v_t ·
+    g_t)``, ``dk_t = dS_t v_t + r_t u (g_t · v_t)``, ``dv_t = dS_tᵀ k_t + g_t
+    (r_t u · k_t)``, ``dw_t = Σ_d dS_t ⊙ S_{t-1}`` and ``dS_{t-1} = w_t ⊙
+    dS_t + r_t ⊗ g_t``.  A first pass keeps the state at the start of each
+    block of :data:`RWKV_STEP_BLOCK` steps; the blocks are then walked
+    backward, each recomputing its states from its start and running the
+    reverse recurrence (one ``addcmul`` a step each), the rest batched over
+    the block.  Everything is float32, as the forward computes."""
+    B, H, T, Dh = r.shape
+    # time-major (T, B, H, Dh) float32 views of the inputs
+    rf, kf, vf, wf, gf = (a.float().permute(2, 0, 1, 3)
+                          for a in (r, k, v, w, dout))
+    uf = u.float()
+    blocks = [slice(t0, min(t0 + RWKV_STEP_BLOCK, T))
+              for t0 in range(0, T, RWKV_STEP_BLOCK)]
+
+    def kv_of(part):
+        return kf[part][..., :, None] * vf[part][..., None, :]
+
+    starts = [state.float()]
+    for part in blocks[:-1]:
+        kv, wb, s = kv_of(part), wf[part], starts[-1]
+        for t in range(kv.shape[0]):
+            s = torch.addcmul(kv[t], wb[t][..., None], s)
+        starts.append(s)
+    dr, dk, dv, dw = (torch.empty((T, B, H, Dh), dtype=torch.float32,
+                                  device=r.device) for _ in range(4))
+    du = torch.zeros((H, Dh), dtype=torch.float32, device=r.device)
+    ds = dstate.float()
+    for part, s0 in reversed(list(zip(blocks, starts))):
+        rb, kb, vb, wb, gb = (a[part] for a in (rf, kf, vf, wf, gf))
+        kv = kv_of(part)
+        tb = kv.shape[0]
+        # the states before each step of the block: S[t] = S_{t0 + t - 1}
+        S = torch.empty_like(kv)
+        S[0] = s0
+        for t in range(tb - 1):
+            torch.addcmul(kv[t], wb[t][..., None], S[t], out=S[t + 1])
+        # the cotangents of the states after each step: dS[t] of S_{t0+t}
+        rg = rb[..., :, None] * gb[..., None, :]
+        dS = torch.empty_like(kv)
+        dS[tb - 1] = ds
+        for t in range(tb - 1, 0, -1):
+            torch.addcmul(rg[t], wb[t][..., None], dS[t], out=dS[t - 1])
+        ds = torch.addcmul(rg[0], wb[0][..., None], dS[0])
+        vg = (vb * gb).sum(-1, keepdim=True)                # (tb, B, H, 1)
+        ru = rb * uf
+        dr[part] = torch.matmul(S, gb[..., None])[..., 0] + uf * kb * vg
+        du += (rb * kb * vg).sum((0, 1))
+        dk[part] = torch.matmul(dS, vb[..., None])[..., 0] + ru * vg
+        dv[part] = (torch.matmul(kb[..., None, :], dS)[..., 0, :]
+                    + gb * (ru * kb).sum(-1, keepdim=True))
+        dw[part] = (dS * S).sum(-1)
+
+    def back(a, like):         # (T, B, H, Dh) -> (B, H, T, Dh), its dtype
+        return a.permute(1, 2, 0, 3).to(like.dtype)
+
+    return (back(dr, r), back(dk, k), back(dv, v), back(dw, w),
+            du.to(u.dtype), ds.to(state.dtype))
+
+
 # ---------------------------------------------------------------------------
 # Selective SSM scan (mamba-style, for hymba's parallel SSM heads)
 # ---------------------------------------------------------------------------
@@ -316,18 +395,21 @@ def rwkv6_decode(r, k, v, w, u, state):
 SSM_STEP_BLOCK = 64
 
 
-def _ssm_steps(xf, dtf, Af, Bf, Cf, h):
+def _ssm_steps(xf, dtf, Af, Bf, Cf, h, starts=None):
     """``h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t``, ``y_t = C_t h_t``
     over the T steps of float32 ``(B, T, Di)`` / ``(B, T, N)`` rows, from
     the ``(B, Di, N)`` state ``h``.  The elementwise terms ``exp(dt A)``
     and ``(dt x) B`` of a block of steps are computed in one pass each (the
     same operations, so the same values); the Python loop is left with
     the recurrence, and the C·h contractions of a block run as one batched
-    product.  Returns (h, y (B, T, Di))."""
+    product.  ``starts``, when given, is a list that receives the state at
+    the start of each block.  Returns (h, y (B, T, Di))."""
     T = xf.shape[1]
     ys = []
     for t0 in range(0, T, SSM_STEP_BLOCK):
         part = slice(t0, min(t0 + SSM_STEP_BLOCK, T))
+        if starts is not None:
+            starts.append(h.clone())
         # time-major (tb, B, ...) so that the rows of step t are contiguous
         dtb = dtf[:, part].transpose(0, 1)
         dA = torch.exp(dtb[..., None] * Af)                 # (tb, B, Di, N)
@@ -342,15 +424,85 @@ def _ssm_steps(xf, dtf, Af, Bf, Cf, h):
     return h.clone(), torch.cat(ys, dim=1)
 
 
+def ssm_backward(xf, dtf, Af, Bf, Cf, starts, gy, gh):
+    """The gradient of :func:`_ssm_steps` (float32 throughout): given the
+    block start states its forward kept and the cotangents ``gy`` of ``y``
+    and ``gh`` of the final state, returns (dx, ddt, dA, dB, dC, dstate).
+
+    The blocks are walked backward.  Each recomputes its states from its
+    start (one ``addcmul`` a step), then runs the reverse recurrence of the
+    state's cotangent ``G_t = G_{t+1} exp(dt_{t+1} A) + gy_t C_t`` (one a
+    step); the rest are batched products over the block: ``exp(dt A)``'s
+    cotangent ``G_t h_{t-1}``, ``(dt x) B``'s ``G_t``, ``C``'s ``gy_t
+    h_t``."""
+    T = xf.shape[1]
+    dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    g = gh
+    for t0, h0 in reversed(list(zip(range(0, T, SSM_STEP_BLOCK), starts))):
+        part = slice(t0, min(t0 + SSM_STEP_BLOCK, T))
+        dtb, xb, Bb, Cb, gyb = (a[:, part].transpose(0, 1)
+                                for a in (dtf, xf, Bf, Cf, gy))
+        eA = torch.exp(dtb[..., None] * Af)                 # (tb, B, Di, N)
+        dtx = dtb * xb
+        dBx = dtx[..., None] * Bb[:, :, None, :]
+        tb = eA.shape[0]
+        hs = torch.empty((tb + 1,) + tuple(h0.shape), dtype=h0.dtype,
+                         device=h0.device)
+        hs[0] = h0
+        for t in range(tb):
+            torch.addcmul(dBx[t], eA[t], hs[t], out=hs[t + 1])
+        G = gyb[..., None] * Cb[:, :, None, :]
+        G[tb - 1] += g
+        for t in range(tb - 2, -1, -1):
+            G[t].addcmul_(G[t + 1], eA[t + 1])
+        g = G[0] * eA[0]
+        dz = G * hs[:-1] * eA                 # the cotangent of dt A
+        ddtx = torch.matmul(G, Bb[..., None])[..., 0]
+        ddt[:, part] = ((dz * Af).sum(-1) + ddtx * xb).transpose(0, 1)
+        dx[:, part] = (ddtx * dtb).transpose(0, 1)
+        dA += torch.einsum("tbdn,tbd->dn", dz, dtb)
+        dB[:, part] = torch.matmul(dtx[:, :, None, :], G)[:, :, 0] \
+            .transpose(0, 1)
+        dC[:, part] = torch.matmul(gyb[:, :, None, :], hs[1:])[:, :, 0] \
+            .transpose(0, 1)
+    return dx, ddt, dA, dB, dC, g
+
+
+class SSMScan(torch.autograd.Function):
+    """:func:`_ssm_steps` (the in-place step loop, so the same values)
+    keeping its block start states, and :func:`ssm_backward`.  Inputs are
+    the float32 x, dt, A, B, C and state; returns (y, final state)."""
+
+    @staticmethod
+    def forward(ctx, xf, dtf, Af, Bf, Cf, h):
+        starts = []
+        h, y = _ssm_steps(xf, dtf, Af, Bf, Cf, h, starts)
+        ctx.save_for_backward(xf, dtf, Af, Bf, Cf, *starts)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        xf, dtf, Af, Bf, Cf, *starts = ctx.saved_tensors
+        with torch.profiler.record_function("ssm_scan_backward"):
+            return ssm_backward(xf, dtf, Af, Bf, Cf, starts, gy, gh)
+
+
 def ssm_scan(x, dt, A, Bm, Cm, D, state):
     """``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``, ``y_t = C_t h_t + D
     x_t``, step by step, any T.  x/dt: (B, T, Di); A: (Di, N); Bm/Cm:
     (B, T, N); D: (Di,); state: (B, Di, N).  Everything is cast to float32
     first and ``h`` is carried in float32; returns (y in ``x.dtype``,
-    state float32)."""
+    state float32).  Differentiable in every input: where grad is enabled
+    and an input requires it, the steps run through :class:`SSMScan`
+    (the same forward values), else through the step loop alone."""
     xf, dtf = x.float(), dt.float()
-    h, y = _ssm_steps(xf, dtf, A.float(), Bm.float(), Cm.float(),
-                      state.float())
+    args = (xf, dtf, A.float(), Bm.float(), Cm.float(), state.float())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y, h = SSMScan.apply(*args)
+    else:
+        h, y = _ssm_steps(*args)
     y = y + xf * D.float()[None, None, :]
     return y.to(x.dtype), h
 
@@ -413,6 +565,28 @@ def moe_dispatch(x, expert, pos, n_experts: int, capacity: int):
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
     buf.index_put_((idx,), src, accumulate=True)
     return buf[:E * C].reshape(E, C, D)
+
+
+def moe_dispatch_backward(g, expert, pos, n_experts: int, capacity: int):
+    """The gradient of :func:`moe_dispatch` in x: each kept slot's buffer
+    row gathered back to its token and the k slots summed; a dropped slot
+    (``expert`` or ``pos`` -1, or a flat row past ``E * C``) reads the zero
+    sink row.  The ops and their order are autograd's backward of the
+    twin (the slice into a zero buffer with its sink row, the
+    ``index_put_``'s gather, ``repeat_interleave``'s sum over the k copies),
+    so the two agree bit for bit.  g: ``(E, C, D)``; returns ``(T, D)`` in
+    ``g.dtype``."""
+    E, C = n_experts, capacity
+    T, k = expert.shape
+    D = g.shape[-1]
+    flat_e = expert.reshape(-1).long()
+    flat_p = pos.reshape(-1).long()
+    idx = flat_e * C + flat_p
+    ok = (flat_e >= 0) & (flat_p >= 0) & (idx < E * C)
+    idx = torch.where(ok, idx, E * C)
+    gbuf = torch.zeros((E * C + 1, D), dtype=g.dtype, device=g.device)
+    gbuf[:E * C] = g.reshape(E * C, D)
+    return gbuf[idx].view(T, k, D).sum(1, keepdim=True).view(T, D)
 
 
 def moe_combine(y, expert, pos, weight, n_tokens: int):

@@ -23,6 +23,11 @@ of ``r``: the model's ``(B, T, H, Dh)`` buffers viewed as ``(B, H, T, Dh)``
 go in and come out without a transpose copy.  Unlike the TPU wrapper, which
 walks ``T // 128 * 128`` steps and leaves the rest of the output unwritten,
 it takes any T.
+
+:class:`RWKV6Scan` makes the recurrence differentiable: its forward is
+:func:`rwkv6` (the kernel on the card), its backward the gradient as torch
+ops (:func:`repro_torch.kernels.ref.rwkv6_backward`); neither package has a
+backward kernel.
 """
 
 from __future__ import annotations
@@ -137,3 +142,21 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.stride(0), out.stride(1), out.stride(2), reg.stream())
     reg.launched("rwkv6_scan", err)
     return out, s_out
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """:func:`rwkv6` saving its inputs, and ``ref.rwkv6_backward`` (range
+    ``rwkv6_backward``).  Returns ``(out, state)``; the gradients come in
+    each input's dtype and shape, so autograd takes them for strided views
+    such as the model's ``(B, T, H, Dh)`` buffers seen as ``(B, H, T,
+    Dh)``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return rwkv6(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        with torch.profiler.record_function("rwkv6_backward"):
+            return ref.rwkv6_backward(*ctx.saved_tensors, dout, dstate)

@@ -13,7 +13,8 @@ package does and the port keeps:
   ``softplus`` is ``jax.nn.softplus``'s ``logaddexp(v, 0)``;
 * ``A = -exp(A_log)`` in float32; the scan and the step are
   :func:`repro_torch.kernels.ops.ssm_scan` / ``ssm_decode`` (no kernel in
-  either package).
+  either package).  The scan is differentiable in every input
+  (``ref.SSMScan``), so the hybrid block trains.
 """
 
 from __future__ import annotations

@@ -43,11 +43,10 @@ of S text tokens fills ``frontend_len + S`` cache slots.  ``loss_fn``
 is the mean next-token cross-entropy (encoder-only: against
 ``targets``; vision: over the text positions) plus 0.01 times the MoE
 load-balance loss, through :class:`_ce_mean`, the reference's custom VJP:
-no ``(N, V)`` float32 gradient is kept.  RWKV6, MoE and hymba training
-need backwards the port does not have yet (ROADMAP item 10b): the RWKV6
-and MoE-dispatch kernels refuse under grad on the card (see
-:mod:`repro_torch.kernels.ops`), and the plain SSM scan writes its steps
-in place.
+no ``(N, V)`` float32 gradient is kept.  Every block kind trains: the
+kernels' backwards are plain PyTorch (see :mod:`repro_torch.kernels.ops`),
+and a rematerialised group routes its MoE layers again from the same host
+keys, so the recompute dispatches exactly as the first pass did.
 
 The routing key ``rng`` is a pair of uint32 words
 (:mod:`repro_torch.core.prng`), ``PRNGKey(0)`` by default as in the JAX

@@ -4,8 +4,9 @@ PyTorch twin at the main path's width, the golden cases bitwise on the
 smoke-config serving (gemma2, rwkv6 and moonshot) on the card against
 the CPU, the hybrid and frontend families (hymba, pixtral, hubert)
 through the kernels against their plain twins, and training (the flash
-kernel's lse, its gradients against the twin's, the kernels without a
-backward refusing under grad, a smoke train step).  Every
+kernel's lse, the gradients of the flash, RWKV6 and MoE-dispatch
+``autograd.Function``s against the twins', smoke train steps of every
+family).  Every
 test skips without a card (the kernels have no CPU mode); on one, run them
 with
 
@@ -897,8 +898,7 @@ def test_smoke_moe_serving_on_the_card_matches_the_cpu():
 
 
 # ---------------------------------------------------------------------------
-# training: the kernel's lse, the flash backward, the ops without one, a
-# smoke train step
+# training: the kernel's lse, the kernels' backwards, smoke train steps
 # ---------------------------------------------------------------------------
 
 #: (B, H, KV, S, Dh, dtype, window, softcap, causal)
@@ -963,50 +963,113 @@ def test_flash_gradients_match_the_twins(shape):
         assert float(err) <= tol
 
 
+#: (B, H, T, Dh): rwkv6_1_6b's head dim at a ragged T, and the smoke
+#: config's
+TRAIN_RWKV_SHAPES = {"dh64_ragged": (2, 4, 200, 64),
+                     "dh16": (2, 4, 96, 16)}
+
+
 @pytest.mark.gpu
-def test_kernels_without_a_backward_refuse_under_grad():
-    """On the card ``ops.rwkv6`` and ``ops.moe_dispatch`` raise where
-    autograd would need their backward; without grad, and through the
-    twins, they run."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", list(TRAIN_RWKV_SHAPES))
+def test_rwkv6_gradients_match_the_twins(shape, dtype):
+    """Under grad ``ops.rwkv6`` goes through ``RWKV6Scan`` (one kernel
+    launch, the backward in torch ops) on the model's layout, ``(B, T, H,
+    Dh)`` buffers viewed as ``(B, H, T, Dh)``, from a nonzero state: the
+    gradients of r, k, v, w, u and the state within 3e-2 (bf16) and 1e-4
+    (float32) of each one's largest magnitude of autograd's through the
+    twin."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import ops
+
+    B, H, T, Dh = TRAIN_RWKV_SHAPES[shape]
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bufs = [torch.randn((B, T, H, Dh), generator=gen, device="cuda")
+            for _ in range(3)]
+    bufs.append(torch.rand((B, T, H, Dh), generator=gen, device="cuda")
+                * 0.5 + 0.45)
+    leaves = [b.to(dt).requires_grad_(True) for b in bufs] + [
+        (torch.randn((H, Dh), generator=gen, device="cuda") * 0.3
+         ).requires_grad_(True),
+        (torch.randn((B, H, Dh, Dh), generator=gen, device="cuda") * 0.3
+         ).requires_grad_(True)]
+    dout = torch.randn((B, H, T, Dh), generator=gen, device="cuda")
+    dstate = torch.randn((B, H, Dh, Dh), generator=gen, device="cuda")
+
+    def grads(fn):
+        out, s = fn(*(b.transpose(1, 2) for b in leaves[:4]), *leaves[4:])
+        return out, torch.autograd.grad(
+            (out.float() * dout).sum() + (s * dstate).sum(), leaves)
+
+    reg.reset_launches()
+    out, got = grads(ops.rwkv6)
+    assert type(out.grad_fn).__name__ == "RWKV6ScanBackward"
+    assert reg.launch_counts()["rwkv6_scan"] == 1
+    _, want = grads(rk.plain)
+    torch.cuda.synchronize()
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    for g, w, leaf in zip(got, want, leaves):
+        assert g.dtype == leaf.dtype and g.shape == leaf.shape
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert float(err) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_dispatch_gradient_is_the_twins_bitwise(dtype):
+    """Under grad ``ops.moe_dispatch`` goes through ``MoEDispatch`` (one
+    kernel launch): its gradient equals autograd's through the twin bit
+    for bit, at a routing's tables and with dropped slots."""
     _need_card()
     from repro_torch.kernels import ops
 
-    r, k, v, w = (torch.rand((1, 2, 8, 64), device="cuda") for _ in range(4))
-    u = torch.rand((2, 64), device="cuda")
-    state = torch.zeros((1, 2, 64, 64), device="cuda")
-    r.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="10b"):
-        ops.rwkv6(r, k, v, w, u, state)
-    with torch.no_grad():
-        ops.rwkv6(r, k, v, w, u, state)
-    ops.set_impl("ref", "rwkv6")
-    try:
-        out, _ = ops.rwkv6(r, k, v, w, u, state)
-        assert out.grad_fn is not None
-    finally:
-        ops.set_impl(None)
-    x = torch.rand((4, 16), device="cuda", requires_grad=True)
-    expert = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    pos = torch.arange(4, dtype=torch.int32, device="cuda")[:, None]
-    with pytest.raises(NotImplementedError, match="moe_dispatch"):
-        ops.moe_dispatch(x, expert, pos, n_experts=1, capacity=4)
-    with torch.no_grad():
-        ops.moe_dispatch(x, expert, pos, n_experts=1, capacity=4)
+    T, k, E, C, D = 512, 4, 16, 96, 256
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((T, E), generator=gen, device="cuda") * 2
+    r = balance.route(logits, k, C, balance.default_expert_groups(
+        E, 4, device="cuda"), strategy="drop")
+    assert int(r.stats["ntasks_dropped"]) > 0
+    x = torch.randn((T, D), generator=gen, device="cuda").to(
+        getattr(torch, dtype)).requires_grad_(True)
+    g = torch.randn((E, C, D), generator=gen, device="cuda").to(x.dtype)
+    reg.reset_launches()
+    out = ops.moe_dispatch(x, r.expert, r.pos, n_experts=E, capacity=C)
+    assert type(out.grad_fn).__name__ == "MoEDispatchBackward"
+    assert reg.launch_counts()["moe_dispatch"] == 1
+    (got,) = torch.autograd.grad(out, x, g)
+    (want,) = torch.autograd.grad(
+        ref.moe_dispatch(x, r.expert, r.pos, E, C), x, g)
+    assert torch.equal(out, ref.moe_dispatch(x.detach(), r.expert, r.pos,
+                                             E, C))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
-def test_smoke_train_step_on_the_card_matches_the_cpu():
-    """Two gemma2 smoke train steps (float32) on the card and on the CPU
-    from the same weights: each step's loss and gradient norm within 1e-4
-    (the second step's after one AdamW update on each device); two flash
-    launches per layer a step (remat recomputes each forward)."""
+@pytest.mark.parametrize("arch", ["gemma2_2b", "rwkv6_1_6b", "hymba_1_5b",
+                                  "moonshot_v1_16b_a3b"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(arch):
+    """Two smoke train steps (float32) on the card and on the CPU from the
+    same weights: each step's loss and gradient norm within 1e-4 (the
+    second step's after one AdamW update on each device); two launches of
+    each layer's kernels a step (remat recomputes each forward): flash on
+    every attention layer, ``rwkv6_scan`` on every RWKV6 layer,
+    ``moe_dispatch`` on every MoE layer."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.data.pipeline import batch_for
     from repro_torch.launch import steps
     from repro_torch.optim import adamw_init
 
-    cfg = cb.smoke_config("gemma2_2b")
+    cfg = cb.smoke_config(arch)
+    kinds = tfm.pattern(cfg)
+    n = cfg.n_layers // len(kinds)
+    want_launches = dict.fromkeys(reg.KERNELS, 0)
+    for kind in kinds:
+        want_launches["rwkv6_scan" if kind.rwkv else "flash_attention"] += \
+            2 * 2 * n
+        want_launches["moe_dispatch"] += 2 * 2 * n * kind.moe
     out = {}
     for device in ("cpu", "cuda"):
         params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
@@ -1020,8 +1083,8 @@ def test_smoke_train_step_on_the_card_matches_the_cpu():
                                         batch_for(cfg, i, 2, 64), i)
             out[device].append({k: float(metrics[k])
                                 for k in ("loss", "grad_norm", "lr")})
-        out[device].append(reg.launch_counts()["flash_attention"])
-    assert out["cuda"][2] == 2 * 2 * cfg.n_layers
+        out[device].append(reg.launch_counts())
+    assert out["cuda"][2] == want_launches
     for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
         for key in want:
             assert got[key] == pytest.approx(want[key], rel=1e-4), key

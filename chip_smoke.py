@@ -95,14 +95,15 @@ In order, it
    twin per call, bitwise, at the model's own layer-0 routing and seven
    more shapes, and its time beside the twin's, one ``index_put_`` call's
    and its bound;
-9. after phase 13, prints the ``kernels`` JSON line (``sched_step``'s
+9. after phase 14, prints the ``kernels`` JSON line (``sched_step``'s
    launches are the sweep's and the tuner's, ``flash_attention``'s those
-   of phases 6, 8, 11, 12's two training runs and 13's hymba and
-   moonshot, ``rwkv6_scan``'s phase 7's and 13's rwkv6, ``moe_dispatch``'s
-   phase 8's and 13's moonshot), the end-to-end rates, the
-   ``serve_hybrid`` line of phase 11, the tuner's summary, the ``train``
-   line of phase 12, the ``train_families`` line of phase 13, the card
-   line and last the device line;
+   of phases 6, 8, 11, 12's two training runs, 13's hymba and moonshot
+   and 14's gradient, ``rwkv6_scan``'s phase 7's and 13's rwkv6,
+   ``moe_dispatch``'s phase 8's and 13's moonshot), the end-to-end rates,
+   the ``serve_hybrid`` line of phase 11, the tuner's summary, the
+   ``train`` line of phase 12, the ``train_families`` line of phase 13,
+   the ``distributed`` line of phase 14, the card line and last the
+   device line;
 10. runs the eleventh slice's path, Table I by search, between phase 8
    and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
    ``cuda_fused``, launch counts zeroed before each part.  (a) Each of the
@@ -194,7 +195,30 @@ In order, it
    batch 2 × 1024, through the kernels against the twins: rwkv6 and hymba
    the loss within 1e-4 and the gradient norm within 1e-3 (relative),
    moonshot with only the dispatch swapped loss and every gradient
-   bitwise.
+   bitwise;
+14. runs the fifteenth slice's path, the distributed pieces on a world of
+   one, after phase 13 and before the lines of 9, every earlier model
+   freed first: (a) a one-rank NCCL process group (a ``file://`` store in
+   a temporary directory, destroyed at the end of the phase), the port's
+   ``make_test_mesh(1, 1)`` on the card by default with ``dp_axes``,
+   ``tp_size`` and ``dp_size`` checked, and ``make_production_mesh()``
+   refused for want of 256 ranks; (b) gemma2_2b at full width and depth
+   (bf16, seed-0 weights): one ``loss_fn`` value and gradient on phase
+   12's 4 x 1024 batch (2 x 26 flash launches and no other kernel), then
+   ``ef_compress_grads(grads, ef_init(params))`` on the card: ``g_hat``
+   and ``e'`` of four leaves and of a seeded 1000-element tensor (bf16 and
+   float32, a ragged last block) bitwise equal to the same function on the
+   CPU; a second call from the returned residual holds ``g + e == g_hat +
+   e'`` within float32 rounding plus ``g_hat``'s bf16 rounding (float32
+   rounding alone on the float32 tensor); its ms a call (CUDA events),
+   device ms and launches (profiler), peak memory and bound (12 bytes a
+   parameter); (c) ``hierarchical_psum_grads`` (intra ``("data",)`` and
+   ``("data", "model")``) and ``flat_psum_grads`` over that gradient on a
+   (1, 1, 1) ``("pod", "data", "model")`` mesh, each bitwise its input,
+   timed; (d) ``param_shardings`` and ``opt_shardings`` of gemma2_2b's
+   parameters and AdamW state as DTensors on the (1, 1) mesh
+   (``distribute_tree``), every ``full_tensor()`` bitwise its leaf, and
+   ``count_params`` 2 614 341 888, the leaves' sum.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -2813,6 +2837,258 @@ def family_phase(torch, dev, reg):
     return main_launches, out
 
 
+#: phase 14: the distributed pieces on a world of one.  (b) the leaves of
+#: gemma2_2b's gradient held card against CPU, and a seeded tensor of 1000
+#: elements (a ragged last block) in both types
+DIST_LEAVES = ("streams.0.attn.wq", "streams.0.mlp.wd", "streams.0.ln1",
+               "final_norm")
+DIST_PAD_N = 1000
+DIST_TIME_N = 5
+#: read bf16 g and float32 e, write bf16 g_hat and float32 e'
+EF_BYTES_PER_PARAM = 12
+GEMMA2_PARAMS = 2_614_341_888
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit: dtype, shape and every bit of every element."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
+    return bool((a == b).all())
+
+
+def dist_phase(torch, dev, reg):
+    """Phase 14: (a) a one-rank process group and the port's meshes on it;
+    (b) gemma2_2b's gradient at full width through ``ef_compress_grads``,
+    card against CPU bitwise, error feedback's identity, its time beside
+    its bound; (c) the tree and flat all-reduces on a (1, 1, 1) pod mesh,
+    bitwise the identity; (d) the sharding rules' placements as DTensors,
+    ``full_tensor`` bitwise.  Returns (the flash launches of (b)'s loss,
+    report)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init, ef_compress_grads, ef_init
+    from repro_torch.runtime import flat_psum_grads, hierarchical_psum_grads
+
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    store = tempfile.mkdtemp(prefix="repro_dist_")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    try:
+        # (a) the meshes: the default device is the card's
+        mesh = mesh_mod.make_test_mesh(
+            1, 1, device=None if dev.type == "cuda" else dev)
+        helpers = (mesh_mod.dp_axes(mesh), mesh_mod.tp_size(mesh),
+                   mesh_mod.dp_size(mesh))
+        check(mesh.device_type == dev.type
+              and mesh.mesh_dim_names == ("data", "model")
+              and helpers == (("data",), 1, 1),
+              f"make_test_mesh(1, 1): {mesh}, helpers {helpers}")
+        try:
+            mesh_mod.make_production_mesh(device=dev)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        check(refused is not None and "needs 256 ranks" in refused,
+              f"make_production_mesh on a world of one: {refused}")
+        out["mesh"] = dict(device_type=mesh.device_type,
+                           dp_axes=list(helpers[0]), tp_size=helpers[1],
+                           dp_size=helpers[2], production_refused=refused)
+        print(f"distributed (a): make_test_mesh(1, 1) on {mesh.device_type}:"
+              f" dp_axes {helpers[0]}, tp_size {helpers[1]}, dp_size "
+              f"{helpers[2]}; make_production_mesh refused: {refused}",
+              flush=True)
+
+        # (b) gemma2_2b's gradient (bf16, seed 0, phase 12's batch), then
+        # error-feedback compression on the card
+        cfg = cb.get("gemma2_2b")
+        params = tfm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev
+        ).requires_grad_(True)
+        leaves = tfm.tree_leaves(params)
+        names = [".".join(p) for p, _ in tfm.tree_items(params)]
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 batch_for(cfg, 0, TRAIN_B, TRAIN_S).items()}
+        reg.reset_launches()
+        loss, _ = tfm.loss_fn(params, cfg, batch)
+        grads = list(torch.autograd.grad(loss, leaves))
+        loss = float(loss.detach())
+        launches = reg.launch_counts()
+        want = 2 * cfg.n_layers
+        check(launches == dict(dict.fromkeys(reg.KERNELS, 0),
+                               flash_attention=want),
+              f"gemma2_2b's gradient launched {launches}; expected {want} "
+              "flash_attention launches and nothing else")
+        params.requires_grad_(False)
+        n_params = sum(g.numel() for g in grads)
+        check(math.isfinite(loss) and n_params == GEMMA2_PARAMS,
+              f"gemma2_2b: loss {loss}, {n_params} parameters")
+        out["grad"] = dict(loss=loss, n_params=n_params,
+                           flash_launches=launches["flash_attention"])
+        del loss, batch
+        ef = tfm.tree_leaves(ef_init(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.max_memory_allocated()
+        g_hat, e1 = ef_compress_grads(grads, ef)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        cpu = torch.device("cpu")
+        for name in DIST_LEAVES:
+            i = names.index(name)
+            c_hat, c_e = ef_compress_grads([grads[i].to(cpu)],
+                                           [ef[i].to(cpu)])
+            check(bits_equal(g_hat[i].to(cpu), c_hat[0])
+                  and bits_equal(e1[i].to(cpu), c_e[0]),
+                  f"ef_compress_grads on {name}: card and CPU differ")
+        rng = np.random.default_rng(14)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.from_numpy(rng.standard_normal(DIST_PAD_N).astype(
+                np.float32)).to(dtype)
+            e = torch.from_numpy((rng.standard_normal(DIST_PAD_N) * 0.01)
+                                 .astype(np.float32))
+            on_card = ef_compress_grads([g.to(dev)], [e.to(dev)])
+            on_cpu = ef_compress_grads([g], [e])
+            check(all(bits_equal(a[0].to(cpu), b[0])
+                      for a, b in zip(on_card, on_cpu)),
+                  f"ef_compress_grads on {DIST_PAD_N} {dtype} elements: "
+                  "card and CPU differ")
+            # one more call from the residual: g + e == g_hat + e' within
+            # float32 rounding (g_hat in float32 here)
+            if dtype == torch.float32:
+                (h2,), (e2,) = ef_compress_grads([g], on_cpu[1])
+                c = g + on_cpu[1][0]
+                check(bool(((h2 + e2 - c).abs()
+                            <= 2.0 ** -22 * c.abs()).all()),
+                      "error feedback's identity fails on the float32 "
+                      "tensor")
+        # the second call over the gradient: g + e == g_hat + e' within
+        # the bf16 rounding of g_hat (half an ulp, 2^-8 of it) and float32
+        # rounding
+        g_hat2, e2 = ef_compress_grads(grads, e1)
+        worst = 0.0
+        for g, e, h, r in zip(grads, e1, g_hat2, e2):
+            c = g.float() + e
+            err = (h.float() + r - c).abs()
+            lim = 2.0 ** -8 * h.float().abs() + 2.0 ** -22 * c.abs()
+            check(bool((err <= lim).all()),
+                  "error feedback's identity fails on the gradient")
+            worst = max(worst, float((err / lim.clamp_min(1e-30)).max()))
+        del g_hat, e1, g_hat2, e2, c, err, lim
+        torch.cuda.empty_cache()
+        ms = cuda_time_ms(lambda i: ef_compress_grads(grads, ef),
+                          DIST_TIME_N, torch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ef_compress_grads(grads, ef)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        traced = train_trace_summary(torch, prof, wall_us, kernels=())
+        del prof
+        b_ms, b_by = bound_ms(EF_BYTES_PER_PARAM * n_params, 0)
+        out["grad"].update(
+            leaves_bitwise=list(DIST_LEAVES), pad_case_bitwise=DIST_PAD_N,
+            identity_worst_share_of_limit=worst, ef_ms=ms,
+            ef_device_ms=traced["device_busy_ms"],
+            ef_launches=traced["launches"], ef_wall_ms=traced["wall_ms"],
+            ef_peak_gib=peak, bound_ms=b_ms, bound_by=b_by,
+            bound_bytes=EF_BYTES_PER_PARAM * n_params,
+            top=traced["top"][:4])
+        print(f"distributed (b): gemma2_2b gradient ({n_params} parameters,"
+              f" {want} flash launches); ef_compress_grads card == CPU "
+              f"bitwise on {', '.join(DIST_LEAVES)} and {DIST_PAD_N} "
+              f"elements (bf16, float32); second call g + e == g_hat + e' "
+              f"(worst {worst:.3g} of the limit); {ms:.3f} ms a call, "
+              f"device {traced['device_busy_ms']:.3f} ms in "
+              f"{traced['launches']} launches, peak +{peak:.2f} GiB; bound "
+              f"{b_ms:.3f} ms ({b_by}, {EF_BYTES_PER_PARAM} bytes a "
+              f"parameter); top {traced['top'][:4]}", flush=True)
+
+        # (c) the collectives on a (1, 1, 1) pod mesh: the identity
+        pod = init_device_mesh(dev.type, (1, 1, 1),
+                               mesh_dim_names=("pod", "data", "model"))
+        runs = {
+            "hierarchical_data": lambda: hierarchical_psum_grads(grads, pod),
+            "hierarchical_data_model": lambda: hierarchical_psum_grads(
+                grads, pod, intra_axes=("data", "model")),
+            "flat_pod_data": lambda: flat_psum_grads(grads, pod,
+                                                     ("pod", "data"))}
+        out["collectives"] = {}
+        for name, fn in runs.items():
+            res = fn()
+            check(isinstance(res, list) and all(
+                bits_equal(a, b) for a, b in zip(res, grads)),
+                f"{name} over one rank is not the identity")
+            del res
+            out["collectives"][name] = cuda_time_ms(lambda i: fn(), 3, torch)
+        print("distributed (c): over one rank, bitwise the identity; ms a "
+              "call over the gradient: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in out["collectives"].items()),
+              flush=True)
+
+        # (d) the placements as DTensors on the (1, 1) mesh
+        opt = adamw_init(params)
+        for m, v, g, p in zip(tfm.tree_leaves(opt.m), tfm.tree_leaves(opt.v),
+                              grads, leaves):
+            m.copy_(g)
+            v.copy_(p)
+        del grads, ef
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p_specs = shd.param_shardings(params, cfg, mesh)
+        o_specs = shd.opt_shardings(opt, params, cfg, mesh)
+        n_leaves = n_shard = 0
+        for tree, specs in ((params, p_specs), (opt.m, o_specs.m),
+                            (opt.v, o_specs.v)):
+            dtree = shd.distribute_tree(tree, specs, mesh)
+            for (path, leaf), (_, d) in zip(tfm.tree_items(tree),
+                                            tfm.tree_items(dtree)):
+                check(bits_equal(d.full_tensor(), leaf.detach()),
+                      f"{'.'.join(path)}: full_tensor differs")
+                n_leaves += 1
+                n_shard += any(pl.is_shard() for pl in d.placements)
+            del dtree
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        count = shd.count_params(params)
+        check(count == sum(p.numel() for p in leaves) == GEMMA2_PARAMS,
+              f"count_params {count}")
+        out["placements"] = dict(leaves=n_leaves, sharded=n_shard,
+                                 count_params=count, wall_s=place_s)
+        print(f"distributed (d): {n_leaves} leaves of params, m and v as "
+              f"DTensors on the (1, 1) mesh ({n_shard} with a Shard), every "
+              f"full_tensor bitwise; count_params {count}; {place_s:.1f} s",
+              flush=True)
+        del params, leaves, opt
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"distributed phase took {out['phase_s']:.1f} s", flush=True)
+    return want, out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.exists():
         return fail("run from the repository root (src/repro_torch and "
@@ -3391,6 +3667,12 @@ def run(torch) -> int:
                                                              reg)
     for row in (flash_row, rwkv_row, moe_row):
         row["launches"] += family_launches[row["name"]]
+
+    # 14. this slice's path: the distributed pieces on a world of one
+    # (gemma2_2b's gradient through the flash kernel, then compressed,
+    # all-reduced and placed as DTensors)
+    dist_launches, report["distributed"] = dist_phase(torch, dev, reg)
+    flash_row["launches"] += dist_launches
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -3463,6 +3745,12 @@ def run(torch) -> int:
         ssm_errors=tf["ssm_errors"], ssm_bwd_ms=tf["ssm_bwd_ms"],
         moe_bwd_ms=tf["moe_bwd_ms"], moe_bwd_bound_ms=tf["moe_bwd_bound_ms"],
         phase_s=tf["phase_s"])}))
+    di = report["distributed"]
+    print(json.dumps({"distributed": dict(
+        mesh=di["mesh"], grad={k: v for k, v in di["grad"].items()
+                               if k != "top"},
+        collectives_ms=di["collectives"], placements=di["placements"],
+        phase_s=di["phase_s"])}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

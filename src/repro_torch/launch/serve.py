@@ -2,7 +2,7 @@
 caches for attention stacks, the O(1) state for RWKV6, KV caches beside
 the SSM state and conv carry for hymba's hybrid blocks).  The port of the
 JAX package's ``launch/serve.py`` (its single-replica loop; the
-``--production`` mesh is distributed work and is not ported).
+``--production`` mesh is ROADMAP item 11d and is not ported).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_2b \\
       --smoke --batch 4 --prompt-len 48 --gen 16 --device cpu

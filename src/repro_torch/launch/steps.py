@@ -5,9 +5,13 @@
 gradient (summed in float32 over microbatches and divided, when there are
 several), the cosine schedule and AdamW.  There is no mesh: the JAX
 package's sharding constraints, ZeRO layout and donation are the identity
-on one device (AdamW updates in place, as donated buffers would), and its
-compressed all-reduce, ``make_prefill_step`` and ``make_serve_step`` are
-mesh-bound (ROADMAP item 11; serving runs :mod:`repro_torch.launch.serve`).
+on one device (AdamW updates in place, as donated buffers would), and
+``make_prefill_step`` and ``make_serve_step`` are mesh-bound (ROADMAP item
+11d; serving runs :mod:`repro_torch.launch.serve`).  What the sharded step
+builds on is ported: the rules (:mod:`repro_torch.launch.sharding`), the
+meshes (:mod:`repro_torch.launch.mesh`), the tree all-reduce
+(:mod:`repro_torch.runtime.collectives`) and the int8 compression
+(:mod:`repro_torch.optim.grad_compress`).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 fault-tolerance supervisor (auto-restore, straggler monitor) wrapped
 around the loop.  The port of the JAX package's ``launch/train.py`` on one
 device (its ``--production`` / ``--multi-pod`` meshes are ROADMAP item
-11).
+11d).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch repro_100m \\
       --steps 300 --global-batch 8 --seq 256 --ckpt-dir /tmp/ckpt

@@ -8,8 +8,8 @@ weights are ``(in, out)`` and multiply as ``x @ W``, as in the JAX package.
 
 Not ported here: the activation-sharding hints (``hint``,
 ``set_axis_hints``) and the tensor-parallel KV head expansion of
-``attn_apply``.  They belong to the distributed work (ROADMAP §1, the
-distributed item); on one card they are the identity.
+``attn_apply``.  They belong to the sharded step (ROADMAP §1 item 11d);
+on one card they are the identity.
 """
 
 from __future__ import annotations

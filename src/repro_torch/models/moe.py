@@ -12,8 +12,8 @@ experts, combines the outputs back to tokens with the gate weights
 experts' MLP when the config has them.
 
 Not ported here: the ``shard_map`` routing and combine of a mesh (the
-distributed work of ROADMAP §1 item 11); on one device the JAX package
-takes the path ported here.
+sharded step, ROADMAP §1 item 11d); on one device the JAX package takes
+the path ported here.
 """
 
 from __future__ import annotations

@@ -145,17 +145,37 @@ def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_items(tree)]
 
 
-def tree_map(fn, params: ParamTree) -> ParamTree:
-    """A ``ParamTree`` of the same structure holding ``fn(leaf)`` for each
-    parameter."""
-    def plain(node):
-        if isinstance(node, ParamTree):
-            return {k: plain(node[k]) for k in node.keys()}
-        if isinstance(node, nn.ModuleList):
-            return tuple(plain(x) for x in node)
-        return fn(node)
+def _unflatten(node, path: tuple, by_path: dict):
+    if isinstance(node, (dict, ParamTree)):
+        return {k: _unflatten(node[k], path + (k,), by_path)
+                for k in node.keys()}
+    if hasattr(node, "_fields"):
+        return type(node)(*(_unflatten(getattr(node, k), path + (k,), by_path)
+                            for k in node._fields))
+    if isinstance(node, (tuple, list, nn.ModuleList)):
+        out = [_unflatten(x, path + (str(i),), by_path)
+               for i, x in enumerate(node)]
+        return out if isinstance(node, list) else tuple(out)
+    return by_path[path]
 
-    return ParamTree(plain(params))
+
+def tree_unflatten(like, leaves) -> object:
+    """``like``'s structure holding ``leaves``, given in
+    :func:`tree_leaves` order: a ``ParamTree`` stays one (of frozen
+    parameters), dicts, lists, tuples and NamedTuples keep their types.
+    (A plain recursive function, not a closure: a closure's reference
+    cycle would keep the leaves alive until the cyclic collector ran.)"""
+    paths, leaves = [p for p, _ in tree_items(like)], list(leaves)
+    if len(paths) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(paths)}")
+    tree = _unflatten(like, (), dict(zip(paths, leaves)))
+    return ParamTree(tree) if isinstance(like, ParamTree) else tree
+
+
+def tree_map(fn, tree):
+    """A tree of ``tree``'s structure holding ``fn(leaf)`` for each leaf,
+    called in leaf order (a ``ParamTree`` stays one)."""
+    return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
 
 
 def _index(tree, i: int) -> dict:

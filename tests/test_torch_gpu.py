@@ -6,7 +6,8 @@ the CPU, the hybrid and frontend families (hymba, pixtral, hubert)
 through the kernels against their plain twins, and training (the flash
 kernel's lse, the gradients of the flash, RWKV6 and MoE-dispatch
 ``autograd.Function``s against the twins', smoke train steps of every
-family).  Every
+family), and the distributed pieces (int8 compression card against CPU,
+the collectives over one NCCL rank).  Every
 test skips without a card (the kernels have no CPU mode); on one, run them
 with
 
@@ -1088,3 +1089,65 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(arch):
     for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
         for key in want:
             assert got[key] == pytest.approx(want[key], rel=1e-4), key
+
+
+def _bits(t):
+    """A tensor's bits as integers (bf16 as int16, float32 as int32)."""
+    t = t.detach().cpu().contiguous()
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()]) \
+        if t.is_floating_point() else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [256, 1000, 4 * 2304, 65537])
+def test_ef_compress_grads_on_the_card_is_the_cpus_bitwise(n, dtype):
+    """Error-feedback int8 compression on the card equals the CPU's bit
+    for bit (the block scale divides by a 127 on the device), from a
+    nonzero residual, ragged last blocks and an all-zero block included."""
+    _need_card()
+    from repro_torch.optim import ef_compress_grads
+
+    rs = np.random.default_rng(n)
+    g = rs.standard_normal(n).astype(np.float32)
+    g[:256] = 0.0
+    g = torch.from_numpy(g).to(getattr(torch, dtype))
+    e = torch.from_numpy((rs.standard_normal(n) * 0.01).astype(np.float32))
+    card = ef_compress_grads([g.cuda()], [e.cuda()])
+    cpu = ef_compress_grads([g], [e])
+    for a, b in zip(card, cpu):
+        assert a[0].is_cuda and torch.equal(_bits(a[0]), _bits(b[0]))
+
+
+@pytest.mark.gpu
+def test_collectives_over_one_nccl_rank_are_the_identity(tmp_path):
+    """A one-rank NCCL group: the port's test mesh on the card, the tree
+    and flat all-reduces bitwise their input."""
+    _need_card()
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.runtime import collectives as col
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_test_mesh(1, 1)
+        assert mesh.device_type == "cuda"
+        assert (mesh_mod.dp_axes(mesh), mesh_mod.tp_size(mesh)) == \
+            (("data",), 1)
+        with pytest.raises(RuntimeError, match="needs 256 ranks"):
+            mesh_mod.make_production_mesh()
+        pod = init_device_mesh("cuda", (1, 1, 1),
+                               mesh_dim_names=("pod", "data", "model"))
+        tree = [torch.randn(s, device="cuda").to(dt) for s, dt in
+                (((7, 64), torch.bfloat16), ((3,), torch.float32))]
+        for out in (col.hierarchical_psum_grads(tree, pod),
+                    col.hierarchical_psum_grads(
+                        tree, pod, intra_axes=("data", "model")),
+                    col.flat_psum_grads(tree, pod, ("pod", "data"))):
+            assert all(torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(out, tree))
+    finally:
+        dist.destroy_process_group()

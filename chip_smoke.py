@@ -95,14 +95,15 @@ In order, it
    twin per call, bitwise, at the model's own layer-0 routing and seven
    more shapes, and its time beside the twin's, one ``index_put_`` call's
    and its bound;
-9. after phase 14, prints the ``kernels`` JSON line (``sched_step``'s
+9. after phase 15, prints the ``kernels`` JSON line (``sched_step``'s
    launches are the sweep's and the tuner's, ``flash_attention``'s those
-   of phases 6, 8, 11, 12's two training runs, 13's hymba and moonshot
-   and 14's gradient, ``rwkv6_scan``'s phase 7's and 13's rwkv6,
-   ``moe_dispatch``'s phase 8's and 13's moonshot), the end-to-end rates,
-   the ``serve_hybrid`` line of phase 11, the tuner's summary, the
-   ``train`` line of phase 12, the ``train_families`` line of phase 13,
-   the ``distributed`` line of phase 14, the card line and last the
+   of phases 6, 8, 11, 12's two training runs, 13's hymba and moonshot,
+   14's gradient and 15's mesh runs, ``rwkv6_scan``'s phase 7's and 13's
+   rwkv6, ``moe_dispatch``'s phase 8's, 13's moonshot and 15's mesh
+   run), the end-to-end rates, the ``serve_hybrid`` line of phase 11, the
+   tuner's summary, the ``train`` line of phase 12, the
+   ``train_families`` line of phase 13, the ``distributed`` line of phase
+   14, the ``sharded`` line of phase 15, the card line and last the
    device line;
 10. runs the eleventh slice's path, Table I by search, between phase 8
    and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
@@ -218,7 +219,29 @@ In order, it
    timed; (d) ``param_shardings`` and ``opt_shardings`` of gemma2_2b's
    parameters and AdamW state as DTensors on the (1, 1) mesh
    (``distribute_tree``), every ``full_tensor()`` bitwise its leaf, and
-   ``count_params`` 2 614 341 888, the leaves' sum.
+   ``count_params`` 2 614 341 888, the leaves' sum;
+15. runs the sixteenth slice's path, the sharded step, after phase 14 and
+   before the lines of 9, on a one-rank NCCL world (a ``file://`` store in
+   a temporary directory, destroyed at the end of the phase): (a)
+   gemma2_2b at full width and depth and moonshot_v1_16b_a3b at full
+   width and 4 layers (bf16, seed 0, 4 x 1024) through the one-device
+   ``make_train_step`` and then, from the same weights, through the
+   sharded one on the ``make_test_mesh(1, 1)`` mesh (the state as DTensors
+   from ``shard_train_state``), 3 steps each, launch counts zeroed just
+   before each run and read just after: every metric and every parameter
+   bitwise, the same launches (2 x 26 flash a gemma2 step; 2 x 4 flash
+   and 2 x 4 dispatch a moonshot step), the warm step seconds and peak
+   memory of both printed beside phase 12's step; (b) moonshot's MoE
+   layer at full width, T = 4096 tokens as 4 data shards through
+   ``models.moe.route_dispatch_shards`` (one dispatch launch a shard,
+   into 64 x 120 x 2048 each), buffers, routing tables and counters
+   bitwise the dispatch twin's, timed; (c) gemma2_2b's mesh-bound prefill
+   (4 x 1024, weights as DTensors) and 3 serve steps through
+   ``serve.generate_on_mesh``: ids and prefill logits bitwise
+   ``serve.generate``'s, 26 flash launches; (d) phase 12's repro_100m
+   checkpoint through ``checkpoint.restore_resharded`` onto the mesh,
+   every ``full_tensor()`` bitwise ``restore``'s; the checkpoint is then
+   removed.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -2279,15 +2302,16 @@ def train_phase(torch, dev, reg):
     del params, leaves, k_grads, r_grads
     torch.cuda.empty_cache()
 
-    # (d) repro_100m as the quick example runs it, then a resume
+    # (d) repro_100m as the quick example runs it, then a resume; its
+    # checkpoints stay for phase 15 (d), which removes them
     cfg100 = cb.get("repro_100m")
-    with tempfile.TemporaryDirectory() as d:
-        reg.reset_launches()
-        t0 = time.perf_counter()
-        run = train.run(list(QUICK_ARGV) + ["--ckpt-dir", d])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        quick_launches = reg.launch_counts()["flash_attention"]
+    d = out["ckpt_dir"] = tempfile.mkdtemp(prefix="repro_ckpt_")
+    reg.reset_launches()
+    t0 = time.perf_counter()
+    run = train.run(list(QUICK_ARGV) + ["--ckpt-dir", d])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    quick_launches = reg.launch_counts()["flash_attention"]
     first, last5 = run.losses[0], sum(run.losses[-5:]) / 5
     # 12 layers in 4 checkpointed groups of 3: each forward twice a step
     want = 2 * cfg100.n_layers * len(run.losses)
@@ -3089,6 +3113,274 @@ def dist_phase(torch, dev, reg):
     return want, out
 
 
+#: phase 15: the sharded step on a world of one.  (a) 3 steps of each
+#: model on the (1, 1) mesh against the one-device step; (b) moonshot's
+#: MoE layer of SHARD_T tokens routed as SHARD_G data shards through the
+#: global view; (c) the mesh-bound prefill and SHARD_GEN - 1 serve steps
+SHARD_STEPS = 3
+SHARD_T, SHARD_G = 4096, 4
+SHARD_GEN = 4
+
+
+def sharded_phase(torch, dev, reg, ckpt_dir, one_device_step_s):
+    """Phase 15: (a) gemma2_2b (full depth) and moonshot_v1_16b_a3b (4
+    layers) trained 3 steps through the sharded ``make_train_step`` on a
+    one-rank NCCL (1, 1) mesh, losses, metrics and parameters bitwise the
+    one-device step's, launches equal; (b) moonshot's MoE layer routed as
+    4 shards through ``route_dispatch_shards``, kernel against twin
+    bitwise; (c) gemma2_2b's mesh-bound prefill and 3 serve steps bitwise
+    ``serve.generate``; (d) phase 12's checkpoint through
+    ``restore_resharded`` onto the mesh, bitwise.  ``ckpt_dir`` is
+    removed at the end.  Returns (the launches of the mesh runs of (a) and
+    (c) by kernel, report)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import base as cb
+    from repro_torch.core import balance, prng
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as mref
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import layers, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    main_launches = dict.fromkeys(reg.KERNELS, 0)
+    cpu = torch.device("cpu")
+    store = tempfile.mkdtemp(prefix="repro_shard_")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.make_test_mesh(
+            1, 1, device=None if dev.type == "cuda" else dev)
+        check(mesh.device_type == dev.type, f"the mesh is on {mesh}")
+
+        # (a) the sharded train step against the one-device step
+        out["train"] = {}
+        for arch, n_layers in (("gemma2_2b", None),
+                               ("moonshot_v1_16b_a3b",
+                                MOONSHOT_TRAIN_LAYERS)):
+            cfg = cb.get(arch)
+            if n_layers:
+                cfg = dataclasses.replace(cfg, n_layers=n_layers)
+            batches = [batch_for(cfg, i, TRAIN_B, TRAIN_S)
+                       for i in range(SHARD_STEPS)]
+            runs = {}
+            for kind in ("one_device", "mesh"):
+                params = tfm.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0), dev)
+                opt = adamw_init(params, getattr(torch, cfg.opt_state_dtype))
+                where = dev
+                if kind == "mesh":
+                    params, opt = steps.shard_train_state(cfg, mesh, params,
+                                                          opt)
+                    where = mesh
+                torch.cuda.empty_cache()
+                step = steps.make_train_step(cfg, where,
+                                             total_steps=SHARD_STEPS)
+                metrics, step_s = [], []
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reg.reset_launches()
+                for i, b in enumerate(batches):
+                    t1 = time.perf_counter()
+                    params, opt, m = step(params, opt, b, i)
+                    float(m["loss"])           # waits for the step
+                    step_s.append(time.perf_counter() - t1)
+                    metrics.append({k: v.detach().to(cpu)
+                                    for k, v in m.items()})
+                launches = reg.launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                final = [(leaf.full_tensor() if kind == "mesh"
+                          else leaf.detach()).to(cpu)
+                         for leaf in tfm.tree_leaves(params)]
+                runs[kind] = dict(metrics=metrics, step_s=step_s,
+                                  launches=launches, peak_gib=peak,
+                                  final=final)
+                del params, opt, step, m
+                torch.cuda.empty_cache()
+            one, sh = runs["one_device"], runs["mesh"]
+            n = cfg.n_layers // len(tfm.pattern(cfg))
+            want = dict.fromkeys(reg.KERNELS, 0)
+            want["flash_attention"] = 2 * cfg.n_layers * SHARD_STEPS
+            want["moe_dispatch"] = 2 * n * SHARD_STEPS * sum(
+                k.moe for k in tfm.pattern(cfg))
+            check(sh["launches"] == one["launches"] == want,
+                  f"{arch}: the mesh step launched {sh['launches']}, the "
+                  f"one-device step {one['launches']}; expected {want}")
+            check(all(a.keys() == b.keys() and all(
+                bits_equal(a[k], b[k]) for k in b)
+                for a, b in zip(sh["metrics"], one["metrics"])),
+                f"{arch}: the mesh step's metrics differ from the "
+                "one-device step's")
+            check(len(sh["final"]) == len(one["final"]) and all(
+                bits_equal(a, b) for a, b in zip(sh["final"],
+                                                 one["final"])),
+                f"{arch}: the mesh step's parameters differ")
+            for k, v in sh["launches"].items():
+                main_launches[k] += v
+            warm = {kind: sum(r["step_s"][1:]) / len(r["step_s"][1:])
+                    for kind, r in runs.items()}
+            losses = [float(m["loss"]) for m in sh["metrics"]]
+            out["train"][arch] = dict(
+                n_layers=cfg.n_layers, losses=losses,
+                step_s={kind: r["step_s"] for kind, r in runs.items()},
+                warm_step_s=warm,
+                mesh_over_one_device=warm["mesh"] / warm["one_device"],
+                peak_gib={kind: r["peak_gib"] for kind, r in runs.items()},
+                launches={k: v for k, v in sh["launches"].items() if v},
+                bitwise=True)
+            print(f"sharded (a): {arch} ({cfg.n_layers} layers) "
+                  f"{TRAIN_B}x{TRAIN_S}, {SHARD_STEPS} steps on the (1, 1) "
+                  f"mesh: losses {losses}, metrics and every parameter "
+                  f"bitwise the one-device step's; launches "
+                  f"{out['train'][arch]['launches']} (the same); warm step "
+                  f"{warm['mesh']:.4f} s against {warm['one_device']:.4f} s "
+                  f"one-device ({warm['mesh'] / warm['one_device']:.4f}x; "
+                  f"first {sh['step_s'][0]:.3f} / {one['step_s'][0]:.3f} s)"
+                  f"; peak {sh['peak_gib']:.2f} / {one['peak_gib']:.2f} GiB"
+                  + (f"; phase 12's warm step {one_device_step_s:.4f} s"
+                     if arch == "gemma2_2b" else ""), flush=True)
+            del runs, one, sh
+        torch.cuda.empty_cache()
+
+        # (b) moonshot's MoE layer as SHARD_G data shards, the global view
+        cfg = cb.get("moonshot_v1_16b_a3b")
+        E, D = cfg.moe.n_experts, cfg.d_model
+        gen = torch.Generator(device=dev).manual_seed(15)
+        x = torch.randn((SHARD_T, D), generator=gen, device=dev).to(
+            cfg.cdtype)
+        logits = x.float() @ layers._dense_init((D, E), torch.float32, gen,
+                                                dev)
+        cap = moe.capacity_for(cfg, SHARD_T // SHARD_G)
+        groups = balance.default_expert_groups(E, 16, device=dev)
+        rng = prng.fold_in(prng.PRNGKey(17), 0)
+        reg.reset_launches()
+        kern = moe.route_dispatch_shards(x, logits, cfg, cap, groups, rng,
+                                         SHARD_G)
+        torch.cuda.synchronize()
+        b_launches = reg.launch_counts()["moe_dispatch"]
+        ops.set_impl("ref", "moe_dispatch")
+        try:
+            twin = moe.route_dispatch_shards(x, logits, cfg, cap, groups,
+                                             rng, SHARD_G)
+        finally:
+            ops.set_impl(None, "moe_dispatch")
+        check(b_launches == SHARD_G,
+              f"the global view launched moe_dispatch {b_launches} times")
+        check(all(bits_equal(a, b) for a, b in zip(kern[:5], twin[:5]))
+              and {k: int(v) for k, v in kern[5].items()}
+              == {k: int(v) for k, v in twin[5].items()},
+              "the shards' dispatch or routing differs from the twin's")
+        shard_ms = cuda_time_ms(lambda i: moe.route_dispatch_shards(
+            x, logits, cfg, cap, groups, rng, SHARD_G), 5, torch)
+        # the dispatch alone at a shard's shape (shard 0: ve is the expert)
+        t = SHARD_T // SHARD_G
+        xs, es, ps = x[:t], kern[1][:t], kern[2][:t]
+        d_ms = cuda_time_ms(lambda i: md.moe_dispatch(
+            xs, es, ps, n_experts=E, capacity=cap), 50, torch)
+        d_plain = cuda_time_ms(lambda i: mref.moe_dispatch(xs, es, ps, E,
+                                                           cap), 20, torch)
+        nbytes = (xs.numel() * xs.element_size() + 2 * es.numel() * 4
+                  + E * cap * D * xs.element_size())
+        d_bound, d_by = bound_ms(nbytes, 0)
+        out["global_view"] = dict(
+            T=SHARD_T, G=SHARD_G, capacity=cap, launches=b_launches,
+            stats={k: int(v) for k, v in kern[5].items()},
+            routed_ms=shard_ms, dispatch_ms=d_ms, dispatch_plain_ms=d_plain,
+            dispatch_bound_ms=d_bound, dispatch_bound_by=d_by,
+            bitwise=True)
+        print(f"sharded (b): moonshot's MoE layer, T={SHARD_T} as "
+              f"{SHARD_G} shards into {E} x {cap} x {D} each: "
+              f"{b_launches} dispatch launches, buffers and routing bitwise "
+              f"the twin's; counters {out['global_view']['stats']}; routing "
+              f"+ dispatch of the 4 shards {shard_ms:.3f} ms; a shard's "
+              f"dispatch {d_ms:.4f} ms (twin {d_plain:.4f} ms, bound "
+              f"{d_bound:.5f} ms by {d_by})", flush=True)
+        del x, logits, kern, twin, xs, es, ps
+        torch.cuda.empty_cache()
+
+        # (c) the mesh-bound prefill and serve steps against generate
+        cfg = cb.get("gemma2_2b")
+        params = tfm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 batch_for(cfg, 0, SERVE_B, SERVE_S).items()}
+        want = serve.generate(params, cfg, batch, SHARD_GEN)
+        placed = shd.distribute_tree(params, shd.param_shardings(
+            params, cfg, mesh), mesh)
+        reg.reset_launches()
+        got = serve.generate_on_mesh(placed, cfg, batch, SHARD_GEN, mesh)
+        c_launches = reg.launch_counts()
+        check(torch.equal(got.ids, want.ids)
+              and bits_equal(got.prefill_logits, want.prefill_logits),
+              "gemma2_2b: the mesh-bound prefill and serve steps differ "
+              "from serve.generate")
+        check(c_launches == dict(dict.fromkeys(reg.KERNELS, 0),
+                                 flash_attention=cfg.n_layers),
+              f"the mesh-bound prefill launched {c_launches}")
+        for k, v in c_launches.items():
+            main_launches[k] += v
+        out["serve"] = dict(
+            ids=got.ids.tolist(), prefill_s=got.prefill_s,
+            decode_s=got.decode_s, generate_prefill_s=want.prefill_s,
+            generate_decode_s=want.decode_s,
+            flash_launches=c_launches["flash_attention"], bitwise=True)
+        print(f"sharded (c): gemma2_2b {SERVE_B}x{SERVE_S}, prefill and "
+              f"{SHARD_GEN - 1} serve steps on the mesh: ids "
+              f"{got.ids[0].tolist()} (lane 0) and prefill logits bitwise "
+              f"serve.generate's; {c_launches['flash_attention']} flash "
+              f"launches; prefill {got.prefill_s:.3f} s (generate "
+              f"{want.prefill_s:.3f} s), decode {got.decode_s:.3f} s "
+              f"({want.decode_s:.3f} s)", flush=True)
+        del params, placed, got, want, batch
+        torch.cuda.empty_cache()
+
+        # (d) phase 12's checkpoint restored onto the mesh
+        cfg = cb.get("repro_100m")
+        p_shape, o_shape = steps.init_shapes(cfg)
+        template = {"params": p_shape, "opt": o_shape}
+        plain, s_plain = ckpt.restore(ckpt_dir, template)
+        specs = {"params": shd.param_shardings(p_shape, cfg, mesh),
+                 "opt": shd.opt_shardings(o_shape, p_shape, cfg, mesh)}
+        tree, s_mesh = ckpt.restore_resharded(ckpt_dir, template, specs,
+                                              mesh)
+        pairs = list(zip(tfm.tree_leaves(tree), tfm.tree_leaves(plain)))
+        check(s_plain is not None and s_mesh == s_plain and all(
+            a.device.type == dev.type and bits_equal(a.full_tensor().to(cpu),
+                                                     b)
+            for a, b in pairs),
+            f"restore_resharded of step {s_mesh} differs from restore's "
+            f"step {s_plain}")
+        out["restore"] = dict(step=s_mesh, leaves=len(pairs), sharded=sum(
+            any(pl.is_shard() for pl in a.placements) for a, _ in pairs),
+            bitwise=True)
+        print(f"sharded (d): phase 12's repro_100m checkpoint (step "
+              f"{s_mesh}) restored onto the (1, 1) mesh: {len(pairs)} "
+              f"DTensors ({out['restore']['sharded']} with a Shard) on "
+              f"{dev.type}, every full_tensor bitwise restore's", flush=True)
+        del tree, plain, pairs
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"sharded phase took {out['phase_s']:.1f} s", flush=True)
+    return main_launches, out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.exists():
         return fail("run from the repository root (src/repro_torch and "
@@ -3673,6 +3965,14 @@ def run(torch) -> int:
     # all-reduced and placed as DTensors)
     dist_launches, report["distributed"] = dist_phase(torch, dev, reg)
     flash_row["launches"] += dist_launches
+
+    # 15. this slice's path: the sharded step, the mesh-bound prefill and
+    # serve steps and the elastic restore on a world of one
+    shard_launches, report["sharded"] = sharded_phase(
+        torch, dev, reg, report["train"]["ckpt_dir"],
+        report["train"]["gemma2_2b"]["warm_step_s"])
+    for row in (flash_row, moe_row):
+        row["launches"] += shard_launches[row["name"]]
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -3751,6 +4051,7 @@ def run(torch) -> int:
                                if k != "top"},
         collectives_ms=di["collectives"], placements=di["placements"],
         phase_s=di["phase_s"])}))
+    print(json.dumps({"sharded": report["sharded"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

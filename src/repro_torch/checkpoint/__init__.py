@@ -1,7 +1,9 @@
-"""Crash-safe checkpoints in the JAX package's on-disk format (its
-``restore_resharded`` places arrays on a mesh: ROADMAP item 11d)."""
+"""Crash-safe checkpoints in the JAX package's on-disk format, and the
+elastic restore onto a mesh."""
 
 from repro_torch.checkpoint.checkpoint import (cleanup, latest_step,
-                                               restore, save, steps)
+                                               restore, restore_resharded,
+                                               save, steps)
 
-__all__ = ["cleanup", "latest_step", "restore", "save", "steps"]
+__all__ = ["cleanup", "latest_step", "restore", "restore_resharded", "save",
+           "steps"]

@@ -17,6 +17,10 @@ restores what the other wrote.
 * **Integrity**: every leaf's CRC is checked on restore; a mismatch marks
   the checkpoint invalid and :func:`restore` falls back to the newest
   checkpoint whose manifest validates.
+* **Sharded state**: a tree of DTensors is saved as its logical tensors
+  (every rank gathers each leaf, rank 0 writes, all wait for it), and
+  :func:`restore_resharded` places a checkpoint onto the placements of any
+  mesh, whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -35,7 +39,10 @@ from repro_torch.models.transformer import ParamTree, tree_items
 
 
 def _stored(leaf: torch.Tensor) -> tuple[np.ndarray, str, str]:
-    """(the array written, the leaf's dtype name, the view) of a tensor."""
+    """(the array written, the leaf's dtype name, the view) of a tensor
+    (a DTensor's whole tensor)."""
+    if hasattr(leaf, "full_tensor"):
+        leaf = leaf.full_tensor()
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return (t.view(torch.int16).numpy().view(np.uint16), "bfloat16",
@@ -85,7 +92,28 @@ def _unflatten_into(template, flat: dict):
 def save(ckpt_dir: str, step: int, tree: Any, metadata: Optional[dict] = None
          ) -> str:
     """Write ``tree`` as checkpoint ``step`` under ``ckpt_dir``; returns its
-    directory."""
+    directory.  A tree with DTensor leaves is a collective: every rank of
+    the default process group calls it, rank 0 writes."""
+    flat = _flatten(tree)
+    # one leaf at a time, so at most one leaf is in host memory
+    stored = ((name, _stored(node)) for name, node in flat.items())
+    if not any(hasattr(v, "full_tensor") for v in flat.values()):
+        return _write(ckpt_dir, step, stored, metadata)
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        final = _write(ckpt_dir, step, stored, metadata)
+    else:
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        for _ in stored:      # the gathers, in step with rank 0's
+            pass
+    dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, stored, metadata: Optional[dict]
+           ) -> str:
+    """Write the ``(name, _stored(leaf))`` pairs as checkpoint ``step``."""
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp.{step}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -93,14 +121,13 @@ def save(ckpt_dir: str, step: int, tree: Any, metadata: Optional[dict] = None
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "metadata": metadata or {}, "arrays": {}}
-    for name, node in _flatten(tree).items():
+    for name, (arr, dtype, view) in stored:
         fn = name.strip("/").replace("/", ".") + ".npy"
-        stored, dtype, view = _stored(node)
-        np.save(os.path.join(tmp, fn), stored)
+        np.save(os.path.join(tmp, fn), arr)
         manifest["arrays"][name] = {
-            "file": fn, "shape": list(stored.shape), "dtype": dtype,
+            "file": fn, "shape": list(arr.shape), "dtype": dtype,
             "view": view,
-            "crc": zlib.crc32(np.ascontiguousarray(stored).tobytes()),
+            "crc": zlib.crc32(np.ascontiguousarray(arr).tobytes()),
         }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -164,6 +191,21 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None):
         if flat is not None:
             return _unflatten_into(template, flat), s
     return None, None
+
+
+def restore_resharded(ckpt_dir: str, template: Any, shardings, mesh,
+                      step: Optional[int] = None):
+    """Elastic restore: :func:`restore`, then each logical tensor placed
+    as a DTensor on ``mesh`` (any mesh: the one that saved the checkpoint
+    or another) under ``shardings``, a tree of specs of ``template``'s
+    structure (what ``launch.sharding``'s ``*_shardings`` give).  Returns
+    (tree, step) or (None, None); a ``ParamTree`` comes back as a dict."""
+    from repro_torch.launch.sharding import distribute_tree
+
+    tree, s = restore(ckpt_dir, template, step)
+    if tree is None:
+        return None, None
+    return distribute_tree(tree, shardings, mesh), s
 
 
 def cleanup(ckpt_dir: str, keep: int = 3) -> None:

@@ -9,7 +9,7 @@ error that names the size the mesh needs, never a smaller mesh.  The
 device is the CUDA device unless the caller passes ``device="cpu"``.
 
 ``dp_axes``, ``tp_size`` and ``dp_size`` read a ``DeviceMesh`` or a plain
-mesh description: any object with ``axis_names`` and a ``shape`` mapping
+mesh description (``dp_index``, this rank's data shard, a ``DeviceMesh``): any object with ``axis_names`` and a ``shape`` mapping
 from axis name to size, on which the sharding rules run for the
 production shapes without devices.
 """
@@ -75,3 +75,15 @@ def tp_size(mesh) -> int:
 def dp_size(mesh) -> int:
     sizes = axis_sizes(mesh)
     return math.prod(sizes[a] for a in dp_axes(mesh))
+
+
+def dp_index(mesh) -> int:
+    """This rank's data shard on the ``DeviceMesh`` ``mesh``: the row-major
+    index of its coordinate over :func:`dp_axes` (pod-major), the order in
+    which a batch split over those axes lays out its rows."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = axis_sizes(mesh)
+    shard = 0
+    for a in dp_axes(mesh):
+        shard = shard * sizes[a] + coord[a]
+    return shard

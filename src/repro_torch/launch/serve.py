@@ -1,8 +1,11 @@
 """Serving driver: prefill a batch of prompts, then greedy decode (KV
 caches for attention stacks, the O(1) state for RWKV6, KV caches beside
 the SSM state and conv carry for hymba's hybrid blocks).  The port of the
-JAX package's ``launch/serve.py`` (its single-replica loop; the
-``--production`` mesh is ROADMAP item 11d and is not ported).
+JAX package's ``launch/serve.py``: its single-replica loop, and with
+``--production`` the loop on the production mesh
+(:func:`repro_torch.launch.train.build_mesh`, 256 ranks, one process
+each, the process group set up by the caller) through the mesh-bound
+prefill and serve steps of :mod:`repro_torch.launch.steps`.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_2b \\
       --smoke --batch 4 --prompt-len 48 --gen 16 --device cpu
@@ -51,6 +54,8 @@ from repro_torch.configs import base as cb
 from repro_torch.core.scheduler import resolve_device
 from repro_torch.data.pipeline import batch_for
 from repro_torch.kernels import registry
+from repro_torch.launch import steps
+from repro_torch.launch.train import build_mesh
 from repro_torch.models import transformer as tfm
 
 
@@ -99,6 +104,41 @@ def generate(params, cfg: cb.ModelConfig, batch: dict, gen: int
                                 "decode": {k: n2[k] - n1[k] for k in n0}})
 
 
+def generate_on_mesh(params, cfg: cb.ModelConfig, batch: dict, gen: int,
+                     mesh) -> Generation:
+    """:func:`generate` through the mesh-bound prefill and serve steps on
+    ``mesh``: each rank prefills and decodes its data shard of ``batch``;
+    the ids and prefill logits returned are the global batch's (every rank
+    gathers them), the launches this rank's."""
+    B = batch["tokens"].shape[0]
+    max_len = tfm.prompt_len(cfg, batch) + gen
+    prefill = steps.make_prefill_step(cfg, mesh, max_len)
+    serve_step = steps.make_serve_step(cfg, mesh, B, max_len)
+    device = batch["tokens"].device
+    n0 = registry.launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, state = prefill(params, batch)
+    tok = steps.rows_on_mesh(
+        torch.argmax(logits.to_local(), -1).to(torch.int32), mesh)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    n1 = registry.launch_counts()
+    outs = [tok.to_local()]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        tok, state = serve_step(params, state, tok)
+        outs.append(tok.to_local())
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    n2 = registry.launch_counts()
+    ids = steps.rows_on_mesh(torch.stack(outs, dim=1), mesh).full_tensor()
+    return Generation(ids=ids, prefill_logits=logits.full_tensor(),
+                      prefill_s=prefill_s, decode_s=decode_s,
+                      launches={"prefill": {k: n1[k] - n0[k] for k in n0},
+                                "decode": {k: n2[k] - n1[k] for k in n0}})
+
+
 def main(argv=None) -> Generation:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2_2b")
@@ -109,17 +149,22 @@ def main(argv=None) -> Generation:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--production", action="store_true")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = cb.smoke_config(args.arch) if args.smoke else cb.get(args.arch)
     if cfg.encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: it does not decode")
+    mesh = build_mesh(True, False, device) if args.production else None
     generator = torch.Generator(device=device).manual_seed(args.seed)
     params = tfm.init_params(cfg, generator, device)
     batch = batch_for(cfg, 0, args.batch, args.prompt_len)
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-    out = generate(params, cfg, batch, args.gen)
+    if mesh is None:
+        out = generate(params, cfg, batch, args.gen)
+    else:
+        out = generate_on_mesh(params, cfg, batch, args.gen, mesh)
     toks = args.batch * (args.gen - 1)
     print(f"prefill {args.batch}x{args.prompt_len} in {out.prefill_s:.2f}s; "
           f"decode {toks} tokens in {out.decode_s:.2f}s "

@@ -1,17 +1,37 @@
-"""The train step on one device: the port of the JAX package's
-``launch/steps.py`` (``init_shapes`` and ``make_train_step``).
+"""Train, prefill and serve steps: the port of the JAX package's
+``launch/steps.py``.
 
-``make_train_step`` builds the canonical step: the loss's value and
-gradient (summed in float32 over microbatches and divided, when there are
-several), the cosine schedule and AdamW.  There is no mesh: the JAX
-package's sharding constraints, ZeRO layout and donation are the identity
-on one device (AdamW updates in place, as donated buffers would), and
-``make_prefill_step`` and ``make_serve_step`` are mesh-bound (ROADMAP item
-11d; serving runs :mod:`repro_torch.launch.serve`).  What the sharded step
-builds on is ported: the rules (:mod:`repro_torch.launch.sharding`), the
-meshes (:mod:`repro_torch.launch.mesh`), the tree all-reduce
-(:mod:`repro_torch.runtime.collectives`) and the int8 compression
-(:mod:`repro_torch.optim.grad_compress`).
+``make_train_step(cfg, device)`` builds the canonical step on one device:
+the loss's value and gradient (summed in float32 over microbatches and
+divided, when there are several), the cosine schedule and AdamW, the
+parameters and the state updated in place (as the JAX step's donated
+buffers are).
+
+``make_train_step(cfg, mesh)`` with a ``DeviceMesh`` builds the sharded
+step.  Each rank takes its data shard of every microbatch (the rows of
+its :func:`~repro_torch.launch.mesh.dp_index`); the parameters and AdamW's
+``m`` and ``v`` are DTensors under the rules' placements
+(:func:`shard_train_state`: ``param_shardings`` / ``opt_shardings``,
+ZeRO-1 for the moments).  A rank gathers the whole weights
+(``full_tensor``): compute over ``"model"`` is replicated in this port.
+MoE layers route shard-locally (:mod:`repro_torch.models.moe`), the rank's
+loss is its share of the global one (the cross-entropy of its rows times
+their share of the batch, and its share of the load-balance loss), so the
+gradients summed over the data axes (``runtime.collectives``: the tree
+all-reduce when the mesh has pods) are the global gradient.  AdamW then
+updates each rank's shard of the moments, and the parameters are
+gathered back into their own placements.  Reported are the global loss,
+``ce``, ``lb_loss``, counters and ``grad_norm``.  Like the JAX step, it
+does not compress gradients.
+
+``make_prefill_step`` and ``make_serve_step`` are bound to a mesh the same
+way: a rank prefills and decodes its data shard's rows; logits and tokens
+come back as DTensors split over the data axes, and the decode state is
+the rank's own.
+
+Every mesh-bound step sets the model's axis hints
+(:func:`repro_torch.models.layers.axis_hints`) for the length of one call
+and restores the previous ones on exit.
 """
 
 from __future__ import annotations
@@ -20,8 +40,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import dp_axes, dp_index, dp_size, tp_size
+from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
+                               cosine_schedule, global_norm)
 
 
 def init_shapes(cfg: ModelConfig):
@@ -29,6 +53,46 @@ def init_shapes(cfg: ModelConfig):
     no allocation."""
     p_shape = tfm.init_params(cfg, None, "meta")
     return p_shape, adamw_init(p_shape, getattr(torch, cfg.opt_state_dtype))
+
+
+def _is_mesh(x) -> bool:
+    return hasattr(x, "mesh_dim_names")
+
+
+def _split(batch: dict, microbatches: int) -> list:
+    """The microbatches of ``batch``: consecutive blocks of its rows."""
+    if microbatches == 1:
+        return [batch]
+    return [{k: v.reshape((microbatches, v.shape[0] // microbatches)
+                          + tuple(v.shape[1:]))[i]
+             for k, v in batch.items()} for i in range(microbatches)]
+
+
+def _grads(loss, leaves) -> list:
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a leaf the loss does not read (hubert's token embedding) has a zero
+    # gradient, as in JAX
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
+def _accumulate(value_and_grad, leaves, mbs: list, device):
+    """``(loss, metrics, grads)`` of one microbatch, or over several: the
+    gradients summed in float32 and divided by their count, the loss their
+    mean, the metrics the last one's."""
+    if len(mbs) == 1:
+        return value_and_grad(mbs[0])
+    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=device)
+            for p in leaves]
+    lsum = 0.0
+    for mb in mbs:
+        loss, metrics, grads = value_and_grad(mb)
+        for acc, g in zip(gsum, grads):
+            acc += g
+        del grads
+        lsum = lsum + loss
+    n = len(mbs)
+    return lsum / n, metrics, [g / n for g in gsum]
 
 
 def make_train_step(cfg: ModelConfig, device, *, microbatches: int = 1,
@@ -40,21 +104,13 @@ def make_train_step(cfg: ModelConfig, device, *, microbatches: int = 1,
     step)`` over one expert group, as on the JAX package's one-device
     mesh.  Metrics: ``loss`` (the mean over microbatches), ``lr``,
     ``grad_norm`` and, from the last microbatch, ``ce`` and the aux
-    sums."""
+    sums.  With a ``DeviceMesh`` for ``device``, the sharded step (see the
+    module's docstring) over the state :func:`shard_train_state` gives."""
+    if _is_mesh(device):
+        return _sharded_train_step(cfg, device, microbatches=microbatches,
+                                   peak_lr=peak_lr, total_steps=total_steps)
     device = torch.device(device)
     warmup = max(1, min(2000, total_steps // 10))
-
-    def value_and_grad(params, leaves, batch, rng):
-        # MoE routing's expert groups: the tensor-parallel size of the JAX
-        # package's one-device mesh
-        loss, metrics = tfm.loss_fn(params, cfg, batch, rng, ep_groups=1)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the loss does not read (hubert's token embedding) has a
-        # zero gradient, as in JAX
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            grads
 
     def train_step(params, opt_state, batch, step):
         params.requires_grad_(True)
@@ -62,25 +118,16 @@ def make_train_step(cfg: ModelConfig, device, *, microbatches: int = 1,
         rng = prng.fold_in(prng.PRNGKey(17), int(step))
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
-        if microbatches > 1:
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=device)
-                    for p in leaves]
-            lsum = 0.0
-            for i in range(microbatches):
-                mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                loss, metrics, grads = value_and_grad(params, leaves, mb,
-                                                      rng)
-                for acc, g in zip(gsum, grads):
-                    acc += g
-                del grads
-                lsum = lsum + loss
-            grads = [g / microbatches for g in gsum]
-            del gsum
-            loss = lsum / microbatches
-        else:
-            loss, metrics, grads = value_and_grad(params, leaves, batch, rng)
+
+        def value_and_grad(mb):
+            # MoE routing's expert groups: the tensor-parallel size of the
+            # JAX package's one-device mesh
+            loss, metrics = tfm.loss_fn(params, cfg, mb, rng, ep_groups=1)
+            return loss.detach(), {k: v.detach() for k, v in
+                                   metrics.items()}, _grads(loss, leaves)
+
+        loss, metrics, grads = _accumulate(
+            value_and_grad, leaves, _split(batch, microbatches), device)
         lr = cosine_schedule(step, peak_lr=peak_lr, total=total_steps,
                              warmup=warmup).to(device)
         params, opt_state, opt_metrics = adamw_update(
@@ -89,3 +136,210 @@ def make_train_step(cfg: ModelConfig, device, *, microbatches: int = 1,
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# mesh-bound steps
+# ---------------------------------------------------------------------------
+
+def _hints(mesh):
+    return layers.axis_hints(dp_axes=dp_axes(mesh), dp_size=dp_size(mesh),
+                             tp_size=tp_size(mesh), mesh=mesh)
+
+
+def _full(x):
+    """A DTensor's whole tensor (gathered), a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _placed(t, mesh, placements):
+    """This rank's piece of the whole tensor ``t`` under ``placements``
+    (local slicing: every rank holds ``t``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(
+        mesh, placements).to_local()
+
+
+def _check_rows(n: int, mesh, what: str) -> None:
+    if n % dp_size(mesh):
+        raise ValueError(f"{what} of {n} rows does not split over the "
+                         f"{dp_size(mesh)} data shards of the mesh")
+
+
+def _rows(x, mesh, device):
+    """This rank's data shard of ``x``: the local rows of a DTensor split
+    over the data axes (as these steps return them), else the rank's
+    block of the global rows."""
+    if hasattr(x, "to_local"):
+        return x.to_local()
+    x = torch.as_tensor(x, device=device)
+    _check_rows(x.shape[0], mesh, "a batch")
+    b = x.shape[0] // dp_size(mesh)
+    s = dp_index(mesh)
+    return x[s * b:(s + 1) * b]
+
+
+def rows_on_mesh(x, mesh):
+    """This rank's rows as a DTensor split over the data axes (replicated
+    over ``"model"``)."""
+    from torch.distributed.tensor import DTensor
+
+    spec = (dp_axes(mesh),) + (None,) * (x.dim() - 1)
+    return DTensor.from_local(x, mesh, shd.placements(spec, mesh),
+                              run_check=False)
+
+
+def _device(mesh):
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def shard_train_state(cfg: ModelConfig, mesh, params, opt_state):
+    """``(params, opt_state)`` as DTensors on ``mesh`` under
+    ``param_shardings`` and ``opt_shardings`` (the parameters' tree a
+    dict, the state an ``AdamWState``): what the sharded step takes."""
+    params = tfm.tree_map(torch.Tensor.detach, params)
+    return (shd.distribute_tree(params, shd.param_shardings(params, cfg,
+                                                            mesh), mesh),
+            shd.distribute_tree(opt_state, shd.opt_shardings(
+                opt_state, params, cfg, mesh), mesh))
+
+
+def _sum_over_data(tensors: list, mesh) -> list:
+    """Each tensor summed over the data axes: the tree all-reduce with
+    pods, one flat all-reduce without."""
+    from repro_torch.runtime import collectives as col
+
+    if "pod" in mesh.mesh_dim_names:
+        return col.hierarchical_psum_grads(tensors, mesh)
+    return col.flat_psum_grads(tensors, mesh, ("data",))
+
+
+def _sharded_train_step(cfg: ModelConfig, mesh, *, microbatches: int,
+                        peak_lr: float, total_steps: int):
+    from torch.distributed.tensor import DTensor
+
+    dp, tp = dp_size(mesh), tp_size(mesh)
+    warmup = max(1, min(2000, total_steps // 10))
+
+    def train_step(params, opt_state, batch, step):
+        with _hints(mesh):
+            dleaves = tfm.tree_leaves(params)
+            device = dleaves[0].device
+            leaves = [_full(p).detach().requires_grad_(True)
+                      for p in dleaves]
+            tree = tfm.tree_unflatten(params, leaves)
+            rng = prng.fold_in(prng.PRNGKey(17), int(step))
+            batch = {k: torch.as_tensor(v, device=device)
+                     for k, v in batch.items()}
+            n = next(iter(batch.values())).shape[0]
+            if n % (microbatches * dp):
+                raise ValueError(
+                    f"a batch of {n} rows does not split into "
+                    f"{microbatches} microbatches over {dp} data shards")
+            mbs = [{k: _rows(v, mesh, device) for k, v in mb.items()}
+                   for mb in _split(batch, microbatches)]
+
+            def value_and_grad(mb):
+                loss, metrics = tfm.loss_fn(tree, cfg, mb, rng,
+                                            ep_groups=tp, dp_groups=dp)
+                # the rank's share of the global loss: its rows' mean
+                # cross-entropy weighted by their share of the rows, and
+                # its share of the load-balance loss
+                share = metrics["ce"] * (1.0 / dp) \
+                    + 0.01 * metrics["lb_loss"]
+                grads = _grads(share, leaves)
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                total = _sum_over_data([torch.stack([
+                    share.detach(), metrics["ce"] * (1.0 / dp),
+                    metrics["lb_loss"]])], mesh)[0]
+                metrics.update(ce=total[1], lb_loss=total[2])
+                return total[0], metrics, grads
+
+            loss, metrics, local = _accumulate(value_and_grad, leaves, mbs,
+                                               device)
+            grads = _sum_over_data(local, mesh)
+            del local
+            lr = cosine_schedule(step, peak_lr=peak_lr, total=total_steps,
+                                 warmup=warmup).to(device)
+            with torch.no_grad():
+                gnorm = global_norm(grads)
+                ms = tfm.tree_leaves(opt_state.m)
+                vs = tfm.tree_leaves(opt_state.v)
+                # AdamW on this rank's shard of each moment (ZeRO-1)
+                pieces = [_placed(p.detach(), mesh, m.placements)
+                          for p, m in zip(leaves, ms)]
+                g_pieces = [_placed(g, mesh, m.placements)
+                            for g, m in zip(grads, ms)]
+                del grads
+                local_state = AdamWState(opt_state.step.to_local(),
+                                         [m.to_local() for m in ms],
+                                         [v.to_local() for v in vs])
+                _, new_state, opt_metrics = adamw_update(
+                    g_pieces, local_state, pieces, lr=lr, grad_norm=gnorm)
+                # the updated pieces back into the parameters' placements
+                for p, piece, m in zip(dleaves, pieces, ms):
+                    p.to_local().copy_(DTensor.from_local(
+                        piece, mesh, m.placements, run_check=False
+                    ).redistribute(mesh, p.placements).to_local())
+                step_t = DTensor.from_local(new_state.step, mesh,
+                                            opt_state.step.placements,
+                                            run_check=False)
+        metrics = dict(metrics, loss=loss, lr=lr, **opt_metrics)
+        return params, AdamWState(step_t, opt_state.m, opt_state.v), metrics
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, max_len: int):
+    """``prefill_step(params, batch)`` on ``mesh``: this rank's data shard
+    of the global ``batch`` prefilled for caches of ``max_len`` slots.
+    Returns ``(logits, state)``: the last position's logits as a DTensor
+    split over the data axes and the rank's ``DecodeState``; an
+    encoder-only config returns the full forward's logits alone (its
+    "prefill" is one bidirectional forward, as in the JAX package).
+    ``params`` are DTensors (gathered here) or plain tensors."""
+    dp, tp = dp_size(mesh), tp_size(mesh)
+    device = _device(mesh)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        with _hints(mesh):
+            full = tfm.tree_map(_full, params)
+            local = {k: _rows(v, mesh, device) for k, v in batch.items()}
+            if cfg.encoder_only:
+                logits, _aux = tfm.forward(full, cfg, local, ep_groups=tp,
+                                           dp_groups=dp)
+                return rows_on_mesh(logits, mesh)
+            logits, state = tfm.prefill(full, cfg, local, max_len,
+                                        ep_groups=tp, dp_groups=dp)
+            return rows_on_mesh(logits, mesh), state
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """``serve_step(params, state, tokens) -> (next_tokens, state)``: one
+    greedy decode step on ``mesh`` for a global batch of ``batch`` lanes
+    (split over the data axes) with caches of ``max_len`` slots, the
+    state a rank's own (as :func:`make_prefill_step` returns it, updated
+    in place).  ``tokens`` is the global ``(batch,)`` vector or the
+    DTensor the previous step returned; so are the next tokens."""
+    dp, tp = dp_size(mesh), tp_size(mesh)
+    device = _device(mesh)
+    _check_rows(batch, mesh, "a batch")
+
+    @torch.no_grad()
+    def serve_step(params, state, tokens):
+        with _hints(mesh):
+            logits, state = tfm.decode_step(
+                tfm.tree_map(_full, params), cfg, state,
+                _rows(tokens, mesh, device), ep_groups=tp, dp_groups=dp)
+            # greedy next token (serving drivers may replace with sampling)
+            return rows_on_mesh(torch.argmax(logits, -1).to(torch.int32),
+                            mesh), state
+
+    return serve_step

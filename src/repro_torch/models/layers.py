@@ -6,14 +6,18 @@ Parameters are nested mappings of tensors (``p["wq"]``), either plain dicts
 or the ``ParamTree`` modules of :mod:`repro_torch.models.transformer`;
 weights are ``(in, out)`` and multiply as ``x @ W``, as in the JAX package.
 
-Not ported here: the activation-sharding hints (``hint``,
-``set_axis_hints``) and the tensor-parallel KV head expansion of
-``attn_apply``.  They belong to the sharded step (ROADMAP §1 item 11d);
-on one card they are the identity.
+The activation-sharding hints: the mesh-bound steps of
+:mod:`repro_torch.launch.steps` declare the mesh's axes here for the
+length of one call (:func:`axis_hints`), and the model reads them where
+the JAX package does: the tensor-parallel KV head expansion of
+:func:`attn_apply` and the shard-local routing of
+:func:`repro_torch.models.moe.moe_apply`.  The hints are off unless a
+step sets them, so plain calls need no mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -21,6 +25,81 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# Activation-sharding hints.  In the JAX package ``hint`` pins a layout with
+# ``with_sharding_constraint``; here every tensor is a rank's local tensor
+# (the port keeps compute over "model" replicated), so ``hint`` is the
+# identity and ``hint_spec`` says what layout the JAX package would pin.
+# ``mesh`` is a ``DeviceMesh`` when each rank holds one data shard's rows
+# (the multi-rank steps), or a mesh description (any object with
+# ``axis_names`` and a ``shape`` mapping) when one process holds the global
+# batch and loops over the shards (the global view).
+# ---------------------------------------------------------------------------
+
+_AXIS_HINTS = {"on": False, "dp": None, "dp_size": 0, "tp_size": 0,
+               "mesh": None}
+
+
+def set_axis_hints(*, dp_axes=None, dp_size=0, tp_size=0, mesh=None):
+    _AXIS_HINTS.update(on=bool(dp_axes), dp=dp_axes, dp_size=dp_size,
+                       tp_size=tp_size, mesh=mesh)
+
+
+def clear_axis_hints():
+    _AXIS_HINTS.update(on=False, dp=None, dp_size=0, tp_size=0, mesh=None)
+
+
+@contextlib.contextmanager
+def axis_hints(**hints):
+    """:func:`set_axis_hints` for the length of a ``with`` block; the hints
+    that were set before are restored on exit, also when the block
+    raises."""
+    saved = dict(_AXIS_HINTS)
+    set_axis_hints(**hints)
+    try:
+        yield
+    finally:
+        _AXIS_HINTS.clear()
+        _AXIS_HINTS.update(saved)
+
+
+def hint_spec(shape, *axes) -> tuple:
+    """The ``PartitionSpec`` entries the JAX package's ``hint`` pins for a
+    tensor of ``shape``: per dim, ``"dp"`` becomes the data axes and
+    ``"tp"`` ``"model"`` where the hinted size divides the dim, else
+    ``None`` (trailing dims default to ``None``; a one-axis tuple is
+    written as its name, as ``PartitionSpec`` writes it).  ``()`` when the
+    hints are off."""
+    h = _AXIS_HINTS
+    if not h["on"]:
+        return ()
+    dp = h["dp"]
+    if isinstance(dp, tuple) and len(dp) == 1:
+        dp = dp[0]
+    spec = []
+    for i, dim in enumerate(shape):
+        a = axes[i] if i < len(axes) else None
+        if a == "dp" and h["dp_size"] and dim % h["dp_size"] == 0:
+            spec.append(dp)
+        elif a == "tp" and h["tp_size"] and dim % h["tp_size"] == 0:
+            spec.append("model")
+        else:
+            spec.append(None)
+    return tuple(spec)
+
+
+def hint(x, *axes):
+    """The identity on a rank's local tensor (see :func:`hint_spec` for the
+    layout the JAX package pins)."""
+    return x
+
+
+def rank_local() -> bool:
+    """True when the hints' mesh is a ``DeviceMesh``: each rank holds only
+    its data shard's rows."""
+    return _AXIS_HINTS["on"] and hasattr(_AXIS_HINTS["mesh"],
+                                         "mesh_dim_names")
 
 
 def _dense_init(shape, dtype, generator, device, scale=None, lead=()):
@@ -161,9 +240,17 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str, pos0: int = 0):
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
+    # GQA + TP, as the JAX package: when q heads shard over "model" but KV
+    # heads do not, KV is expanded to H heads (numerically the identity)
+    tp = _AXIS_HINTS["tp_size"] if _AXIS_HINTS["on"] else 0
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    ke, ve = kt, vt
+    if tp and H % tp == 0 and KV % tp != 0 and H != KV:
+        ke = kt.repeat_interleave(H // KV, dim=1)
+        ve = vt.repeat_interleave(H // KV, dim=1)
     causal = kind != "bidir"
     window = cfg.window if kind == "local" else 0
-    out = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
+    out = ops.flash_attention(qt, ke, ve, causal=causal, window=window,
                               softcap=cfg.attn_softcap)
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ p["wo"], (kt, vt)

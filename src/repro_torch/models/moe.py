@@ -1,8 +1,8 @@
 """BalancedMoE: the mixture-of-experts layer whose overflow handling is the
 paper's dynamic load balancing (:mod:`repro_torch.core.balance`).  The
-port of the JAX package's ``models/moe.py`` on one device: experts are the
-workers, tokens the tasks, expert capacity the XQueue size, expert groups
-the NUMA zones, and the layer returns the paper's counters as metrics.
+port of the JAX package's ``models/moe.py``: experts are the workers,
+tokens the tasks, expert capacity the XQueue size, expert groups the NUMA
+zones, and the layer returns the paper's counters as metrics.
 
 A layer routes its tokens, dispatches them into ``(G * E, C, D)`` capacity
 buffers (:func:`repro_torch.kernels.ops.moe_dispatch`: the hand-written
@@ -11,9 +11,19 @@ experts, combines the outputs back to tokens with the gate weights
 (:func:`~repro_torch.kernels.ops.moe_combine`) and adds the shared
 experts' MLP when the config has them.
 
-Not ported here: the ``shard_map`` routing and combine of a mesh (the
-sharded step, ROADMAP §1 item 11d); on one device the JAX package takes
-the path ported here.
+Shard-local routing (the JAX package's ``shard_map`` path, taken when the
+config sets ``shard_routing``, the axis hints are on with a mesh and there
+are G > 1 token groups): each data shard routes only its own T / G tokens
+with the key ``fold_in(rng, shard)`` (``shard`` the row-major index over
+the data axes) and dispatches them into its own ``(E, C, D)`` buffer;
+the routing counters are summed over the shards, ``max_load`` too, and
+the combine works per shard on local expert ids.
+:func:`route_dispatch_shard` is one shard's work.  Two callers use it:
+:func:`route_dispatch_shards`, the global view of one process holding
+every shard's tokens, and :func:`moe_apply` on a rank of a multi-rank
+step, where the rank is one shard, the counters are all-reduced over the
+data axes, and the load-balance loss is the rank's share of the global
+one (:func:`load_balance_share`).
 """
 
 from __future__ import annotations
@@ -24,8 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import balance
+from repro_torch.core import balance, prng
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import dp_index
 from repro_torch.models import layers
 
 
@@ -67,6 +78,80 @@ def capacity_for(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, (cap + 7) // 8 * 8)
 
 
+def route_dispatch_shard(xt, logits, cfg: ModelConfig, cap: int, groups,
+                         rng, shard: int):
+    """One data shard's routing and dispatch: its tokens ``xt`` (t, D) and
+    router ``logits`` (t, E) routed with ``fold_in(rng, shard)`` over one
+    token group, dispatched into an ``(E, cap, D)`` buffer.  Returns
+    ``(buf, ve, pos, weight, probs, stats)``: ``ve`` the virtual expert
+    ``shard * E + expert`` (-1 where dropped), the rest as
+    :func:`repro_torch.core.balance.route` gives them."""
+    m = cfg.moe
+    E = m.n_experts
+    r = balance.route(logits, m.top_k, cap, groups, strategy=m.strategy,
+                      p_local=m.p_local, key=prng.fold_in(rng, shard))
+    buf = ops.moe_dispatch(xt, r.expert, r.pos, n_experts=E, capacity=cap)
+    ve = torch.where(r.expert >= 0, shard * E + r.expert, -1)
+    return buf, ve, r.pos, r.weight, r.probs, r.stats
+
+
+def route_dispatch_shards(xt, logits, cfg: ModelConfig, cap: int, groups,
+                          rng, G: int):
+    """The global view: :func:`route_dispatch_shard` of each of ``G``
+    contiguous token shards of ``xt`` (T, D).  Returns the ``(G, E, cap,
+    D)`` buffers, the ``(T, k)`` routing tables and ``(T, E)`` probs in
+    token order, and each counter summed over the shards."""
+    t = xt.shape[0] // G
+    parts = [route_dispatch_shard(xt[s * t:(s + 1) * t],
+                                  logits[s * t:(s + 1) * t], cfg, cap,
+                                  groups, rng, s) for s in range(G)]
+    buf = torch.stack([part[0] for part in parts])
+    ve, pos, weight, probs = (torch.cat([part[i] for part in parts])
+                              for i in range(1, 5))
+    stats = {k: sum(part[5][k] for part in parts) for k in parts[0][5]}
+    return buf, ve, pos, weight, probs, stats
+
+
+def combine_shards(y, ve, pos, weight, cfg: ModelConfig):
+    """Each shard's expert outputs ``y[g]`` (E, C, D) back to its own
+    tokens, on local expert ids (tokens never left their shard); the
+    ``(T, k)`` tables are in token order, shard after shard."""
+    E, G = cfg.moe.n_experts, y.shape[0]
+    t = ve.shape[0] // G
+    outs = []
+    for g in range(G):
+        ve_g = ve[g * t:(g + 1) * t]
+        outs.append(ops.moe_combine(
+            y[g], torch.where(ve_g >= 0, ve_g % E, -1),
+            pos[g * t:(g + 1) * t], weight[g * t:(g + 1) * t], n_tokens=t))
+    return torch.cat(outs)
+
+
+def load_balance_share(probs, expert, k: int, counts, n_tokens: int):
+    """A rank's share of the Switch-Transformer loss over the global
+    tokens: ``E * sum_e f_e * sum_local p_e / n_tokens``, with ``f_e =
+    counts_e / (n_tokens * k)`` from the global assignment ``counts``
+    (no gradient), so the shares of all ranks sum to the global loss and
+    so do their gradients."""
+    E = probs.shape[1]
+    frac_tokens = counts / n_tokens / k
+    return E * torch.sum(frac_tokens * (probs.sum(dim=0) / n_tokens))
+
+
+def _expert_counts(expert, E: int, dtype):
+    """Tokens assigned to each expert (a dropped slot, -1, to none)."""
+    onehot = expert.long()[..., None] == torch.arange(E,
+                                                      device=expert.device)
+    return onehot.to(dtype).sum(dim=(0, 1))
+
+
+def _sum_over_data(x, mesh, dp_axes):
+    """``x`` all-reduced (summed) over the data axes of ``mesh``."""
+    from repro_torch.runtime import collectives   # it imports the models
+
+    return collectives.flat_psum_grads([x], mesh, dp_axes)[0]
+
+
 def moe_apply(p, x, cfg: ModelConfig, *, ep_groups: int, rng,
               dp_groups: int = 1):
     """x: (B, S, D).  Returns (out, aux): aux holds the router's
@@ -76,34 +161,76 @@ def moe_apply(p, x, cfg: ModelConfig, *, ep_groups: int, rng,
     :mod:`repro_torch.core.prng`); ``ep_groups`` the expert groups (their
     gcd with the expert count); ``dp_groups`` the token groups (their gcd
     with B): capacity and buffers are per (token group, expert), and a
-    token is never routed out of its group."""
+    token is never routed out of its group.  Under the axis hints of a
+    mesh, with ``shard_routing`` and G > 1, the groups route shard-locally
+    (see the module's docstring); on a rank of a multi-rank step ``x`` is
+    the rank's rows and ``aux["lb_loss"]`` its share of the global
+    loss."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     E = m.n_experts
-    G = math.gcd(dp_groups, B)     # token groups follow the batch split
+    hints = layers._AXIS_HINTS
+    local = layers.rank_local()
+    # the ranks whose rows make the global batch (each holds B of them)
+    n_ranks = hints["dp_size"] if local else 1
+    G = math.gcd(dp_groups, B * n_ranks)   # groups follow the batch split
+    use_sm = (m.shard_routing and hints["on"] and hints["mesh"] is not None
+              and G > 1)
+    if local and n_ranks > 1 and not (use_sm and G == n_ranks):
+        raise ValueError(
+            f"{cfg.name}: a rank of a {n_ranks}-way data-parallel step "
+            f"routes its own tokens only, which needs shard_routing and "
+            f"dp_groups {n_ranks} (shard_routing={m.shard_routing}, "
+            f"dp_groups={dp_groups})")
     xt = x.reshape(T, D)
-    cap = capacity_for(cfg, T // G)
+    cap = capacity_for(cfg, T if local else T // G)
     logits = xt.float() @ p["router"]
     groups = balance.default_expert_groups(E, math.gcd(ep_groups, E),
                                            device=x.device)
-    token_group = torch.arange(T, dtype=torch.int32,
-                               device=x.device) // (T // G)
-    r = balance.route(logits, m.top_k, cap, groups, strategy=m.strategy,
-                      p_local=m.p_local, key=rng, token_group=token_group,
-                      n_token_groups=G)
-    # dispatch into flat (G * E, C, D) virtual-expert buffers
-    ve = torch.where(r.expert >= 0, token_group[:, None] * E + r.expert, -1)
-    buf = ops.moe_dispatch(xt, ve, r.pos, n_experts=G * E, capacity=cap)
-    buf = buf.reshape(G, E, cap, D)
+    if use_sm and local:
+        dp = hints["dp"]
+        buf, ve, pos, weight, probs, stats = route_dispatch_shard(
+            xt, logits, cfg, cap, groups, rng, dp_index(hints["mesh"]))
+        buf = buf[None]
+        expert = torch.where(ve >= 0, ve % E, -1)
+        # the global assignment counts and counters, in one all-reduce
+        # (float32 counts are exact below 2^24)
+        total = _sum_over_data(torch.cat([
+            _expert_counts(expert, E, probs.dtype),
+            torch.stack([v.to(probs.dtype) for v in stats.values()])]),
+            hints["mesh"], dp)
+        lb = load_balance_share(probs, expert, m.top_k, total[:E],
+                                T * n_ranks)
+        stats = dict(zip(stats, total[E:]))
+    elif use_sm:
+        buf, ve, pos, weight, probs, stats = route_dispatch_shards(
+            xt, logits, cfg, cap, groups, rng, G)
+        lb = balance.load_balance_loss(
+            probs, torch.where(ve >= 0, ve % E, -1), m.top_k)
+    else:
+        token_group = torch.arange(T, dtype=torch.int32,
+                                   device=x.device) // (T // G)
+        r = balance.route(logits, m.top_k, cap, groups, strategy=m.strategy,
+                          p_local=m.p_local, key=rng,
+                          token_group=token_group, n_token_groups=G)
+        # dispatch into flat (G * E, C, D) virtual-expert buffers
+        ve = torch.where(r.expert >= 0, token_group[:, None] * E + r.expert,
+                         -1)
+        buf = ops.moe_dispatch(xt, ve, r.pos, n_experts=G * E, capacity=cap)
+        buf = buf.reshape(G, E, cap, D)
+        pos, weight, stats = r.pos, r.weight, r.stats
+        lb = balance.load_balance_loss(r.probs, r.expert, m.top_k)
     act = F.silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
     h = act * torch.einsum("gecd,edf->gecf", buf, p["wu"])
     y = torch.einsum("gecf,efd->gecd", h, p["wd"])
-    out = ops.moe_combine(y.reshape(G * E, cap, D), ve, r.pos, r.weight,
-                          n_tokens=T).reshape(B, S, D)
+    if use_sm:
+        out = combine_shards(y, ve, pos, weight, cfg).reshape(B, S, D)
+    else:
+        out = ops.moe_combine(y.reshape(G * E, cap, D), ve, pos, weight,
+                              n_tokens=T).reshape(B, S, D)
     if m.n_shared:
         out = out + layers.mlp_apply(p["shared"], x, cfg)
-    aux = {"lb_loss": balance.load_balance_loss(r.probs, r.expert,
-                                                m.top_k)}
-    aux.update({k: v.float() for k, v in r.stats.items()})
+    aux = {"lb_loss": lb}
+    aux.update({k: v.float() for k, v in stats.items()})
     return out, aux

@@ -53,7 +53,8 @@ The routing key ``rng`` is a pair of uint32 words
 package; layer ``idx`` of pattern position ``pidx`` routes with
 ``fold_in(rng, idx * P + pidx)``, derived on the host.  ``ep_groups`` (16 by
 default, as in the JAX package) is the expert-group count of the routing's
-locality bonus.
+locality bonus; ``dp_groups`` (1 by default) the data shards an MoE layer
+routes apart (:func:`repro_torch.models.moe.moe_apply`).
 """
 
 from __future__ import annotations
@@ -314,7 +315,8 @@ def _remat_group(cfg: ModelConfig, n: int) -> int:
     return best
 
 
-def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups):
+def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups,
+                 dp_groups):
     """Prefill block.  Returns (x, cache_src, aux): what decode needs (k/v
     and, with SSM heads, the SSM state and conv carry; or the RWKV state
     and token-shift tails; all final), and the MoE layer's counters (None
@@ -344,7 +346,7 @@ def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups):
     aux = None
     if kind.moe:
         m, aux = moe.moe_apply(bp["mlp"], h2, cfg, ep_groups=ep_groups,
-                               rng=rng)
+                               rng=rng, dp_groups=dp_groups)
     else:
         m = layers.mlp_apply(bp["mlp"], h2, cfg)
     if cfg.post_block_norms:
@@ -406,7 +408,7 @@ def _layer_keys(rng, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
-            collect_cache=False):
+            dp_groups=1, collect_cache=False):
     """Full-sequence forward.  Returns (logits, aux[, cache_srcs]): aux is
     the JAX package's MoE counters summed over the layers (all zero for a
     stack without MoE layers); cache_srcs holds per pattern position the
@@ -428,7 +430,7 @@ def forward(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
             for pidx, kind in enumerate(kinds):
                 x, src, layer_aux = _apply_block(
                     layers_p[pidx][idx], x, cfg, kind, keys[idx][pidx],
-                    ep_groups)
+                    ep_groups, dp_groups)
                 if layer_aux is not None:
                     aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
                 if collect_cache:
@@ -487,13 +489,15 @@ class _ce_mean(torch.autograd.Function):
         return dflat, None
 
 
-def loss_fn(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16):
+def loss_fn(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
+            dp_groups=1):
     """``(total, metrics)``: total is the mean cross-entropy plus 0.01 times
     the summed load-balance loss; metrics hold ``ce`` and the
     :data:`AUX_KEYS` sums.  Next-token targets (``tokens[:, 1:]`` from the
     positions before them; a vision config's from its text positions
     only), or an encoder-only config's ``targets`` at every position."""
-    logits, aux = forward(params, cfg, batch, rng, ep_groups=ep_groups)
+    logits, aux = forward(params, cfg, batch, rng, ep_groups=ep_groups,
+                          dp_groups=dp_groups)
 
     def _ce(lg, tg):
         V = lg.shape[-1]
@@ -551,13 +555,14 @@ def init_decode_state(cfg: ModelConfig, B: int, max_len: int,
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int, rng=None, *,
-            ep_groups=16):
+            ep_groups=16, dp_groups=1):
     """Run the full prompt, build the decode state.  Returns (logits of the
     last position, state)."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
     logits, _aux, srcs = forward(params, cfg, batch, rng,
-                                 ep_groups=ep_groups, collect_cache=True)
+                                 ep_groups=ep_groups, dp_groups=dp_groups,
+                                 collect_cache=True)
     kinds = pattern(cfg)
     S = prompt_len(cfg, batch)
     caches = []
@@ -581,7 +586,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int, rng=None, *,
 
 
 def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length,
-                  rng, ep_groups):
+                  rng, ep_groups, dp_groups):
     h = layers.rmsnorm(bp["ln1"], x)
     if kind.rwkv:
         a, st, tail = rwkv.time_mix_decode(bp["rwkv"], h, cfg,
@@ -609,7 +614,8 @@ def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length,
     h2 = layers.rmsnorm(bp["ln2"], x)
     if kind.moe:
         m, _aux = moe.moe_apply(bp["mlp"], h2[:, None], cfg,
-                                ep_groups=ep_groups, rng=rng)
+                                ep_groups=ep_groups, rng=rng,
+                                dp_groups=dp_groups)
         m = m[:, 0]
     else:
         m = layers.mlp_apply(bp["mlp"], h2, cfg)
@@ -619,7 +625,7 @@ def _decode_block(bp, x, cfg: ModelConfig, kind: BlockKind, cache, length,
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens,
-                rng=None, *, ep_groups=16):
+                rng=None, *, ep_groups=16, dp_groups=1):
     """One autoregressive step.  tokens: (B,) int.  Returns (logits,
     state).  The caches of ``state`` are updated in place (see
     :func:`repro_torch.models.layers.attn_decode`; RWKV and SSM states,
@@ -635,7 +641,8 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens,
         for pidx, kind in enumerate(kinds):
             x = _decode_block(_index(params["streams"][pidx], idx), x,
                               cfg, kind, _index(state.caches[pidx], idx),
-                              state.length, keys[idx][pidx], ep_groups)
+                              state.length, keys[idx][pidx], ep_groups,
+                              dp_groups)
     logits = _logits(params, cfg, x)
     return logits, DecodeState(caches=state.caches,
                                length=state.length + 1)

@@ -50,11 +50,15 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params: ParamTree, *, lr,
-                 b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0):
+                 b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0,
+                 grad_norm=None):
     """Returns (new_params, new_state, metrics): ``params`` and the state's
     ``m`` and ``v`` updated in place, ``metrics = {"grad_norm"}``.
     ``grads`` is a tree of the parameters' structure, or their list in
-    leaf order (:func:`tree_leaves`); ``lr`` a float32 scalar tensor."""
+    leaf order (:func:`tree_leaves`); ``lr`` a float32 scalar tensor.
+    ``grad_norm``, when given, is the norm to clip by in place of
+    ``grads``' own: the sharded step updates a rank's shards of every leaf
+    and passes the whole gradient's norm."""
     with torch.profiler.record_function("adamw_update"):
         flat_p = tree_leaves(params)
         flat_g = tree_leaves(grads)
@@ -64,7 +68,7 @@ def adamw_update(grads, state: AdamWState, params: ParamTree, *, lr,
             raise ValueError(f"{len(flat_g)} gradients, {len(flat_m)} / "
                              f"{len(flat_v)} moments for {len(flat_p)} "
                              "parameters")
-        gnorm = global_norm(flat_g)
+        gnorm = global_norm(flat_g) if grad_norm is None else grad_norm
         f32 = dict(dtype=torch.float32, device=gnorm.device)
         scale = torch.minimum(
             torch.ones((), **f32),

@@ -207,15 +207,9 @@ TRAINING_MODULES = ("optim/adamw", "optim/grad_compress",
                     "checkpoint/checkpoint", "data/pipeline", "launch/steps",
                     "launch/train", "launch/mesh", "launch/shapes",
                     "launch/sharding")
-#: the names that wait for the sharded step, ROADMAP item 11d: the elastic
-#: restore onto a mesh, the production meshes of the train driver and the
-#: mesh-bound prefill and serve steps
-LATER = {
-    ("checkpoint/checkpoint", "restore_resharded"): "item 11d (a mesh)",
-    ("launch/train", "build_mesh"): "item 11d (--production meshes)",
-    ("launch/steps", "make_prefill_step"): "item 11d (mesh-bound)",
-    ("launch/steps", "make_serve_step"): "item 11d (mesh-bound)",
-}
+#: the names that wait for a later item: none since the sharded step
+#: (ROADMAP item 11d) ported the last four
+LATER = {}
 
 
 def test_every_public_name_of_the_training_modules_has_a_port():

@@ -241,7 +241,25 @@ In order, it
    ``serve.generate``'s, 26 flash launches; (d) phase 12's repro_100m
    checkpoint through ``checkpoint.restore_resharded`` onto the mesh,
    every ``full_tensor()`` bitwise ``restore``'s; the checkpoint is then
-   removed.
+   removed;
+16. runs the seventeenth slice's path, the dry-run without HLO, after
+   phase 15 and before the lines of 9: (a) ``python -m
+   repro_torch.launch.dryrun --arch rwkv6_1_6b --shape long_500k
+   --multi-pod --force`` in a subprocess on the default device (fake
+   tensors on the card) and again with ``--device cpu``: ``[OK]``,
+   ``fits_hbm``, 512 devices, and the two records equal in every count;
+   (b) gemma2_2b (26 layers, 4 x 1024, bf16, one microbatch: phase 15's
+   step) and rwkv6_1_6b (24 layers, 4 x 1024: phase 13's model, its
+   backward's step loops scaled) traced by ``dryrun.trace_cell`` on a
+   one-rank fake mesh, then each run for real on a one-rank NCCL (1, 1)
+   mesh: a first step, a warm step timed and its peak memory read, and a
+   third step under ``hlo_analysis.analyze``, launch counts zeroed just
+   before the real steps and read just after (2 x 26 flash, 2 x 24
+   RWKV6 launches a step): the FLOPs and HBM bytes of the trace equal
+   to the real step's, the traced peak within 25 % of the warm step's
+   ``max_memory_allocated()``, ``dryrun.HBM_PER_CHIP`` the card's
+   ``total_memory``; (c) each step's roofline ``compute_s`` and
+   ``memory_s`` beside its measured warm seconds, as a ratio (no gate).
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -3381,6 +3399,225 @@ def sharded_phase(torch, dev, reg, ckpt_dir, one_device_step_s):
     return main_launches, out
 
 
+#: phase 16: the JAX dry-run test's cell through the port's dry-run CLI,
+#: and the two traced steps held to their real runs
+DRYRUN_ARGV = ("--arch", "rwkv6_1_6b", "--shape", "long_500k",
+               "--multi-pod", "--force")
+#: the counts two records of one cell must share
+DRYRUN_COUNTS = ("hlo_flops_per_dev", "hlo_hbm_bytes_per_dev",
+                 "coll_bytes_per_dev", "coll_by_op", "unknown_trip_loops",
+                 "xla_cost_analysis_flops", "memory_per_device_bytes",
+                 "arg_bytes", "temp_bytes", "out_bytes", "state_bytes_per_dev",
+                 "kernels", "params", "model_flops", "n_devices", "mesh")
+#: (b): the traced peak against the real step's max_memory_allocated()
+DRYRUN_PEAK_TOL = 0.25
+#: (b): the models traced and run, with the kernel each step launches
+DRYRUN_STEPS = (("gemma2_2b", "flash_attention"),
+                ("rwkv6_1_6b", "rwkv6_scan"))
+
+
+def dryrun_cli(out_dir: str, device=None) -> dict:
+    """Phase 16 (a): the dry-run CLI on the JAX test's cell in a
+    subprocess; returns its record (and its wall seconds)."""
+    import os
+
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV,
+            "--out", out_dir] + (["--device", device] if device else [])
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0 and "[OK]" in r.stdout,
+          f"the dry-run on {device or 'the default device'} failed "
+          f"(rc {r.returncode}): {r.stdout[-2000:]} {r.stderr[-3000:]}")
+    with open(Path(out_dir) / "rwkv6_1_6b__long_500k__pod2.json") as f:
+        rec = json.load(f)
+    check(rec["fits_hbm"] and rec["n_devices"] == 512
+          and rec["mesh"] == "2x16x16",
+          f"the dry-run record on {device or 'the default device'}: "
+          f"fits_hbm {rec['fits_hbm']}, {rec['n_devices']} devices, mesh "
+          f"{rec['mesh']}")
+    print(f"dryrun (a): {rec['arch']} x {rec['shape']} on {rec['device']} "
+          f"fake tensors, {rec['n_devices']} ranks ({rec['mesh']}): "
+          f"{rec['memory_per_device_bytes'] / 2**30:.3f} GiB a rank "
+          f"(fits), {rec['hlo_flops_per_dev']:.4e} FLOPs, "
+          f"{rec['hlo_hbm_bytes_per_dev']:.4e} bytes, collectives "
+          f"{rec['coll_by_op']}; traced in {rec['trace_s']} s, "
+          f"{wall:.1f} s of subprocess", flush=True)
+    return dict(rec, wall_s=wall)
+
+
+def dryrun_phase(torch, dev, reg):
+    """Phase 16: (a) the dry-run CLI on the JAX test's cell, on the card's
+    fake tensors and on the CPU's, the records equal in every count; (b)
+    gemma2_2b and rwkv6_1_6b traced on a one-rank fake mesh, held to a
+    real step on a one-rank NCCL mesh (FLOPs and bytes equal, the peak
+    within ``DRYRUN_PEAK_TOL``); (c) the roofline seconds against the warm
+    step.  Returns (the launches of (b)'s real steps by kernel, report)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.launch import dryrun, hlo_analysis, steps
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    main_launches = dict.fromkeys(reg.KERNELS, 0)
+    tmp = tempfile.mkdtemp(prefix="repro_dryrun_")
+    try:
+        # (a) the CLI on the card's fake tensors and on the CPU's
+        recs = {}
+        for device in (None, "cpu"):
+            d = str(Path(tmp) / (device or "default"))
+            rec = dryrun_cli(d, device)
+            recs[rec["device"]] = rec
+        a, b = recs.values()
+        diff = [k for k in DRYRUN_COUNTS if a[k] != b[k]]
+        check(a["device"] != b["device"] and not diff,
+              f"the dry-run records on {a['device']} and {b['device']} "
+              f"differ in {diff}")
+        out["cli"] = {k: {key: r[key] for key in DRYRUN_COUNTS + (
+            "device", "trace_s", "wall_s", "fits_hbm", "compute_s",
+            "memory_s", "collective_s", "dominant")}
+            for k, r in recs.items()}
+        print(f"dryrun (a): the {a['device']} and {b['device']} records are "
+              f"equal in every count ({', '.join(DRYRUN_COUNTS)})",
+              flush=True)
+
+        # (b) the traced steps against the real ones
+        hbm = torch.cuda.get_device_properties(0).total_memory \
+            if dev.type == "cuda" else dryrun.HBM_PER_CHIP
+        check(dryrun.HBM_PER_CHIP == hbm,
+              f"dryrun.HBM_PER_CHIP {dryrun.HBM_PER_CHIP} is not the card's "
+              f"total_memory {hbm}")
+        cell = ShapeCell("phase16_train", "train", TRAIN_S, TRAIN_B)
+        out["steps"] = {}
+        for arch, kernel in DRYRUN_STEPS:
+            cfg = cb.get(arch)
+            t0 = time.perf_counter()
+            with dryrun.fake_world(1):
+                fake, meta = dryrun.trace_cell(
+                    arch, cell.name, False, microbatches=1, cell=cell,
+                    mesh_shape=(1, 1), cfg=cfg,
+                    device=None if dev.type == "cuda" else dev)
+            trace_wall = time.perf_counter() - t0
+            check(fake.unknown_trip_loops == 0,
+                  f"{arch}: {fake.unknown_trip_loops} loops not scaled")
+            store = tempfile.mkdtemp(prefix="repro_dryrun_pg_", dir=tmp)
+            dist.init_process_group(
+                "nccl" if dev.type == "cuda" else "gloo",
+                init_method=f"file://{store}/store", rank=0, world_size=1)
+            try:
+                mesh = mesh_mod.make_test_mesh(
+                    1, 1, device=None if dev.type == "cuda" else dev)
+                params = tfm.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0), dev)
+                opt = adamw_init(params, getattr(torch, cfg.opt_state_dtype))
+                p, o = steps.shard_train_state(cfg, mesh, params, opt)
+                del params, opt
+                step = steps.make_train_step(cfg, mesh, microbatches=1)
+                # on the card before the steps, as the trace's batch is
+                batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                            batch_for(cfg, i, TRAIN_B, TRAIN_S).items()}
+                           for i in range(3)]
+                reg.reset_launches()
+                p, o, m = step(p, o, batches[0], 0)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                p, o, m = step(p, o, batches[1], 1)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                warm_s = time.perf_counter() - t1
+                peak = torch.cuda.max_memory_allocated()
+                t1 = time.perf_counter()
+                (p, o, m), real = hlo_analysis.analyze(step, p, o,
+                                                       batches[2], 2)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                analyzed_s = time.perf_counter() - t1
+                launches = reg.launch_counts()
+            finally:
+                dist.destroy_process_group()
+            want = dict.fromkeys(reg.KERNELS, 0)
+            want[kernel] = 2 * cfg.n_layers * 3
+            check(launches == want, f"{arch}: the real steps launched "
+                  f"{launches}; expected {want}")
+            check(math.isfinite(loss), f"{arch}: the analyzed step's loss "
+                  f"is {loss}")
+            diff = {op: (fake.by_op.get(op), real.by_op.get(op))
+                    for op in set(fake.by_op) | set(real.by_op)
+                    if fake.by_op.get(op) != real.by_op.get(op)}
+            check(fake.flops == real.flops
+                  and fake.hbm_bytes == real.hbm_bytes,
+                  f"{arch}: the trace counts {fake.flops!r} FLOPs and "
+                  f"{fake.hbm_bytes!r} bytes, the real step "
+                  f"{real.flops!r} and {real.hbm_bytes!r}; ops that differ "
+                  f"(trace, real): {diff}")
+            ratio = fake.peak_bytes / peak
+            check(abs(ratio - 1.0) <= DRYRUN_PEAK_TOL,
+                  f"{arch}: the traced peak {fake.peak_bytes / 2**30:.3f} "
+                  f"GiB is {ratio:.3f}x the real step's "
+                  f"{peak / 2**30:.3f} GiB")
+            for k, v in launches.items():
+                main_launches[k] += v
+            terms = dryrun.roofline_terms(fake.flops, fake.hbm_bytes,
+                                          fake.coll_bytes)
+            roof = max(terms["compute_s"], terms["memory_s"])
+            r = dict(
+                n_layers=cfg.n_layers, batch=[TRAIN_B, TRAIN_S],
+                flops=fake.flops, hbm_bytes=fake.hbm_bytes,
+                coll_by_op=dict(fake.coll_by_op),
+                flop_counter_flops=fake.flop_counter_flops,
+                kernels=fake.kernels, traced_peak_gib=fake.peak_bytes / 2**30,
+                traced_arg_gib=fake.arg_bytes / 2**30,
+                real_peak_gib=peak / 2**30, peak_ratio=ratio,
+                real_analyzed_peak_gib=real.peak_bytes / 2**30,
+                trace_s=meta["trace_s"], trace_wall_s=trace_wall,
+                warm_step_s=warm_s, analyzed_step_s=analyzed_s,
+                compute_s=terms["compute_s"], memory_s=terms["memory_s"],
+                roofline_s=roof, warm_over_roofline=warm_s / roof,
+                launches={k: v for k, v in launches.items() if v},
+                top_ops=sorted(([op, t["bytes"], t["flops"], t["calls"]]
+                                for op, t in fake.by_op.items()),
+                               key=lambda x: -x[1])[:8])
+            out["steps"][arch] = r
+            print(f"dryrun (b): {arch} ({cfg.n_layers} layers) "
+                  f"{TRAIN_B}x{TRAIN_S}, one microbatch: traced on a "
+                  f"one-rank fake mesh in {meta['trace_s']} s "
+                  f"({trace_wall:.1f} s with set-up), {fake.flops:.6e} FLOPs "
+                  f"and {fake.hbm_bytes:.6e} bytes, equal to the real "
+                  f"step's under analyze ({analyzed_s:.2f} s); traced peak "
+                  f"{r['traced_peak_gib']:.3f} GiB (arguments "
+                  f"{r['traced_arg_gib']:.3f}) against the warm step's "
+                  f"{r['real_peak_gib']:.3f} GiB ({ratio:.4f}x); launches "
+                  f"{r['launches']}", flush=True)
+            print(f"dryrun (c): {arch}: compute_s {terms['compute_s']:.5f}, "
+                  f"memory_s {terms['memory_s']:.5f} (flops at "
+                  f"{dryrun.PEAK_FLOPS:.3g}/s, bytes at "
+                  f"{dryrun.HBM_BW:.3g}/s); the warm step {warm_s:.4f} s, "
+                  f"{warm_s / roof:.2f}x the larger", flush=True)
+            del p, o, m, step, real, fake
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["hbm_per_chip"] = hbm
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dryrun phase took {out['phase_s']:.1f} s", flush=True)
+    return main_launches, out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.exists():
         return fail("run from the repository root (src/repro_torch and "
@@ -3973,6 +4210,12 @@ def run(torch) -> int:
         report["train"]["gemma2_2b"]["warm_step_s"])
     for row in (flash_row, moe_row):
         row["launches"] += shard_launches[row["name"]]
+
+    # 16. this slice's path: the dry-run without HLO (the CLI on the JAX
+    # test's cell; gemma2_2b's and rwkv6_1_6b's steps traced, then run)
+    dryrun_launches, report["dryrun"] = dryrun_phase(torch, dev, reg)
+    for row in (flash_row, rwkv_row):
+        row["launches"] += dryrun_launches[row["name"]]
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -4052,6 +4295,7 @@ def run(torch) -> int:
         collectives_ms=di["collectives"], placements=di["placements"],
         phase_s=di["phase_s"])}))
     print(json.dumps({"sharded": report["sharded"]}))
+    print(json.dumps({"dryrun": report["dryrun"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,12 @@ it; ``ssm_chunked`` keeps the reference's chunking for the parity tests.
 Layout: x, dt ``(B, T, Di)``; A ``(Di, N)``; Bm, Cm ``(B, T, N)``; the
 state ``(B, Di, N)``.
 
+Under an analysis (:mod:`repro_torch.kernels.trace_hooks`) the step loops
+(``_rwkv6_steps``, ``rwkv6_backward``, ``_ssm_steps``, ``ssm_backward``)
+are counted from short prefixes and scaled to their length; their walks
+(``_rwkv6_walk``, ``_rwkv6_backward_walk``, ``_ssm_walk``,
+``_ssm_backward_walk``) are what runs otherwise.
+
 ``moe_dispatch`` is the plain twin of the MoE-dispatch kernel of
 :mod:`repro_torch.kernels.moe_dispatch` (the reference's scatter, with the
 duplicates summed), ``moe_dispatch_backward`` its gradient (the kernel's
@@ -47,9 +53,12 @@ backward); ``moe_combine`` has no kernel in either package.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import trace_hooks
 
 NEG_INF = -1e30
 
@@ -268,6 +277,18 @@ def _rwkv6_step(s, rt, kt, vt, wt, u):
 
 
 def _rwkv6_steps(rf, kf, vf, wf, uf, s):
+    """The recurrence over the T steps of float32 ``(B, H, T, Dh)`` rows
+    from the state ``s``.  Returns (state, out).  Under an analysis the
+    loop is scaled (:mod:`repro_torch.kernels.trace_hooks`)."""
+    a = trace_hooks.counting()
+    if a is None:
+        return _rwkv6_walk(rf, kf, vf, wf, uf, s)
+    return a.loop(rf.shape[2], RWKV_STEP_BLOCK, lambda n: _rwkv6_walk(
+        *(x[:, :, :n] for x in (rf, kf, vf, wf)), uf, s),
+        lambda: _rwkv6_walk(rf, kf, vf, wf, uf, s))
+
+
+def _rwkv6_walk(rf, kf, vf, wf, uf, s):
     outs = []
     for t in range(rf.shape[2]):
         s, out = _rwkv6_step(s, rf[:, :, t], kf[:, :, t], vf[:, :, t],
@@ -334,6 +355,16 @@ def rwkv6_backward(r, k, v, w, u, state, dout, dstate):
     backward, each recomputing its states from its start and running the
     reverse recurrence (one ``addcmul`` a step each), the rest batched over
     the block.  Everything is float32, as the forward computes."""
+    a = trace_hooks.counting()
+    if a is None:
+        return _rwkv6_backward_walk(r, k, v, w, u, state, dout, dstate)
+    return a.loop(r.shape[2], RWKV_STEP_BLOCK, lambda n: (
+        _rwkv6_backward_walk(*(x[:, :, :n] for x in (r, k, v, w)), u,
+                             state, dout[:, :, :n], dstate)),
+        lambda: _rwkv6_backward_walk(r, k, v, w, u, state, dout, dstate))
+
+
+def _rwkv6_backward_walk(r, k, v, w, u, state, dout, dstate):
     B, H, T, Dh = r.shape
     # time-major (T, B, H, Dh) float32 views of the inputs
     rf, kf, vf, wf, gf = (a.float().permute(2, 0, 1, 3)
@@ -403,7 +434,26 @@ def _ssm_steps(xf, dtf, Af, Bf, Cf, h, starts=None):
     same operations, so the same values); the Python loop is left with
     the recurrence, and the C·h contractions of a block run as one batched
     product.  ``starts``, when given, is a list that receives the state at
-    the start of each block.  Returns (h, y (B, T, Di))."""
+    the start of each block.  Returns (h, y (B, T, Di)).
+    Under an analysis the loop is scaled
+    (:mod:`repro_torch.kernels.trace_hooks`); ``starts`` then receives
+    empty tensors of the start states' shape when the loop was not walked
+    (fake inputs)."""
+    a = trace_hooks.counting()
+    if a is None:
+        return _ssm_walk(xf, dtf, Af, Bf, Cf, h, starts)
+    T = xf.shape[1]
+    out = a.loop(T, SSM_STEP_BLOCK, lambda n: _ssm_walk(
+        xf[:, :n], dtf[:, :n], Af, Bf[:, :n], Cf[:, :n], h,
+        None if starts is None else []),
+        lambda: _ssm_walk(xf, dtf, Af, Bf, Cf, h, starts))
+    if starts is not None and not starts:
+        starts.extend(a.empty_like(h)
+                      for _ in range(math.ceil(T / SSM_STEP_BLOCK)))
+    return out
+
+
+def _ssm_walk(xf, dtf, Af, Bf, Cf, h, starts=None):
     T = xf.shape[1]
     ys = []
     for t0 in range(0, T, SSM_STEP_BLOCK):
@@ -435,6 +485,16 @@ def ssm_backward(xf, dtf, Af, Bf, Cf, starts, gy, gh):
     step); the rest are batched products over the block: ``exp(dt A)``'s
     cotangent ``G_t h_{t-1}``, ``(dt x) B``'s ``G_t``, ``C``'s ``gy_t
     h_t``."""
+    a = trace_hooks.counting()
+    if a is None:
+        return _ssm_backward_walk(xf, dtf, Af, Bf, Cf, starts, gy, gh)
+    return a.loop(xf.shape[1], SSM_STEP_BLOCK, lambda n: _ssm_backward_walk(
+        xf[:, :n], dtf[:, :n], Af, Bf[:, :n], Cf[:, :n],
+        starts[:math.ceil(n / SSM_STEP_BLOCK)], gy[:, :n], gh),
+        lambda: _ssm_backward_walk(xf, dtf, Af, Bf, Cf, starts, gy, gh))
+
+
+def _ssm_backward_walk(xf, dtf, Af, Bf, Cf, starts, gy, gh):
     T = xf.shape[1]
     dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
     dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)

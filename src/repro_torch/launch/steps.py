@@ -27,7 +27,11 @@ does not compress gradients.
 ``make_prefill_step`` and ``make_serve_step`` are bound to a mesh the same
 way: a rank prefills and decodes its data shard's rows; logits and tokens
 come back as DTensors split over the data axes, and the decode state is
-the rank's own.
+the rank's own.  A serve batch that the data axes do not divide (the
+``long_500k`` cell's one lane on 32 data shards) is decoded whole by
+every rank, its tokens replicated DTensors, as the JAX step replicates
+them; the prefill refuses such a batch, as the JAX ``batch_shardings``
+does.
 
 Every mesh-bound step sets the model's axis hints
 (:func:`repro_torch.models.layers.axis_hints`) for the length of one call
@@ -142,9 +146,22 @@ def make_train_step(cfg: ModelConfig, device, *, microbatches: int = 1,
 # mesh-bound steps
 # ---------------------------------------------------------------------------
 
-def _hints(mesh):
+class _Description:
+    """A mesh's axes and sizes without its ranks: under hints of a
+    description the model takes the global view (every row on this
+    rank)."""
+
+    def __init__(self, mesh):
+        self.axis_names = tuple(mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names, mesh.shape))
+
+
+def _hints(mesh, *, rank_rows: bool = True):
+    """The model's axis hints of ``mesh`` for one step call; with
+    ``rank_rows`` False the rank holds the whole batch (global view)."""
     return layers.axis_hints(dp_axes=dp_axes(mesh), dp_size=dp_size(mesh),
-                             tp_size=tp_size(mesh), mesh=mesh)
+                             tp_size=tp_size(mesh),
+                             mesh=mesh if rank_rows else _Description(mesh))
 
 
 def _full(x):
@@ -179,6 +196,15 @@ def _rows(x, mesh, device):
     b = x.shape[0] // dp_size(mesh)
     s = dp_index(mesh)
     return x[s * b:(s + 1) * b]
+
+
+def _replicated(x, mesh):
+    """``x``, which every rank holds whole, as a DTensor replicated over
+    the mesh."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def rows_on_mesh(x, mesh):
@@ -324,22 +350,33 @@ def make_prefill_step(cfg: ModelConfig, mesh, max_len: int):
 def make_serve_step(cfg: ModelConfig, mesh, batch: int, max_len: int):
     """``serve_step(params, state, tokens) -> (next_tokens, state)``: one
     greedy decode step on ``mesh`` for a global batch of ``batch`` lanes
-    (split over the data axes) with caches of ``max_len`` slots, the
-    state a rank's own (as :func:`make_prefill_step` returns it, updated
-    in place).  ``tokens`` is the global ``(batch,)`` vector or the
-    DTensor the previous step returned; so are the next tokens."""
+    with caches of ``max_len`` slots, the state a rank's own (as
+    :func:`make_prefill_step` returns it, updated in place).  ``tokens``
+    is the global ``(batch,)`` vector or the DTensor the previous step
+    returned; so are the next tokens.  When the data axes divide
+    ``batch``, a rank decodes its data shard's lanes and the tokens are
+    split over the data axes; else every rank decodes all ``batch`` lanes
+    (its state holds them all) and the tokens are replicated, as in the
+    JAX step (``P(dp if batch % dpn == 0 else None)``)."""
     dp, tp = dp_size(mesh), tp_size(mesh)
     device = _device(mesh)
-    _check_rows(batch, mesh, "a batch")
+    split = batch % dp == 0
 
     @torch.no_grad()
     def serve_step(params, state, tokens):
-        with _hints(mesh):
+        with _hints(mesh, rank_rows=split):
+            if split:
+                tokens = _rows(tokens, mesh, device)
+            elif hasattr(tokens, "to_local"):
+                tokens = tokens.to_local()
+            else:
+                tokens = torch.as_tensor(tokens, device=device)
             logits, state = tfm.decode_step(
-                tfm.tree_map(_full, params), cfg, state,
-                _rows(tokens, mesh, device), ep_groups=tp, dp_groups=dp)
+                tfm.tree_map(_full, params), cfg, state, tokens,
+                ep_groups=tp, dp_groups=dp)
             # greedy next token (serving drivers may replace with sampling)
-            return rows_on_mesh(torch.argmax(logits, -1).to(torch.int32),
-                            mesh), state
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+            return (rows_on_mesh(nxt, mesh) if split
+                    else _replicated(nxt, mesh)), state
 
     return serve_step

@@ -22,14 +22,15 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.transformer import tree_map
 
-#: (default process group, ranks of every group) -> this rank's group over
-#: several mesh axes
+#: (default process group, mesh, axes) -> this rank's group over several
+#: mesh axes
 _GROUPS: dict = {}
 
 
@@ -42,25 +43,32 @@ def _group_ranks(mesh, axes: tuple) -> list:
     product sub-mesh, ordered by the axes as listed (``("data",
     "model")``: data-major, as a ``psum_scatter`` over that tuple
     indexes)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
     names = list(mesh.mesh_dim_names)
     dims = [names.index(a) for a in axes]
     rest = [d for d in range(len(names)) if d not in dims]
     size = math.prod(mesh.shape[d] for d in dims)
-    return mesh.mesh.permute(rest + dims).reshape(-1, size).tolist()
+    # the mesh's rank table is a real tensor, also under a fake-tensor
+    # trace (the dry-run)
+    with unset_fake_temporarily():
+        ranks = np.array(mesh.mesh.tolist())
+    return ranks.transpose(rest + dims).reshape(-1, size).tolist()
 
 
 def _group(mesh, axes: tuple):
     """The process group over the mesh axes ``axes`` that holds this rank:
-    the mesh's own for one axis, else one of :func:`_group_ranks`."""
+    the mesh's own for one axis, else one of :func:`_group_ranks`, made
+    (collectively) on first use."""
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    ranks = _group_ranks(mesh, axes)
     world = dist.group.WORLD
-    key = (world, tuple(map(tuple, ranks)))
+    key = (world, mesh, axes)
     if key not in _GROUPS:
         for stale in [k for k in _GROUPS if k[0] is not world]:
             del _GROUPS[stale]   # groups of a destroyed world
-        _GROUPS[key] = dist.new_subgroups_by_enumeration(ranks)[0]
+        _GROUPS[key] = dist.new_subgroups_by_enumeration(
+            _group_ranks(mesh, axes))[0]
     return _GROUPS[key]
 
 

@@ -99,6 +99,7 @@ def test_import_and_cpu_run_leave_jax_and_repro_unloaded():
         "import repro_torch.optim.grad_compress, repro_torch.launch.shapes\n"
         "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
         "import repro_torch.runtime.collectives\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
         "from repro_torch.optim import ef_compress_grads, ef_init\n"
         "from repro_torch.runtime import hierarchical_psum_grads\n"
         "from repro_torch.launch import sharding, steps as st\n"
@@ -211,6 +212,40 @@ TRAINING_MODULES = ("optim/adamw", "optim/grad_compress",
 #: (ROADMAP item 11d) ported the last four
 LATER = {}
 
+#: the JAX package's analysis modules, whose public names the port has but
+#: the mapped ones of ``ANALYSIS_NOT_PORTED``
+ANALYSIS_MODULES = ("launch/dryrun", "launch/hlo_analysis")
+#: their public names with another counterpart in the port, or none
+ANALYSIS_NOT_PORTED = {
+    ("launch/dryrun", "lower_cell"): "dryrun.trace_cell (no lowering)",
+    ("launch/dryrun", "ICI_BW"): "dryrun.NET_BW (a GPU's network port)",
+    ("launch/hlo_analysis", "Instr"): "none: no HLO text to parse",
+    ("launch/hlo_analysis", "parse_computations"): "none: no HLO text",
+    ("launch/hlo_analysis", "CollectiveRecord"):
+        "HloCost.coll_by_op (no HLO text)",
+}
+
+
+def test_every_public_name_of_the_analysis_modules_has_a_port():
+    """Each public name of the JAX dry-run and HLO analyzer has a
+    same-named counterpart in the port's module of the same path, but the
+    ``ANALYSIS_NOT_PORTED`` ones, which the port has not, each mapped to
+    its counterpart."""
+    missing, seen = [], set()
+    for mod in ANALYSIS_MODULES:
+        names = _public_names(os.path.join(ROOT, "src", "repro",
+                                           mod + ".py"))
+        assert names, mod
+        port = importlib.import_module("repro_torch." + mod.replace("/", "."))
+        for name in sorted(names):
+            if (mod, name) in ANALYSIS_NOT_PORTED:
+                seen.add((mod, name))
+                assert not hasattr(port, name), (mod, name, "now ported")
+            elif not hasattr(port, name):
+                missing.append(f"{mod}.{name}")
+    assert not missing, missing
+    assert seen == set(ANALYSIS_NOT_PORTED), set(ANALYSIS_NOT_PORTED) - seen
+
 
 def test_every_public_name_of_the_training_modules_has_a_port():
     """Each public name of the JAX package's optimizer, fault-tolerance,
@@ -238,11 +273,9 @@ def test_every_public_name_of_the_training_modules_has_a_port():
 
 
 #: the JAX package's modules with no same-path module in the port, each
-#: with the ROADMAP item that ports it
-UNPORTED_MODULES = {
-    "launch/dryrun": "item 11e (the dry-run without HLO)",
-    "launch/hlo_analysis": "item 11e",
-}
+#: with the ROADMAP item that ports it: none since the dry-run without HLO
+#: (ROADMAP item 11e) ported the last two
+UNPORTED_MODULES = {}
 
 
 def test_every_module_of_the_jax_package_has_a_same_path_port():

@@ -17,6 +17,12 @@ Tolerances: ``TOL`` = 1e-5 for float32 sums taken in another order (of
 the largest magnitude, per gradient and parameter leaf); routing tables,
 counters and greedy ids equal; prefill logits within 2e-4; checkpoints and
 one-rank meshes bitwise.
+
+Fault F5 (a serve batch that the data axes do not divide): every rank
+decodes all lanes of a batch of 1 and of 2 on the (2, 2, 2) mesh (4 data
+shards), against the JAX serve step on its mesh and the one-device decode
+of both packages; a divisible batch's steps stay bitwise those of the step
+before the repair.
 """
 
 import dataclasses
@@ -68,6 +74,9 @@ TRAIN = dict(B=8, S=16, steps=3, total=20)
 #: the serve batch: 4 lanes (one a data shard), a 16-token prompt, 4 new
 #: tokens (the prefill's and 3 serve steps')
 SERVE = dict(B=4, S=16, gen=4)
+#: F5: serve batches of 1 and 2 lanes, which the 4 data shards do not
+#: divide, a 16-token prompt and 4 new tokens, per arch
+F5 = dict(archs=["gemma2_2b", "rwkv6_1_6b"], batches=[1, 2], S=16, gen=4)
 DEADLINE_S = 240
 
 
@@ -162,7 +171,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw_init
 
 rank, tmp = int(sys.argv[1]), sys.argv[2]
-T, SV, MOE, ARCHS = (json.loads(a) for a in sys.argv[3:7])
+T, SV, MOE, ARCHS, F5 = (json.loads(a) for a in sys.argv[3:8])
 torch.set_num_threads(1)
 torch.use_deterministic_algorithms(True)
 dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
@@ -249,6 +258,80 @@ try:
         g = serve.generate_on_mesh(p, c, batch, SV["gen"], mesh)
         out[f"serve/{arch}/ids"] = g.ids.numpy()
         out[f"serve/{arch}/logits"] = g.prefill_logits.numpy()
+    # a divisible batch: the serve steps bitwise those of the step before
+    # F5's repair (a copy of it), from one prefill state each
+    def unrepaired_serve_step(cfg, mesh, batch, max_len):
+        dp, tp = steps.dp_size(mesh), steps.tp_size(mesh)
+        device = steps._device(mesh)
+        steps._check_rows(batch, mesh, "a batch")
+
+        def serve_step(params, state, tokens):
+            with torch.no_grad(), steps._hints(mesh):
+                logits, state = tfm.decode_step(
+                    tfm.tree_map(steps._full, params), cfg, state,
+                    steps._rows(tokens, mesh, device), ep_groups=tp,
+                    dp_groups=dp)
+                return steps.rows_on_mesh(torch.argmax(logits, -1).to(
+                    torch.int32), mesh), state
+
+        return serve_step
+
+    for arch in ARCHS:
+        c = cb.smoke_config(arch)
+        params = weights(arch)
+        p = shd.distribute_tree(params, shd.param_shardings(params, c, mesh),
+                                mesh)
+        batch = {k: torch.as_tensor(v) for k, v in
+                 batch_for(c, 0, SV["B"], SV["S"]).items()}
+        max_len = SV["S"] + SV["gen"]
+        runs = []
+        for make in (steps.make_serve_step, unrepaired_serve_step):
+            logits, state = steps.make_prefill_step(c, mesh, max_len)(
+                p, batch)
+            tok = steps.rows_on_mesh(torch.argmax(logits.to_local(), -1).to(
+                torch.int32), mesh)
+            step = make(c, mesh, SV["B"], max_len)
+            toks = []
+            for _ in range(SV["gen"] - 1):
+                tok, state = step(p, state, tok)
+                toks.append(tok.to_local())
+            runs.append((toks, tfm.tree_leaves(state)))
+        (a_toks, a_state), (b_toks, b_state) = runs
+        out[f"serve/{arch}/divisible_bitwise"] = np.asarray(
+            len(a_toks) == len(b_toks) and all(
+                same(x, y) for x, y in zip(a_toks + a_state,
+                                           b_toks + b_state)))
+    # F5: batches the data axes do not divide; every rank decodes all
+    # lanes of a one-device prefill's state, the weights as DTensors
+    for arch in F5["archs"]:
+        c = cb.smoke_config(arch)
+        params = weights(arch)
+        p = shd.distribute_tree(params, shd.param_shardings(params, c, mesh),
+                                mesh)
+        for B in F5["batches"]:
+            batch = {k: torch.as_tensor(v) for k, v in
+                     batch_for(c, 0, B, F5["S"]).items()}
+            max_len = F5["S"] + F5["gen"]
+            with torch.no_grad():
+                logits, state = tfm.prefill(params, c, batch, max_len)
+                first = torch.argmax(logits, -1).to(torch.int32)
+                tok, one = first, [first]
+                for _ in range(F5["gen"] - 1):
+                    lg, state = tfm.decode_step(params, c, state, tok)
+                    tok = torch.argmax(lg, -1).to(torch.int32)
+                    one.append(tok)
+                _, state = tfm.prefill(params, c, batch, max_len)
+            step = steps.make_serve_step(c, mesh, B, max_len)
+            tok, ids, replicated = first, [first], True
+            for _ in range(F5["gen"] - 1):
+                tok, state = step(p, state, tok)
+                replicated = replicated and tuple(tok.shape) == (B,) and all(
+                    pl.is_replicate() for pl in tok.placements)
+                ids.append(tok.to_local())
+            out[f"f5/{arch}/{B}/ids"] = torch.stack(ids, 1).numpy()
+            out[f"f5/{arch}/{B}/one_device_ids"] = torch.stack(one, 1).numpy()
+            out[f"f5/{arch}/{B}/logits"] = logits.float().numpy()
+            out[f"f5/{arch}/{B}/replicated"] = np.asarray(replicated)
     # the train driver on the (4, 2) mesh of the world, through a fault
     run = train.run(["--arch", MOE, "--smoke", "--steps", "4",
                      "--global-batch", "8", "--seq", "16", "--device", "cpu",
@@ -280,7 +363,7 @@ from repro.models import layers, transformer as tfm
 from repro.optim import adamw_init
 
 tmp = sys.argv[1]
-T, SV, MOE, ARCHS = (json.loads(a) for a in sys.argv[2:6])
+T, SV, MOE, ARCHS, F5 = (json.loads(a) for a in sys.argv[2:7])
 mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
                      axis_types=(AxisType.Auto,) * 3)
 assert [d.id for d in mesh.devices.reshape(-1)] == list(range(8))
@@ -365,6 +448,30 @@ with jax.set_mesh(mesh):
             out[f"serve/{arch}/logits"] = np.asarray(logits, np.float32)
         finally:
             layers.clear_axis_hints()
+    # F5: the serve step on batches the 4 data shards do not divide, from
+    # the one-device prefill's state
+    for arch in F5["archs"]:
+        c = cb.smoke_config(arch)
+        for B in F5["batches"]:
+            try:
+                max_len = F5["S"] + F5["gen"]
+                batch = {k: jnp.asarray(v) for k, v in
+                         batch_for(c, 0, B, F5["S"]).items()}
+                p = weights(arch)
+                logits, state = tfm.prefill(p, c, batch, max_len)
+                _, serve_step, (_, _, p_shard, s_shard, tok_shard) = \
+                    steps.make_serve_step(c, mesh, B, max_len)
+                tok = jnp.argmax(logits, -1).astype(jnp.int32)
+                ids = [np.asarray(tok)]
+                p, state, tok = jax.device_put((p, state, tok),
+                                               (p_shard, s_shard, tok_shard))
+                for _ in range(F5["gen"] - 1):
+                    tok, state = serve_step(p, state, tok)
+                    ids.append(np.asarray(tok))
+                out[f"f5/{arch}/{B}/ids"] = np.stack(ids, axis=1)
+                out[f"f5/{arch}/{B}/logits"] = np.asarray(logits, np.float32)
+            finally:
+                layers.clear_axis_hints()
 np.savez(f"{tmp}/jax.npz", **out)
 print("PASS")
 """
@@ -384,10 +491,10 @@ def _wait(procs, deadline):
 
 
 def _launch(tmp: str) -> dict:
-    for arch in SERVE_ARCHS:
+    for arch in set(SERVE_ARCHS) | set(F5["archs"]):
         np.savez(os.path.join(tmp, f"weights_{arch}.npz"),
                  **jax_paths(jax_weights(arch)))
-    args = [json.dumps(a) for a in (TRAIN, SERVE, MOE, SERVE_ARCHS)]
+    args = [json.dumps(a) for a in (TRAIN, SERVE, MOE, SERVE_ARCHS, F5)]
     kw = dict(cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
               text=True)
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
@@ -530,6 +637,39 @@ def test_mesh_prefill_and_serve_steps_on_8_ranks_match_jax(launched, arch):
         np.testing.assert_allclose(r[f"serve/{arch}/logits"],
                                    jx[f"serve/{arch}/logits"],
                                    atol=LOGIT_TOL, rtol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("B", F5["batches"])
+@pytest.mark.parametrize("arch", F5["archs"])
+def test_f5_serve_step_decodes_a_batch_the_data_axes_do_not_divide(
+        launched, arch, B):
+    """F5: ``make_serve_step`` at a batch of 1 and of 2 lanes on the
+    (2, 2, 2) mesh of 8 ranks (4 data shards split neither): every rank's
+    greedy ids equal the JAX serve step's on its (2, 2, 2) mesh and both
+    packages' one-device decode; the tokens come back as DTensors
+    replicated over the mesh; the prefill logits within 2e-4."""
+    jx = np.load(launched / "jax.npz")
+    want = jx[f"f5/{arch}/{B}/ids"]
+    assert want.shape == (B, F5["gen"])
+    for r in _ranks(launched):
+        np.testing.assert_array_equal(r[f"f5/{arch}/{B}/ids"], want)
+        np.testing.assert_array_equal(r[f"f5/{arch}/{B}/one_device_ids"],
+                                      want)
+        assert bool(r[f"f5/{arch}/{B}/replicated"])
+        np.testing.assert_allclose(r[f"f5/{arch}/{B}/logits"],
+                                   jx[f"f5/{arch}/{B}/logits"],
+                                   atol=LOGIT_TOL, rtol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_step_on_a_divisible_batch_is_bitwise_the_unrepaired_one(
+        launched, arch):
+    """A batch the data axes divide (4 lanes on 4 shards) takes the path it
+    took before F5's repair: on every rank, 3 serve steps from one prefill
+    state give the tokens and state of a copy of the unrepaired step bit
+    for bit."""
+    for r in _ranks(launched):
+        assert bool(r[f"serve/{arch}/divisible_bitwise"])
 
 
 def test_restore_resharded_from_2x2x2_onto_4x2_is_bitwise(launched):

@@ -83,7 +83,7 @@ In order, it
    (48 MoE layers of 64 experts, top-6, NA-RP routing, d_model 2048, 16
    heads of 128, vocab 163840, int8 KV cache; random bf16 weights made on
    the card from seed 0, every earlier model freed first): ``serve.main``
-   with batch 4, prompt 1024, 32 new tokens, launch counts zeroed just
+   with batch 4, prompt 1024, 8 new tokens, launch counts zeroed just
    before and read just after (48 ``flash_attention`` and 48
    ``moe_dispatch`` launches in the prefill, 48 ``moe_dispatch`` a decode
    step, no other kernel), finite logits, the peak memory; then the same
@@ -94,17 +94,19 @@ In order, it
    (bitwise equal: the kernel only moves data), the kernel against its
    twin per call, bitwise, at the model's own layer-0 routing and seven
    more shapes, and its time beside the twin's, one ``index_put_`` call's
-   and its bound;
-9. after phase 15, prints the ``kernels`` JSON line (``sched_step``'s
+   (the kept slots' rows into a zeroed buffer) and its bound (the rows of
+   x that a kept slot reads, the tables, the buffer);
+9. after phase 17, prints the ``kernels`` JSON line (``sched_step``'s
    launches are the sweep's and the tuner's, ``flash_attention``'s those
    of phases 6, 8, 11, 12's two training runs, 13's hymba and moonshot,
-   14's gradient and 15's mesh runs, ``rwkv6_scan``'s phase 7's and 13's
-   rwkv6, ``moe_dispatch``'s phase 8's, 13's moonshot and 15's mesh
-   run), the end-to-end rates, the ``serve_hybrid`` line of phase 11, the
-   tuner's summary, the ``train`` line of phase 12, the
+   14's gradient, 15's and 16's mesh runs and 17's tensor-parallel rank
+   0, ``rwkv6_scan``'s phase 7's, 13's and 16's rwkv6, ``moe_dispatch``'s
+   phase 8's, 13's moonshot, 15's mesh run and 17's rank 0), the
+   end-to-end rates, the ``serve_hybrid`` line of
+   phase 11, the tuner's summary, the ``train`` line of phase 12, the
    ``train_families`` line of phase 13, the ``distributed`` line of phase
-   14, the ``sharded`` line of phase 15, the card line and last the
-   device line;
+   14, the ``sharded`` line of phase 15, the ``dryrun`` line of phase 16,
+   the ``tp`` line of phase 17, the card line and last the device line;
 10. runs the eleventh slice's path, Table I by search, between phase 8
    and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
    ``cuda_fused``, launch counts zeroed before each part.  (a) Each of the
@@ -259,7 +261,27 @@ In order, it
    to the real step's, the traced peak within 25 % of the warm step's
    ``max_memory_allocated()``, ``dryrun.HBM_PER_CHIP`` the card's
    ``total_memory``; (c) each step's roofline ``compute_s`` and
-   ``memory_s`` beside its measured warm seconds, as a ratio (no gate).
+   ``memory_s`` beside its measured warm seconds, as a ratio (no gate);
+17. runs the eighteenth slice's path, tensor and expert parallelism over
+   ``"model"``, after phase 16: (a) phase 15 (a)'s one-rank (1, 1) mesh
+   steps, which ran this code at tp = 1 (each leaf's local piece), read
+   back: every metric and parameter bitwise the one-device step's (not
+   run again); (b) flash at yi_9b's tp = 16 rank shape (2 q heads after the GQA
+   + TP expansion, 4 x 1024, Dh 128, bf16) within 2e-2 of its twin,
+   timed; (c) the dispatch into moonshot's tp = 16 rank's 4 experts (T =
+   4096, D = 2048, k = 6) bitwise its twin, timed beside its bound and
+   ``index_put_``; then, with nothing timed, (d) ``train_4k`` of
+   gemma2_2b, yi_9b, mistral_nemo_12b and moonshot on both production
+   meshes dry-run on the card's fake tensors (one subprocess each, all
+   started at once), gemma2_2b's (16, 16) cell also on the CPU's, those
+   records equal, while (e) a tensor-parallel world of two gloo processes
+   on the card (a (1, 2) mesh; NCCL takes one rank a device) runs
+   gemma2_2b and moonshot at full width, 2 layers, float32: each rank's
+   pieces through ``loss_fn``'s value and gradient, ``make_prefill_step``
+   and ``make_serve_step`` against the whole weights in the same process
+   (loss, gradients and logits within ``TP_TOL``, ids equal, every rank's
+   routing alike and within ``TP_ROUTE_FLIPS`` of the whole run's, the
+   same launches).
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -1161,9 +1183,12 @@ def rwkv_phase(torch, dev, reg):
 
 
 #: the serving run of phase 8: moonshot_v1_16b_a3b at full width, the same
-#: batch and lengths as gemma2_2b's and rwkv6_1_6b's
+#: batch and prompt as gemma2_2b's and rwkv6_1_6b's and MOE_GEN new tokens
+#: (a decode step is host-bound, 0.4-0.8 s: fewer steps than theirs keep
+#: the script inside its time limit)
+MOE_GEN = 8
 MOE_ARGV = ("--arch", "moonshot_v1_16b_a3b", "--batch", str(SERVE_B),
-            "--prompt-len", str(SERVE_S), "--gen", str(SERVE_GEN),
+            "--prompt-len", str(SERVE_S), "--gen", str(MOE_GEN),
             "--seed", "0")
 #: the dispatch kernel against its twin beside the model's own layer-0
 #: routing: (label, T, D, k, E, C, dtype, token groups) — the decode shape,
@@ -1215,7 +1240,7 @@ def moe_phase(torch, dev, reg):
     torch.backends.cudnn.allow_tf32 = False
     cfg = cb.get("moonshot_v1_16b_a3b")
     L = cfg.n_layers
-    B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    B, S, GEN = SERVE_B, SERVE_S, MOE_GEN
     out = {}
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1264,7 +1289,9 @@ def moe_phase(torch, dev, reg):
     params = tfm.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     tokens = torch.as_tensor(batch_for(cfg, 0, B, S)["tokens"], device=dev)
-    serve.generate(params, cfg, {"tokens": tokens}, GEN)
+    # the warm-up needs the prefill and one decode step only (serve.main
+    # ran the whole path in this process; a decode step takes 0.4-0.8 s)
+    serve.generate(params, cfg, {"tokens": tokens}, 2)
     warm = serve.generate(params, cfg, {"tokens": tokens}, GEN)
     check(bool(torch.isfinite(warm.prefill_logits.float()).all()),
           "non-finite prefill logits (warm)")
@@ -1378,13 +1405,10 @@ def moe_phase(torch, dev, reg):
                                                 capacity=C), 50, torch)
     plain_ms = cuda_time_ms(lambda i: mref.moe_dispatch(x0, e0, p0, E, C),
                             20, torch)
-    flat = (e0.long() * C + p0.long()).reshape(-1)
-    keep = (e0 >= 0).reshape(-1)
-    idx = torch.where(keep, flat, E * C)
-    src = torch.repeat_interleave(x0, e0.shape[1], dim=0)
-    lib_ms = cuda_time_ms(lambda i: torch.zeros(
-        (E * C + 1, x0.shape[1]), dtype=x0.dtype, device=dev).index_put_(
-        (idx,), src, accumulate=True), 20, torch)
+    nbytes, rows_read, lib_ms, lib = dispatch_cost(torch, x0, e0, p0, E,
+                                                   C)
+    lib_same = bool(torch.equal(lib, mref.moe_dispatch(x0, e0, p0, E, C)))
+    del lib
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
@@ -1398,12 +1422,9 @@ def moe_phase(torch, dev, reg):
     _, xd, ed, pd, _, _ = cases[1]
     decode_ms = cuda_time_ms(lambda i: md.moe_dispatch(
         xd, ed, pd, n_experts=64, capacity=8), 200, torch)
-    # x read once, the two tables read once, the buffer written once; no
-    # arithmetic
-    nbytes = (x0.numel() * x0.element_size() + 2 * e0.numel() * 4
-              + E * C * x0.shape[1] * x0.element_size())
     bnd, by = bound_ms(nbytes, 0)
     out["moe_timed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            library_same=lib_same, rows_read=rows_read,
                             device_us=dev_us, bytes=nbytes, bound_ms=bnd,
                             bound_by=by, decode_ms=decode_ms,
                             gb_per_s=nbytes / ms / 1e6)
@@ -1412,7 +1433,8 @@ def moe_phase(torch, dev, reg):
           f"GB/s, {ms / bnd:.2f}x its bound; device "
           f"{f'{dev_us:.1f} us' if dev_us else 'time not measured'}), bound "
           f"{bnd:.5f} ms ({by}; {nbytes} bytes), twin {plain_ms:.4f} ms, "
-          f"index_put_ {lib_ms:.4f} ms; decode shape {decode_ms:.4f} ms",
+          f"index_put_ of the kept rows {lib_ms:.4f} ms (equal: "
+          f"{lib_same}); decode shape {decode_ms:.4f} ms",
           flush=True)
     row = dict(name="moe_dispatch", route="cuda",
                source="src/repro_torch/kernels/csrc/moe_dispatch.cu",
@@ -3618,6 +3640,566 @@ def dryrun_phase(torch, dev, reg):
     return main_launches, out
 
 
+#: phase 17: tensor and expert parallelism over "model".  (b) flash at a
+#: rank's shape of yi_9b at tp = 16 (H 32, KV 4: the expansion's 2 heads
+#: a rank), (B, H, KV, S, Dh); (c) the dispatch at a rank's shape of
+#: moonshot at tp = 16: 4 of the 64 experts (rank 5's, [20, 24))
+TP_FLASH_SHAPE = (4, 2, 2, 1024, 128)
+TP_MOE = dict(T=4096, D=2048, k=6, E=64, tp=16, rank=5)
+#: (d): the train cells dry-run on the card's fake tensors, beside the GiB
+#: a rank on (16, 16) / (2, 16, 16) of the step that gathered every weight
+#: whole (PERF.md section 5); TP_DRYRUN_CPU's cell also on the CPU's, the
+#: two records equal, as phase 16 (a) holds its own cell
+TP_DRYRUN_ARCHS = {"moonshot_v1_16b_a3b": (281.9, 281.9),
+                   "yi_9b": (80.4, 83.4),
+                   "mistral_nemo_12b": (106.6, 121.3),
+                   "gemma2_2b": (111.3, 63.1)}
+TP_DRYRUN_CPU = (("gemma2_2b", "pod1"),)
+#: (e): a tensor-parallel world of TP_WORLD processes on the one card
+#: (gloo: NCCL takes one rank a device), (arch, layers) at full width in
+#: float32, TP_B x TP_S tokens and TP_GEN greedy tokens; the rank's
+#: pieces against the whole weights in the same process within TP_TOL
+#: (float32 sums in another order, relative to the largest magnitude);
+#: those sums may decide a near tie of the router the other way, so a
+#: routing table's tokens whose experts differ from the whole run's are
+#: at most TP_ROUTE_FLIPS of its tokens, and every model rank's tables
+#: are bitwise alike
+TP_WORLD = 2
+TP_WORLD_ARCHS = (("gemma2_2b", 2), ("moonshot_v1_16b_a3b", 2))
+TP_B, TP_S, TP_GEN = 2, 1024, 4
+TP_TOL = 1e-4
+TP_ROUTE_FLIPS = 1e-2
+TP_WORLD_TIMEOUT_S = 300
+
+
+def dispatch_cost(torch, x, ve, pos, E, C):
+    """The dispatch's least bytes on these inputs and one library call's
+    time: the rows of ``x`` that a kept slot reads (each read once), both
+    (T, k) tables read once and the (E, C, D) buffer written once, no
+    arithmetic; the library call is ``index_put_`` of the kept slots' rows
+    into a zeroed buffer (no slot is written twice, so no
+    ``accumulate``).  Returns (bytes, rows read, library ms, the library
+    call's buffer)."""
+    keep = ve >= 0
+    rows = int(keep.any(-1).sum())
+    D, size = x.shape[1], x.element_size()
+    nbytes = rows * D * size + 2 * ve.numel() * 4 + E * C * D * size
+    flat = (ve.long() * C + pos.long())[keep]
+    src = x[torch.nonzero(keep)[:, 0]]
+
+    def library():
+        return torch.zeros((E * C, D), dtype=x.dtype,
+                           device=x.device).index_put_((flat,), src)
+
+    lib_ms = cuda_time_ms(lambda i: library(), 20, torch)
+    return nbytes, rows, lib_ms, library().reshape(E, C, D)
+
+
+def rank_pieces(params, cfg, mesh, rank: int):
+    """The plain tensors of ``params`` that ``"model"`` rank ``rank`` of
+    ``mesh`` holds: each leaf's block of the dim the rules
+    (``sharding.param_shardings``) split over ``"model"``, as a DTensor
+    ``Shard`` takes it, else the whole leaf."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import transformer as tfm
+
+    specs = shd.param_shardings(params, cfg, mesh)
+    i = list(mesh.mesh_dim_names).index("model")
+    tp = mesh.shape[i]
+
+    def piece(path, leaf):
+        node = specs
+        for k in path:
+            node = node[int(k)] if isinstance(node, (tuple, list)) \
+                else node[k]
+        pl = shd.placements(node, mesh)[i]
+        if not pl.is_shard():
+            return leaf
+        return leaf.chunk(tp, pl.dim)[rank].contiguous()
+
+    return tfm.tree_unflatten(params, [piece(path, leaf) for path, leaf
+                                       in tfm.tree_items(params)])
+
+
+def tp_world_rank(torch, rank: int, world: int, store: str, path: str,
+                  device: str = "cuda") -> int:
+    """One rank of phase 17 (e) (``chip_smoke.py --tp-rank``): a gloo
+    world of ``world`` processes on the one card as a (1, world)
+    ``("data", "model")`` mesh.  For each of ``TP_WORLD_ARCHS`` in
+    float32, the same seed-0 weights run twice under the mesh-bound steps'
+    hints: whole (the model replicated over ``"model"``, as the steps run
+    RWKV6) and as this rank's pieces (tensor and expert parallelism, the
+    launch counts zeroed just before and read just after).  Each run takes
+    ``loss_fn``'s value and gradient on ``TP_B`` x ``TP_S`` tokens (the
+    train step's core: the vocab-parallel embedding and cross-entropy,
+    ``attn_apply`` on the rank's heads through the flash kernel,
+    ``mlp_apply``'s column and row pieces, ``moe_apply`` through the
+    dispatch kernel on the rank's experts), then ``make_prefill_step``
+    and ``TP_GEN - 1`` ``make_serve_step`` calls (greedy ids over the
+    vocab shards).  Writes the losses, each leaf's gradient error (the
+    piece against the whole gradient's block), the prefill logits' error,
+    the ids, the routing tables' differences from the whole run's and
+    their digests, and the launches to ``path``
+    (``device`` "cpu" rehearses it on the CPU, the kernels' twins
+    standing in)."""
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import base as cb
+    from repro_torch.core import balance, prng
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import registry
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        fa.build()
+        md.build()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {}
+    # every MoE layer's routing table (one data shard: ``balance.route``),
+    # tagged with the stage that routed it
+    tables, stage, route = [], ["train"], balance.route
+
+    def record(*a, **kw):
+        res = route(*a, **kw)
+        tables.append((stage[0], torch.stack([res.expert, res.pos])))
+        return res
+
+    balance.route = record
+    try:
+        mesh = mesh_mod.make_test_mesh(1, world, device=dev.type)
+        r_model = mesh.get_local_rank("model")
+        for arch, n_layers in TP_WORLD_ARCHS:
+            cfg = dataclasses.replace(
+                cb.get(arch), n_layers=n_layers, param_dtype="float32",
+                compute_dtype="float32")
+            params = tfm.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                     batch_for(cfg, 0, TP_B, TP_S).items()}
+            rng = prng.fold_in(prng.PRNGKey(17), 0)
+            max_len = TP_S + TP_GEN
+            runs = {}
+            for kind, tp_on in (("whole", False), ("tp", True)):
+                tree = rank_pieces(params, cfg, mesh, r_model) if tp_on \
+                    else params
+                tree = tfm.tree_unflatten(params, [
+                    p.detach() for p in tfm.tree_leaves(tree)])
+                tree.requires_grad_(True)
+                leaves = tfm.tree_leaves(tree)
+                sync()
+                registry.reset_launches()
+                stage[0] = "train"
+                with steps._hints(mesh, tp=tp_on):
+                    _, metrics = tfm.loss_fn(tree, cfg, batch, rng,
+                                             ep_groups=world, dp_groups=1)
+                    # the train step's share of the loss (one data shard)
+                    share = metrics["ce"] + 0.01 * metrics["lb_loss"]
+                    grads = torch.autograd.grad(share, leaves)
+                pieces = [g.detach() for g in grads]
+                del grads, leaves
+                tree = tfm.tree_map(torch.Tensor.detach, tree)
+                stage[0] = "prefill"
+                logits, state = steps.make_prefill_step(cfg, mesh, max_len)(
+                    tree, batch) if tp_on else _whole_prefill(
+                        steps, tfm, cfg, mesh, tree, batch, max_len)
+                logits = logits.to_local() if hasattr(
+                    logits, "to_local") else logits
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                ids = [tok]
+                serve = steps.make_serve_step(cfg, mesh, TP_B, max_len) \
+                    if tp_on else None
+                stage[0] = "decode"
+                for _ in range(TP_GEN - 1):
+                    if tp_on:
+                        tok, state = serve(tree, state, tok)
+                        ids.append(tok.to_local())
+                    else:
+                        with torch.no_grad(), steps._hints(mesh):
+                            lg, state = tfm.decode_step(
+                                tree, cfg, state, tok, ep_groups=world,
+                                dp_groups=1)
+                        tok = torch.argmax(lg, -1).to(torch.int32)
+                        ids.append(tok)
+                sync()
+                runs[kind] = dict(
+                    loss=float(share.detach()),
+                    ce=float(metrics["ce"].detach()),
+                    lb_loss=float(metrics["lb_loss"].detach()), grads=pieces,
+                    logits=logits.float(), ids=torch.stack(ids, 1),
+                    tables=list(tables), launches=registry.launch_counts())
+                del tables[:], tree, state
+            whole, tp = runs["whole"], runs["tp"]
+            want = tfm.tree_leaves(rank_pieces(tfm.tree_unflatten(
+                params, whole["grads"]), cfg, mesh, r_model))
+            grad_err = max(
+                float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for g, w in zip(tp["grads"], want))
+            logit_err = float((tp["logits"] - whole["logits"]).abs().max()
+                              ) / float(whole["logits"].abs().max())
+            out[arch] = dict(
+                n_layers=n_layers, loss=[tp["loss"], whole["loss"]],
+                loss_err=abs(tp["loss"] - whole["loss"]) / abs(whole["loss"]),
+                ce=[tp["ce"], whole["ce"]],
+                lb_loss=[tp["lb_loss"], whole["lb_loss"]],
+                grad_err=grad_err, logit_err=logit_err,
+                ids_equal=bool(torch.equal(tp["ids"], whole["ids"])),
+                n_tables=[len(tp["tables"]), len(whole["tables"])],
+                # the tables that differ from the whole run's: (index,
+                # stage, tokens whose experts differ, tokens, entries
+                # apart)
+                tables_diff=[[i, a[0], int((a[1][0] != b[1][0]).any(
+                    -1).sum()), a[1].shape[1], int((a[1] != b[1]).sum())]
+                    for i, (a, b) in enumerate(zip(tp["tables"],
+                                                   whole["tables"]))
+                    if not torch.equal(a[1], b[1])],
+                # every model rank routes alike: its tables' digests
+                table_digest=[hashlib.sha1(t.cpu().numpy().tobytes()
+                                           ).hexdigest()
+                              for _, t in tp["tables"]],
+                launches={k: v for k, v in tp["launches"].items() if v},
+                whole_launches={k: v for k, v in whole["launches"].items()
+                                if v},
+                split_leaves=sum(g.numel() != w.numel() for g, w in zip(
+                    tp["grads"], whole["grads"])),
+                leaves=len(want))
+            del runs, whole, tp, want, params, batch
+            torch.cuda.empty_cache()
+    finally:
+        balance.route = route
+        dist.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _whole_prefill(steps, tfm, cfg, mesh, params, batch, max_len):
+    """The whole-weight prefill under the steps' hints (the model
+    replicated over ``"model"``): logits and the state of every head."""
+    import torch
+
+    with torch.no_grad(), steps._hints(mesh):
+        return tfm.prefill(params, cfg, batch, max_len,
+                           ep_groups=steps.tp_size(mesh), dp_groups=1)
+
+
+def tp_world(torch, reg):
+    """Phase 17 (e): ``TP_WORLD`` rank processes (:func:`tp_world_rank`)
+    on the one card; each must exit 0 within ``TP_WORLD_TIMEOUT_S`` and
+    hold its pieces to the whole weights: loss, every leaf's gradient and
+    the prefill logits within ``TP_TOL``, the greedy ids equal, every
+    rank's routing tables alike and at most ``TP_ROUTE_FLIPS`` of a
+    table's tokens routed to other experts than in the whole run (a near
+    tie), and the same kernels launched as many times as the whole
+    run, flash on every rank and the dispatch wherever the config has MoE
+    layers (:func:`tp_world_check`).  Returns (the launches of rank 0's
+    tensor-parallel runs by kernel, report)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="repro_tp_world_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+         str(r), str(TP_WORLD), f"{tmp}/store", f"{tmp}/rank{r}.json"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(TP_WORLD)]
+    try:
+        logs = []
+        for r, proc in enumerate(procs):
+            try:
+                log, _ = proc.communicate(timeout=max(
+                    1.0, TP_WORLD_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"tp (e): rank {r} passed "
+                                   f"{TP_WORLD_TIMEOUT_S} s")
+            logs.append(log)
+        for r, proc in enumerate(procs):
+            check(proc.returncode == 0, f"tp (e): rank {r} failed (rc "
+                  f"{proc.returncode}): {logs[r][-4000:]}")
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return tp_world_check(ranks, reg)
+
+
+def tp_world_check(ranks: list, reg):
+    """(e)'s gates over every rank's results; returns (the launches of
+    rank 0's tensor-parallel runs by kernel, report)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.models import transformer as tfm
+
+    launches = dict.fromkeys(reg.KERNELS, 0)
+    for arch, n_layers in TP_WORLD_ARCHS:
+        cfg = dataclasses.replace(cb.get(arch), n_layers=n_layers)
+        has_moe = any(k.moe for k in tfm.pattern(cfg))
+        for r, res in enumerate(ranks):
+            a = res[arch]
+            for key in ("loss_err", "grad_err", "logit_err"):
+                check(a[key] <= TP_TOL, f"tp (e): {arch} rank {r}: {key} "
+                      f"{a[key]:.3g} above {TP_TOL}")
+            flips = max((d[2] / d[3] for d in a["tables_diff"]),
+                        default=0.0)
+            check(a["ids_equal"] and a["n_tables"][0] == a["n_tables"][1]
+                  and flips <= TP_ROUTE_FLIPS
+                  and a["table_digest"] == ranks[0][arch]["table_digest"],
+                  f"tp (e): {arch} rank {r}: ids equal {a['ids_equal']}; "
+                  f"routing tables {a['n_tables']}, apart from the whole "
+                  f"run's {a['tables_diff']}, alike across ranks "
+                  f"{a['table_digest'] == ranks[0][arch]['table_digest']}")
+            check(a["launches"] == a["whole_launches"]
+                  and a["launches"].get("flash_attention", 0) > 0
+                  and (a["launches"].get("moe_dispatch", 0) > 0) == has_moe,
+                  f"tp (e): {arch} rank {r}: launches {a['launches']}, the "
+                  f"whole run's {a['whole_launches']}")
+            check(a["split_leaves"] > 0, f"tp (e): {arch} rank {r}: no "
+                  "leaf was split over \"model\"")
+        a = ranks[0][arch]
+        for k, v in a["launches"].items():
+            launches[k] += v
+        print(f"tp (e): {arch} ({n_layers} layers, float32, {TP_B}x{TP_S}) "
+              f"on a (1, {TP_WORLD}) gloo world of {TP_WORLD} processes on "
+              f"the card: {a['split_leaves']} of {a['leaves']} leaves split;"
+              f" loss {a['loss'][0]:.6f} against {a['loss'][1]:.6f} whole; "
+              f"largest errors (rank 0 / 1) loss "
+              f"{ranks[0][arch]['loss_err']:.3g} / "
+              f"{ranks[-1][arch]['loss_err']:.3g}, gradient "
+              f"{ranks[0][arch]['grad_err']:.3g} / "
+              f"{ranks[-1][arch]['grad_err']:.3g}, prefill logits "
+              f"{ranks[0][arch]['logit_err']:.3g} / "
+              f"{ranks[-1][arch]['logit_err']:.3g} (<= {TP_TOL}); "
+              f"{TP_GEN} greedy ids equal; {a['n_tables'][0]} routing "
+              f"tables, every rank's alike, apart from the whole run's "
+              f"(index, stage, tokens of other experts, tokens, entries): "
+              f"{a['tables_diff']}; launches {a['launches']} a rank",
+              flush=True)
+    return launches, dict(ranks=ranks, world=TP_WORLD, tol=TP_TOL,
+                          route_flips=TP_ROUTE_FLIPS)
+
+
+class TPDryruns:
+    """Phase 17 (d): ``train_4k`` of each ``TP_DRYRUN_ARCHS`` config on
+    both meshes on the card's fake tensors, and ``TP_DRYRUN_CPU``'s cells
+    again on the CPU's, one subprocess each (one thread), all started
+    together, the longest first; :meth:`wait` reads the records (each
+    process must exit 0), :meth:`stop` kills any still running and removes
+    the records."""
+
+    def __init__(self):
+        import os
+        import tempfile
+
+        self.dir = Path(tempfile.mkdtemp(prefix="repro_tp_dryrun_"))
+        env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        cells = [(arch, mp, "cuda") for arch in TP_DRYRUN_ARCHS
+                 for mp in ("pod1", "pod2")]
+        cells += [(arch, mp, "cpu") for arch, mp in TP_DRYRUN_CPU]
+        self.procs = {}
+        for arch, mp, device in cells:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", "train_4k", "--force",
+                    "--out", str(self.dir / device)]
+            argv += (["--multi-pod"] if mp == "pod2" else []) + (
+                ["--device", "cpu"] if device == "cpu" else [])
+            self.procs[(arch, mp, device)] = subprocess.Popen(
+                argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=ROOT, env=env)
+
+    def wait(self, timeout_s: float) -> dict:
+        """``{(arch, mesh, device): record}`` once every process exits."""
+        t0 = time.perf_counter()
+        records = {}
+        for key, proc in self.procs.items():
+            try:
+                log, _ = proc.communicate(timeout=max(
+                    1.0, timeout_s - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"the dry-run of {key} passed "
+                                   f"{timeout_s} s")
+            check(proc.returncode == 0, f"the dry-run of {key} failed (rc "
+                  f"{proc.returncode}): {log[-3000:]}")
+            arch, mp, device = key
+            with open(self.dir / device / f"{arch}__train_4k__{mp}.json") \
+                    as f:
+                records[key] = json.load(f)
+        return records
+
+    def stop(self) -> None:
+        import shutil
+
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def tp_phase(torch, dev, reg, sharded):
+    """Phase 17: (a) phase 15 (a)'s one-rank mesh steps (gemma2_2b,
+    moonshot at 4 layers) already ran this slice's code at tp = 1, where
+    the region is the identity, bitwise the one-device step (``sharded``,
+    phase 15's report; not run again); (b) flash at a tp = 16 rank's shape
+    of yi_9b against its twin; (c) the dispatch into a tp = 16 rank's 4
+    experts of moonshot, bitwise its twin; then, with nothing timed, (d)
+    the train cells' dry-run traces start (:class:`TPDryruns`), (e) a tp =
+    2 world of processes runs the model's tensor-parallel path on the card
+    beside them (:func:`tp_world`), and (d)'s records are read: the card's
+    fake tensors, one cell also on the CPU's, those records equal.
+    Returns ((e)'s rank 0 launches by kernel, report)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.core import balance
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import moe
+
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # (a) phase 15 (a): the one-rank mesh steps of this code, bitwise
+    out["one_rank"] = {}
+    for arch, r in sharded["train"].items():
+        check(r["bitwise"], f"{arch}: phase 15's one-rank mesh step was "
+              "not bitwise the one-device step")
+        out["one_rank"][arch] = {k: r[k] for k in (
+            "n_layers", "warm_step_s", "launches", "bitwise")}
+        print(f"tp (a): {arch} ({r['n_layers']} layers) on the (1, 1) mesh "
+              f"(phase 15 (a), the tensor-parallel code at tp = 1): "
+              f"bitwise the one-device step; launches {r['launches']}; "
+              f"warm step {r['warm_step_s']['mesh']:.4f} s mesh / "
+              f"{r['warm_step_s']['one_device']:.4f} s one-device",
+              flush=True)
+
+    # (b) flash at a tp = 16 rank's shape of yi_9b
+    b, h, kv, s, dh = TP_FLASH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = (torch.randn((b, n, s, dh), generator=gen, device=dev
+                           ).to(torch.bfloat16) for n in (h, kv, kv))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = kref.flash_attention(q, k, v, True, 0, None)
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= FLASH_TOL["bfloat16"],
+          f"flash at yi_9b's tp=16 rank shape: max abs err {err}")
+    timed = flash_time(torch, dev, "yi_9b's tp=16 rank", TP_FLASH_SHAPE,
+                       causal=True)
+    out["flash"] = dict(timed, shape=list(TP_FLASH_SHAPE), max_abs_err=err)
+    print(f"tp (b): flash at yi_9b's tp=16 rank shape {b}x{h}/{kv}x{s}"
+          f"x{dh} bf16: max abs err {err:.3g} against the twin (<= "
+          f"{FLASH_TOL['bfloat16']})", flush=True)
+    del q, k, v, got, want
+
+    # (c) the dispatch into a tp = 16 rank's experts of moonshot
+    cfg = cb.get("moonshot_v1_16b_a3b")
+    T, D, kk, E = (TP_MOE[key] for key in ("T", "D", "k", "E"))
+    n_loc = E // TP_MOE["tp"]
+    experts = (TP_MOE["rank"] * n_loc, n_loc)
+    C = moe.capacity_for(cfg, T)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x, ve, pos = moe_inputs(torch, balance, T, D, kk, E, C, "bfloat16", 1,
+                            gen, dev)
+    e_loc = moe.local_experts(ve, experts)
+    got = md.moe_dispatch(x, e_loc, pos, n_experts=n_loc, capacity=C)
+    want = kref.moe_dispatch(x, e_loc, pos, n_loc, C)
+    torch.cuda.synchronize()
+    check(got.shape == (n_loc, C, D) and torch.equal(got, want),
+          "the dispatch at moonshot's tp=16 rank shape differs from its "
+          "twin")
+    kept = int((e_loc >= 0).sum())
+    ms = cuda_time_ms(lambda i: md.moe_dispatch(
+        x, e_loc, pos, n_experts=n_loc, capacity=C), 50, torch)
+    plain_ms = cuda_time_ms(lambda i: kref.moe_dispatch(
+        x, e_loc, pos, n_loc, C), 20, torch)
+    nbytes, rows, lib_ms, lib = dispatch_cost(torch, x, e_loc, pos, n_loc,
+                                              C)
+    bnd, by = bound_ms(nbytes, 0)
+    out["dispatch"] = dict(T=T, D=D, k=kk, experts=list(experts),
+                           capacity=C, kept_slots=kept, rows_read=rows,
+                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           library_same=bool(torch.equal(lib, want)),
+                           bytes=nbytes, bound_ms=bnd, bound_by=by,
+                           bitwise=True)
+    print(f"tp (c): moe_dispatch at moonshot's tp=16 rank shape, T={T} "
+          f"D={D} k={kk} into experts [{experts[0]}, {experts[0] + n_loc})"
+          f" x {C} bf16 ({kept} of {e_loc.numel()} slots kept, {rows} rows"
+          f" of x read): bitwise the twin; {ms:.4f} ms a call "
+          f"({ms / bnd:.2f}x its bound {bnd:.5f} ms by {by}, {nbytes} "
+          f"bytes), twin {plain_ms:.4f} ms, index_put_ of the kept rows "
+          f"{lib_ms:.4f} ms (equal to the twin's buffer: "
+          f"{out['dispatch']['library_same']})", flush=True)
+    del x, ve, pos, e_loc, got, want, lib
+    torch.cuda.empty_cache()
+
+    # (d) the train cells' dry-run traces start; (e) the tensor-parallel
+    # world runs beside them (nothing in either is timed)
+    t_d = time.perf_counter()
+    dryruns = TPDryruns()
+    try:
+        launches, out["world"] = tp_world(torch, reg)
+        records = dryruns.wait(420)
+    finally:
+        dryruns.stop()
+    out["dryrun_s"] = time.perf_counter() - t_d
+    out["dryrun"] = {}
+    for arch, before in TP_DRYRUN_ARCHS.items():
+        for mp, was in zip(("pod1", "pod2"), before):
+            a = records[(arch, mp, "cuda")]
+            c = records.get((arch, mp, "cpu"))
+            diff = [k for k in DRYRUN_COUNTS
+                    if c is not None and a.get(k) != c.get(k)]
+            check("error" not in a and not diff,
+                  f"{arch} train_4k {mp}: the card's and the CPU's "
+                  f"records differ in {diff} ({a.get('error')})")
+            gib = a["memory_per_device_bytes"] / 2**30
+            out["dryrun"][f"{arch}/{mp}"] = dict(
+                gib=gib, gathered_gib=was, fits_hbm=a["fits_hbm"],
+                mesh=a["mesh"], trace_s=a["trace_s"],
+                cpu_trace_s=c and c["trace_s"],
+                hlo_flops_per_dev=a["hlo_flops_per_dev"],
+                hlo_hbm_bytes_per_dev=a["hlo_hbm_bytes_per_dev"],
+                coll_by_op=a["coll_by_op"],
+                useful_flops_ratio=a["useful_flops_ratio"],
+                compute_s=a["compute_s"], memory_s=a["memory_s"],
+                collective_s=a["collective_s"], dominant=a["dominant"])
+            held = (f"the card's and the CPU's records equal (traced in "
+                    f"{a['trace_s']} / {c['trace_s']} s)" if c else
+                    f"traced in {a['trace_s']} s")
+            print(f"tp (d): {arch} train_4k on {a['mesh']}: {gib:.2f} GiB "
+                  f"a rank (every weight gathered: {was} GiB), fits_hbm "
+                  f"{a['fits_hbm']}; useful FLOPs "
+                  f"{a['useful_flops_ratio']:.4f}; {held}", flush=True)
+    print(f"tp (d), (e): {len(records)} dry-runs and the tp = 2 world in "
+          f"{out['dryrun_s']:.1f} s", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"tp phase took {out['phase_s']:.1f} s", flush=True)
+    return launches, out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.exists():
         return fail("run from the repository root (src/repro_torch and "
@@ -3626,6 +4208,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device available")
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        # one rank of phase 17 (e)'s world: rank, world, store, output
+        rank, world, store, path = sys.argv[2:6]
+        return tp_world_rank(torch, int(rank), int(world), store, path)
     try:
         return run(torch)
     except SmokeFailure as e:
@@ -4216,6 +4802,13 @@ def run(torch) -> int:
     dryrun_launches, report["dryrun"] = dryrun_phase(torch, dev, reg)
     for row in (flash_row, rwkv_row):
         row["launches"] += dryrun_launches[row["name"]]
+
+    # 17. this slice's path: tensor and expert parallelism (the one-rank
+    # steps again, flash and the dispatch at a tp = 16 rank's shapes, a
+    # tp = 2 world on the card, the train cells' dry-run)
+    tp_launches, report["tp"] = tp_phase(torch, dev, reg, report["sharded"])
+    for row in (flash_row, moe_row):
+        row["launches"] += tp_launches[row["name"]]
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -4296,6 +4889,7 @@ def run(torch) -> int:
         phase_s=di["phase_s"])}))
     print(json.dumps({"sharded": report["sharded"]}))
     print(json.dumps({"dryrun": report["dryrun"]}))
+    print(json.dumps({"tp": report["tp"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,8 +144,8 @@ def moe_dispatch(x, expert, pos, *, n_experts: int, capacity: int):
                            capacity=capacity)
 
 
-def moe_combine(y, expert, pos, weight, *, n_tokens: int):
-    return ref.moe_combine(y, expert, pos, weight, n_tokens)
+def moe_combine(y, expert, pos, weight, *, n_tokens: int, dtype=None):
+    return ref.moe_combine(y, expert, pos, weight, n_tokens, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -649,11 +649,12 @@ def moe_dispatch_backward(g, expert, pos, n_experts: int, capacity: int):
     return gbuf[idx].view(T, k, D).sum(1, keepdim=True).view(T, D)
 
 
-def moe_combine(y, expert, pos, weight, n_tokens: int):
+def moe_combine(y, expert, pos, weight, n_tokens: int, dtype=None):
     """Gather expert outputs back to tokens with their combine weights.
     y: (E, C, D); expert/pos/weight: (T, k).  Returns (T, D) in
-    ``y.dtype``: the weights are cast to ``y.dtype`` before the product and
-    the k products summed in float32, as ``jnp.sum`` sums a bf16 array."""
+    ``y.dtype`` (or ``dtype``): the weights are cast to ``y.dtype`` before
+    the product and the k products summed in float32, as ``jnp.sum`` sums
+    a bf16 array."""
     E, C, D = y.shape
     k = expert.shape[1]
     flat_e = expert.reshape(-1).long()
@@ -663,4 +664,5 @@ def moe_combine(y, expert, pos, weight, n_tokens: int):
     gathered = y.reshape(E * C, D)[idx]
     w = torch.where(ok, weight.reshape(-1), 0.0).to(y.dtype)
     gathered = gathered * w[:, None]
-    return gathered.reshape(n_tokens, k, D).float().sum(dim=1).to(y.dtype)
+    return gathered.reshape(n_tokens, k, D).float().sum(dim=1).to(
+        dtype or y.dtype)

@@ -43,10 +43,12 @@ with the JAX record's keys; what differs in meaning:
   kernels                  the model kernels' calls, flops and bytes, by
                            formula
 
-The records show what the port's step holds today: a rank gathers every
-weight with ``full_tensor()`` and computes its data shard's rows in full
-(compute over ``"model"`` is replicated, ROADMAP item 11f), so the large
-models' train cells do not fit the card.
+The records show what a rank of the port's step holds and moves: its
+``"model"`` pieces of the attention, MLP, vocabulary and expert leaves
+(tensor and expert parallelism; RWKV6 and hymba still gather every leaf
+whole), every leaf whole over ``"data"`` (FSDP's per-layer gathers and
+the KV caches' sequence split are ROADMAP item 11g), and its data shard's
+rows.
 
 Records go to ``runs/dryrun_torch/`` (``--out``), which ``.gitignore``
 lists; never ``experiments/dryrun``, which holds the JAX package's.  Cells
@@ -283,7 +285,8 @@ def _trace(cfg, cell, mesh, dev, microbatches: int):
                 B = cell.global_batch
                 lanes = B // dp_size(mesh) if B % dp_size(mesh) == 0 else B
                 fn = steps_mod.make_serve_step(cfg, mesh, B, cell.seq)
-                args = (p, tfm.init_decode_state(cfg, lanes, cell.seq, dev),
+                args = (p, steps_mod.init_decode_state(cfg, mesh, lanes,
+                                                       cell.seq, dev),
                         torch.zeros((B,), dtype=torch.int32, device=dev))
         del params
         state = sum(leaf.to_local().numel() * leaf.element_size()

@@ -21,7 +21,11 @@ module's conventions:
               an allocation without a write, nor a wait): in eager mode
               each op is a launch that reads its inputs and writes its
               outputs, the port's counterpart of XLA's fusion boundary;
-              an in-place op counts its target as read and written
+              an in-place op counts its target as read and written; a
+              copy between devices (a host value to the card: the
+              learning rate, a batch) crosses the host link, and the
+              same step on the CPU makes no such copy, so its bytes are
+              not counted
   coll_bytes  operand bytes of every ``c10d_functional`` / ``c10d``
               collective, per rank, with no ring factor, also by op in
               ``coll_by_op`` (``all_gather_into_tensor``, ``all_reduce``,
@@ -367,7 +371,8 @@ class Analysis:
             nb = sum(map(_nbytes, operand))
             c.coll_bytes += nb
             c.coll_by_op[key] += nb
-        if name not in NO_DATA and not func.is_view:
+        if name not in NO_DATA and not func.is_view \
+                and not _crosses_devices(name, ins, outs):
             nb = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
             c.hbm_bytes += nb
             tally["bytes"] += nb
@@ -415,6 +420,15 @@ class Analysis:
                 seen.add(st._cdata)
                 total += self._live[st._cdata][1]
         return total
+
+
+#: the copies whose operands may lie on two devices
+COPIES = {"aten._to_copy", "aten.copy_", "aten.copy"}
+
+
+def _crosses_devices(name: str, ins, outs) -> bool:
+    """Whether the op ``name`` is a copy between two devices."""
+    return name in COPIES and len({t.device for t in (*ins, *outs)}) > 1
 
 
 def _full_outputs(out3, out4, T: int):

@@ -265,6 +265,45 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+def tp_compute(cfg: ModelConfig) -> bool:
+    """Whether the mesh-bound steps compute ``cfg`` over ``"model"`` (each
+    rank its pieces of the leaves the rules split there): the attention,
+    MLP and MoE families.  RWKV6's mixes and hymba's SSM heads are not
+    split yet; their steps gather every leaf whole."""
+    return cfg.family != "ssm" and not cfg.parallel_ssm
+
+
+def model_only(placements_: tuple, mesh) -> tuple:
+    """``placements_`` with only the ``"model"`` axis's ``Shard`` kept
+    (every other mesh axis ``Replicate``): the layout of a rank's
+    ``"model"`` piece, whole over the data axes."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(p if name == "model" else Replicate() for name, p in
+                 zip(mesh.mesh_dim_names, placements_))
+
+
+def model_piece(leaf):
+    """This rank's ``"model"`` piece of a DTensor leaf placed by the rules
+    (a plain tensor as it is): its local tensor, gathered over the data
+    axes only where the leaf is split there too (FSDP's ``"data"``); the
+    ``"model"`` split, the rules' (:func:`param_pspec`: a dim tp does not
+    divide stays whole), is never gathered."""
+    if not hasattr(leaf, "to_local"):
+        return leaf
+    keep = model_only(tuple(leaf.placements), leaf.device_mesh)
+    if keep != tuple(leaf.placements):
+        leaf = leaf.redistribute(leaf.device_mesh, keep)
+    return leaf.to_local()
+
+
+def is_model_split(leaf) -> bool:
+    """Whether a DTensor leaf is split over ``"model"``."""
+    names = tuple(leaf.device_mesh.mesh_dim_names)
+    return "model" in names and leaf.placements[
+        names.index("model")].is_shard()
+
+
 def distribute_tree(tree, specs, mesh):
     """``tree``'s leaves as DTensors on ``mesh`` under ``specs`` (a tree of
     the same structure, as the ``*_shardings`` functions give), in a tree

@@ -12,26 +12,39 @@ step.  Each rank takes its data shard of every microbatch (the rows of
 its :func:`~repro_torch.launch.mesh.dp_index`); the parameters and AdamW's
 ``m`` and ``v`` are DTensors under the rules' placements
 (:func:`shard_train_state`: ``param_shardings`` / ``opt_shardings``,
-ZeRO-1 for the moments).  A rank gathers the whole weights
-(``full_tensor``): compute over ``"model"`` is replicated in this port.
-MoE layers route shard-locally (:mod:`repro_torch.models.moe`), the rank's
-loss is its share of the global one (the cross-entropy of its rows times
-their share of the batch, and its share of the load-balance loss), so the
+ZeRO-1 for the moments).  Over ``"model"`` a rank computes only its piece
+(tensor and expert parallelism, for every config that
+``sharding.tp_compute`` names): it takes its ``"model"`` piece of each
+leaf (``sharding.model_piece``: gathered over ``"data"`` only where FSDP
+splits it there, never over ``"model"``) and the layers compute its
+heads, FFN columns, vocabulary rows and experts, summing the partial
+results over the ``"model"`` group (:mod:`repro_torch.models.layers`,
+``moe``, ``transformer``).  RWKV6 and hymba gather every leaf whole
+(``full_tensor``) and compute over ``"model"`` replicated.  MoE layers
+route shard-locally (:mod:`repro_torch.models.moe`), the rank's loss is
+its share of the global one (the cross-entropy of its rows times their
+share of the batch, and its share of the load-balance loss), so the
 gradients summed over the data axes (``runtime.collectives``: the tree
-all-reduce when the mesh has pods) are the global gradient.  AdamW then
-updates each rank's shard of the moments, and the parameters are
-gathered back into their own placements.  Reported are the global loss,
+all-reduce when the mesh has pods) are the global gradient of the rank's
+pieces; a leaf every model rank holds whole gets its whole gradient on
+each (the region's entry sums it), so nothing is summed over ``"model"``
+but the gradient norm's split leaves.  AdamW then updates each rank's
+shard of the moments, and the parameters are gathered back into their
+own placements (over the data axes).  Reported are the global loss,
 ``ce``, ``lb_loss``, counters and ``grad_norm``.  Like the JAX step, it
 does not compress gradients.
 
 ``make_prefill_step`` and ``make_serve_step`` are bound to a mesh the same
-way: a rank prefills and decodes its data shard's rows; logits and tokens
-come back as DTensors split over the data axes, and the decode state is
-the rank's own.  A serve batch that the data axes do not divide (the
-``long_500k`` cell's one lane on 32 data shards) is decoded whole by
-every rank, its tokens replicated DTensors, as the JAX step replicates
-them; the prefill refuses such a batch, as the JAX ``batch_shardings``
-does.
+way: a rank prefills and decodes its data shard's rows with its pieces;
+logits and tokens come back as DTensors split over the data axes (the
+logits gathered over the vocabulary), and the decode state is the rank's
+own (its attention heads' caches).  A serve batch that the data axes do
+not divide (the ``long_500k`` cell's one lane on 32 data shards) is
+decoded whole by every rank, its tokens replicated DTensors, as the JAX
+step replicates them; the prefill refuses such a batch, as the JAX
+``batch_shardings`` does.  A whole state (all heads, as one device's
+``prefill`` makes it) becomes a rank's through :func:`shard_decode_state`,
+as the JAX package places a state onto the serve step's shardings.
 
 Every mesh-bound step sets the model's axis hints
 (:func:`repro_torch.models.layers.axis_hints`) for the length of one call
@@ -47,6 +60,7 @@ from repro_torch.core import prng
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import dp_axes, dp_index, dp_size, tp_size
 from repro_torch.models import layers
+from repro_torch.models import tensor_parallel as tpo
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                cosine_schedule, global_norm)
@@ -156,12 +170,14 @@ class _Description:
         self.shape = dict(zip(self.axis_names, mesh.shape))
 
 
-def _hints(mesh, *, rank_rows: bool = True):
+def _hints(mesh, *, rank_rows: bool = True, tp: bool = False):
     """The model's axis hints of ``mesh`` for one step call; with
-    ``rank_rows`` False the rank holds the whole batch (global view)."""
+    ``rank_rows`` False the rank holds the whole batch (global view); with
+    ``tp`` the weights are the rank's ``"model"`` pieces."""
     return layers.axis_hints(dp_axes=dp_axes(mesh), dp_size=dp_size(mesh),
                              tp_size=tp_size(mesh),
-                             mesh=mesh if rank_rows else _Description(mesh))
+                             mesh=mesh if rank_rows else _Description(mesh),
+                             tp_mesh=mesh if tp else None)
 
 
 def _full(x):
@@ -169,13 +185,31 @@ def _full(x):
     return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
-def _placed(t, mesh, placements):
-    """This rank's piece of the whole tensor ``t`` under ``placements``
-    (local slicing: every rank holds ``t``)."""
-    from torch.distributed.tensor import DTensor, Replicate
+def _pieces(params, cfg: ModelConfig):
+    """The leaves a rank computes with: its ``"model"`` pieces for a
+    config that the steps split over ``"model"``, else the whole
+    tensors."""
+    return tfm.tree_map(shd.model_piece if shd.tp_compute(cfg) else _full,
+                        params)
 
-    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False).redistribute(
+
+def _source(leaf, mesh, cfg: ModelConfig) -> tuple:
+    """The placements of the tensor a rank computes with for ``leaf``:
+    its ``"model"`` piece's, or replicated for a whole tensor."""
+    from torch.distributed.tensor import Replicate
+
+    if shd.tp_compute(cfg) and hasattr(leaf, "placements"):
+        return shd.model_only(tuple(leaf.placements), mesh)
+    return (Replicate(),) * mesh.ndim
+
+
+def _placed(t, mesh, src, placements):
+    """This rank's piece under ``placements`` of the tensor ``t`` placed
+    as ``src`` (local slicing: every rank of an axis ``src`` replicates
+    holds ``t``)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, mesh, src, run_check=False).redistribute(
         mesh, placements).to_local()
 
 
@@ -244,19 +278,37 @@ def _sum_over_data(tensors: list, mesh) -> list:
     return col.flat_psum_grads(tensors, mesh, ("data",))
 
 
+def _grad_norm(grads, dleaves, mesh, cfg: ModelConfig):
+    """The global gradient norm of the rank's gradients (summed over the
+    data axes): the squares of leaves split over ``"model"`` summed over
+    ``"model"``, a leaf every model rank holds whole counted once."""
+    if tp_size(mesh) == 1 or not shd.tp_compute(cfg):
+        return global_norm(grads)
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    split, whole = zero, zero
+    for g, p in zip(grads, dleaves):
+        sq = torch.sum(torch.square(g.float()))
+        if shd.is_model_split(p):
+            split = split + sq
+        else:
+            whole = whole + sq
+    return torch.sqrt(tpo.out_of_tp(split, mesh) + whole)
+
+
 def _sharded_train_step(cfg: ModelConfig, mesh, *, microbatches: int,
                         peak_lr: float, total_steps: int):
     from torch.distributed.tensor import DTensor
 
     dp, tp = dp_size(mesh), tp_size(mesh)
+    tpc = shd.tp_compute(cfg)
     warmup = max(1, min(2000, total_steps // 10))
 
     def train_step(params, opt_state, batch, step):
-        with _hints(mesh):
+        with _hints(mesh, tp=tpc):
             dleaves = tfm.tree_leaves(params)
             device = dleaves[0].device
-            leaves = [_full(p).detach().requires_grad_(True)
-                      for p in dleaves]
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tfm.tree_leaves(_pieces(params, cfg))]
             tree = tfm.tree_unflatten(params, leaves)
             rng = prng.fold_in(prng.PRNGKey(17), int(step))
             batch = {k: torch.as_tensor(v, device=device)
@@ -292,14 +344,15 @@ def _sharded_train_step(cfg: ModelConfig, mesh, *, microbatches: int,
             lr = cosine_schedule(step, peak_lr=peak_lr, total=total_steps,
                                  warmup=warmup).to(device)
             with torch.no_grad():
-                gnorm = global_norm(grads)
+                gnorm = _grad_norm(grads, dleaves, mesh, cfg)
                 ms = tfm.tree_leaves(opt_state.m)
                 vs = tfm.tree_leaves(opt_state.v)
+                src = [_source(p, mesh, cfg) for p in dleaves]
                 # AdamW on this rank's shard of each moment (ZeRO-1)
-                pieces = [_placed(p.detach(), mesh, m.placements)
-                          for p, m in zip(leaves, ms)]
-                g_pieces = [_placed(g, mesh, m.placements)
-                            for g, m in zip(grads, ms)]
+                pieces = [_placed(p.detach(), mesh, s, m.placements)
+                          for p, s, m in zip(leaves, src, ms)]
+                g_pieces = [_placed(g, mesh, s, m.placements)
+                            for g, s, m in zip(grads, src, ms)]
                 del grads
                 local_state = AdamWState(opt_state.step.to_local(),
                                          [m.to_local() for m in ms],
@@ -323,48 +376,80 @@ def _sharded_train_step(cfg: ModelConfig, mesh, *, microbatches: int,
 def make_prefill_step(cfg: ModelConfig, mesh, max_len: int):
     """``prefill_step(params, batch)`` on ``mesh``: this rank's data shard
     of the global ``batch`` prefilled for caches of ``max_len`` slots.
-    Returns ``(logits, state)``: the last position's logits as a DTensor
-    split over the data axes and the rank's ``DecodeState``; an
-    encoder-only config returns the full forward's logits alone (its
-    "prefill" is one bidirectional forward, as in the JAX package).
-    ``params`` are DTensors (gathered here) or plain tensors."""
+    Returns ``(logits, state)``: the last position's logits (gathered over
+    a vocabulary split over ``"model"``) as a DTensor split over the data
+    axes and the rank's ``DecodeState``; an encoder-only config returns
+    the full forward's logits alone (its "prefill" is one bidirectional
+    forward, as in the JAX package).  ``params`` are DTensors (their
+    ``"model"`` pieces taken here) or plain tensors."""
     dp, tp = dp_size(mesh), tp_size(mesh)
     device = _device(mesh)
+    tpc = shd.tp_compute(cfg)
+
+    def whole(logits):
+        return (tpo.gather_over_model(logits, mesh)
+                if logits.shape[-1] != cfg.vocab else logits)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        with _hints(mesh):
-            full = tfm.tree_map(_full, params)
+        with _hints(mesh, tp=tpc):
+            pieces = _pieces(params, cfg)
             local = {k: _rows(v, mesh, device) for k, v in batch.items()}
             if cfg.encoder_only:
-                logits, _aux = tfm.forward(full, cfg, local, ep_groups=tp,
-                                           dp_groups=dp)
-                return rows_on_mesh(logits, mesh)
-            logits, state = tfm.prefill(full, cfg, local, max_len,
+                logits, _aux = tfm.forward(pieces, cfg, local,
+                                           ep_groups=tp, dp_groups=dp)
+                return rows_on_mesh(whole(logits), mesh)
+            logits, state = tfm.prefill(pieces, cfg, local, max_len,
                                         ep_groups=tp, dp_groups=dp)
-            return rows_on_mesh(logits, mesh), state
+            return rows_on_mesh(whole(logits), mesh), state
 
     return prefill_step
+
+
+def shard_decode_state(cfg: ModelConfig, mesh, state):
+    """A whole decode ``state`` (every head, as one device's ``prefill``
+    makes it) as a rank of ``mesh`` holds it for :func:`make_serve_step`:
+    each attention cache cut to the rank's heads
+    (:func:`repro_torch.models.layers.take_kv_heads`), as the JAX package
+    places a state onto the serve step's shardings."""
+    with _hints(mesh, tp=shd.tp_compute(cfg)):
+        t = layers.tp_region()
+        plan = layers.head_plan(cfg, t)
+    if plan is None or plan.kv == "all":
+        return state
+    caches = []
+    for c in state.caches:
+        if "k" in c:
+            c = dict(c, **{f: layers.take_kv_heads(
+                c[f], cfg, plan, t.rank, 2).contiguous()
+                for f in tfm.CACHE_KEYS})
+        caches.append(c)
+    return tfm.DecodeState(caches=tuple(caches), length=state.length)
 
 
 def make_serve_step(cfg: ModelConfig, mesh, batch: int, max_len: int):
     """``serve_step(params, state, tokens) -> (next_tokens, state)``: one
     greedy decode step on ``mesh`` for a global batch of ``batch`` lanes
     with caches of ``max_len`` slots, the state a rank's own (as
-    :func:`make_prefill_step` returns it, updated in place).  ``tokens``
-    is the global ``(batch,)`` vector or the DTensor the previous step
-    returned; so are the next tokens.  When the data axes divide
-    ``batch``, a rank decodes its data shard's lanes and the tokens are
-    split over the data axes; else every rank decodes all ``batch`` lanes
-    (its state holds them all) and the tokens are replicated, as in the
-    JAX step (``P(dp if batch % dpn == 0 else None)``)."""
+    :func:`make_prefill_step`, :func:`init_decode_state` or
+    :func:`shard_decode_state` give it; updated in place).
+    ``tokens`` is the global ``(batch,)`` vector or the DTensor the
+    previous step returned; so are the next tokens.  When the data axes
+    divide ``batch``, a rank decodes its data shard's lanes and the tokens
+    are split over the data axes; else every rank decodes all ``batch``
+    lanes (its state holds them all) and the tokens are replicated, as in
+    the JAX step (``P(dp if batch % dpn == 0 else None)``).  The greedy
+    token is the lowest id among equal maxima, also over a vocabulary
+    split over ``"model"`` (:func:`repro_torch.models.transformer.
+    greedy_ids`)."""
     dp, tp = dp_size(mesh), tp_size(mesh)
     device = _device(mesh)
     split = batch % dp == 0
+    tpc = shd.tp_compute(cfg)
 
     @torch.no_grad()
     def serve_step(params, state, tokens):
-        with _hints(mesh, rank_rows=split):
+        with _hints(mesh, rank_rows=split, tp=tpc):
             if split:
                 tokens = _rows(tokens, mesh, device)
             elif hasattr(tokens, "to_local"):
@@ -372,11 +457,20 @@ def make_serve_step(cfg: ModelConfig, mesh, batch: int, max_len: int):
             else:
                 tokens = torch.as_tensor(tokens, device=device)
             logits, state = tfm.decode_step(
-                tfm.tree_map(_full, params), cfg, state, tokens,
-                ep_groups=tp, dp_groups=dp)
+                _pieces(params, cfg), cfg, state, tokens, ep_groups=tp,
+                dp_groups=dp)
             # greedy next token (serving drivers may replace with sampling)
-            nxt = torch.argmax(logits, -1).to(torch.int32)
+            nxt = tfm.greedy_ids(logits, cfg)
             return (rows_on_mesh(nxt, mesh) if split
                     else _replicated(nxt, mesh)), state
 
     return serve_step
+
+
+def init_decode_state(cfg: ModelConfig, mesh, lanes: int, max_len: int,
+                      device=None):
+    """An empty decode state of ``lanes`` lanes as a rank of ``mesh``
+    holds it for :func:`make_serve_step` (its attention heads' caches)."""
+    with _hints(mesh, tp=shd.tp_compute(cfg)):
+        return tfm.init_decode_state(cfg, lanes, max_len,
+                                     device or _device(mesh))

@@ -13,6 +13,19 @@ the JAX package does: the tensor-parallel KV head expansion of
 :func:`attn_apply` and the shard-local routing of
 :func:`repro_torch.models.moe.moe_apply`.  The hints are off unless a
 step sets them, so plain calls need no mesh.
+
+Tensor parallelism: when a step also names the mesh whose ``"model"``
+axis (of size tp > 1) splits the weights (``tp_mesh``), each weight the
+sharding rules split over ``"model"`` is the rank's piece, and the layers
+compute only that piece (:func:`tp_region`): :func:`mlp_apply` is
+column-parallel in ``wg`` / ``wu`` / ``w1`` and row-parallel in ``wd`` /
+``w2``; :func:`attn_apply` and :func:`attn_decode` run the rank's heads
+(after the GQA + TP expansion, as the JAX package places them) and
+``wo`` row-parallel.  A region starts at
+:func:`repro_torch.models.tensor_parallel.into_tp` and its partial results
+are summed by ``out_of_tp``; a leaf every model rank holds whole (a norm
+scale, a weight whose dim tp does not divide) that a region reads enters
+through ``into_tp`` too, so its gradient comes out whole on every rank.
 """
 
 from __future__ import annotations
@@ -25,12 +38,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import tensor_parallel as tpo
 
 # ---------------------------------------------------------------------------
 # Activation-sharding hints.  In the JAX package ``hint`` pins a layout with
 # ``with_sharding_constraint``; here every tensor is a rank's local tensor
-# (the port keeps compute over "model" replicated), so ``hint`` is the
-# identity and ``hint_spec`` says what layout the JAX package would pin.
+# (its piece over "model" is placed by the layers themselves, see
+# ``tp_region``), so ``hint`` is the identity and ``hint_spec`` says what
+# layout the JAX package would pin.
 # ``mesh`` is a ``DeviceMesh`` when each rank holds one data shard's rows
 # (the multi-rank steps), or a mesh description (any object with
 # ``axis_names`` and a ``shape`` mapping) when one process holds the global
@@ -39,15 +54,22 @@ from repro_torch.kernels import ops
 
 _AXIS_HINTS = {"on": False, "dp": None, "dp_size": 0, "tp_size": 0,
                "mesh": None}
+#: the ``DeviceMesh`` whose ``"model"`` axis splits the weights the layers
+#: are given (the rank's pieces; see :func:`tp_region`), None when they are
+#: whole
+_TP_MESH = {"mesh": None}
 
 
-def set_axis_hints(*, dp_axes=None, dp_size=0, tp_size=0, mesh=None):
+def set_axis_hints(*, dp_axes=None, dp_size=0, tp_size=0, mesh=None,
+                   tp_mesh=None):
     _AXIS_HINTS.update(on=bool(dp_axes), dp=dp_axes, dp_size=dp_size,
                        tp_size=tp_size, mesh=mesh)
+    _TP_MESH["mesh"] = tp_mesh
 
 
 def clear_axis_hints():
     _AXIS_HINTS.update(on=False, dp=None, dp_size=0, tp_size=0, mesh=None)
+    _TP_MESH["mesh"] = None
 
 
 @contextlib.contextmanager
@@ -55,13 +77,14 @@ def axis_hints(**hints):
     """:func:`set_axis_hints` for the length of a ``with`` block; the hints
     that were set before are restored on exit, also when the block
     raises."""
-    saved = dict(_AXIS_HINTS)
+    saved, saved_tp = dict(_AXIS_HINTS), _TP_MESH["mesh"]
     set_axis_hints(**hints)
     try:
         yield
     finally:
         _AXIS_HINTS.clear()
         _AXIS_HINTS.update(saved)
+        _TP_MESH["mesh"] = saved_tp
 
 
 def hint_spec(shape, *axes) -> tuple:
@@ -100,6 +123,40 @@ def rank_local() -> bool:
     its data shard's rows."""
     return _AXIS_HINTS["on"] and hasattr(_AXIS_HINTS["mesh"],
                                          "mesh_dim_names")
+
+
+class TPRegion(NamedTuple):
+    """The tensor-parallel region of a step: the mesh, the ``"model"``
+    size and this rank's coordinate on it."""
+    mesh: object
+    size: int
+    rank: int
+
+
+def tp_region():
+    """The :class:`TPRegion` when the hints name a ``tp_mesh`` whose
+    ``"model"`` axis has size tp > 1 (the layers' weights are the rank's
+    pieces), else None."""
+    mesh = _TP_MESH["mesh"]
+    if not _AXIS_HINTS["on"] or mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names)
+    size = mesh.shape[names.index("model")]
+    if size == 1:
+        return None
+    return TPRegion(mesh, size, mesh.get_local_rank("model"))
+
+
+def _split(t: TPRegion, w, dim: int, full: int) -> bool:
+    """Whether the rules split the ``full``-wide dim ``dim`` of ``w`` over
+    ``"model"`` (they split a dim that tp divides, as the JAX rules do);
+    a weight that is not then the rank's piece raises."""
+    if t is None or full % t.size:
+        return False
+    if w.shape[dim] != full // t.size:
+        raise ValueError(f"a weight of shape {tuple(w.shape)} is not a "
+                         f"rank's piece of {full} over {t.size} ranks")
+    return True
 
 
 def _dense_init(shape, dtype, generator, device, scale=None, lead=()):
@@ -155,14 +212,26 @@ def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(p, x, cfg: ModelConfig):
+def mlp_apply(p, x, cfg: ModelConfig, d_ff: int | None = None):
+    """``d_ff``: the MLP's whole width (``cfg.d_ff`` unless given; shared
+    experts are wider).  In a tensor-parallel region whose rules split that
+    width, the rank computes its columns of ``wg`` / ``wu`` / ``w1`` and
+    its rows of ``wd`` / ``w2``, and the parts are summed over
+    ``"model"``."""
+    t = tp_region()
+    w_in = p["w1"] if cfg.mlp_act == "sq_relu" else p["wg"]
+    split = _split(t, w_in, -1, d_ff or cfg.d_ff)
+    if split:
+        x = tpo.into_tp(x, t.mesh)
     if cfg.mlp_act == "sq_relu":
         h = x @ p["w1"]
-        return torch.square(torch.relu(h)) @ p["w2"]
-    act = F.silu if cfg.mlp_act == "silu_glu" else _gelu_tanh
-    g = act(x @ p["wg"])
-    u = x @ p["wu"]
-    return (g * u) @ p["wd"]
+        out = torch.square(torch.relu(h)) @ p["w2"]
+    else:
+        act = F.silu if cfg.mlp_act == "silu_glu" else _gelu_tanh
+        g = act(x @ p["wg"])
+        u = x @ p["wu"]
+        out = (g * u) @ p["wd"]
+    return tpo.out_of_tp(out, t.mesh) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -218,22 +287,133 @@ def attn_init(cfg: ModelConfig, generator, device, lead=()):
 
 
 def _qkv(p, x, cfg: ModelConfig):
-    B, S, D = x.shape
+    """Every head's q, k, v ``(..., heads, Dh)`` of ``x`` (..., D)."""
+    lead = tuple(x.shape[:-1])
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, KV, dh)
-    v = (x @ p["wv"]).reshape(B, S, KV, dh)
+    q = (x @ p["wq"]).reshape(lead + (H, dh))
+    k = (x @ p["wk"]).reshape(lead + (KV, dh))
+    v = (x @ p["wv"]).reshape(lead + (KV, dh))
     if cfg.qk_norm:
         q = rmsnorm(p["qn"], q)
         k = rmsnorm(p["kn"], k)
     return q, k, v
 
 
+class HeadPlan(NamedTuple):
+    """A rank's attention heads in a tensor-parallel region.  ``kv``:
+    ``"aligned"`` (tp divides KV: the rank's KV / tp heads, read by its q
+    heads as in GQA), ``"expand"`` (tp divides H but not KV: the KV heads
+    expanded to H, as the JAX package's GQA + TP expansion, and the
+    rank's H / tp of them taken) or ``"all"`` (tp does not divide H: every
+    head, on every rank, as the JAX rules leave them replicated)."""
+    q_lo: int      # the q heads computed: [q_lo, q_lo + n_q)
+    n_q: int
+    kv: str
+    n_kv: int      # the k / v heads the rank holds (and caches)
+
+
+def head_plan(cfg: ModelConfig, t: TPRegion) -> HeadPlan | None:
+    """The rank's :class:`HeadPlan`, or None where the rules split no
+    attention weight (tp does not divide ``H * Dh``): then every weight
+    is whole and the attention runs as on one device."""
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if t is None or (H * dh) % t.size:
+        return None
+    if H % t.size:
+        return HeadPlan(0, H, "all", KV)
+    n = H // t.size
+    if KV % t.size == 0:
+        return HeadPlan(t.rank * n, n, "aligned", KV // t.size)
+    return HeadPlan(t.rank * n, n, "expand", n)
+
+
+def kv_heads_held(cfg: ModelConfig) -> int:
+    """The k / v heads a rank's decode cache holds under the current
+    hints: its plan's (:func:`head_plan`), else all ``n_kv_heads``."""
+    plan = head_plan(cfg, tp_region())
+    return cfg.n_kv_heads if plan is None else plan.n_kv
+
+
+def take_kv_heads(y, cfg: ModelConfig, plan: HeadPlan, rank: int,
+                  dim: int):
+    """The rank's k / v heads (:class:`HeadPlan`) of ``y``, which holds
+    all ``n_kv_heads`` on ``dim``: its block (aligned), the expansion's
+    heads ``[q_lo, q_lo + n_q)``, head ``h`` reading KV head ``h // rep``
+    (expand), or all of them."""
+    if plan.kv == "all":
+        return y
+    if plan.kv == "aligned":
+        return y.narrow(dim, rank * plan.n_kv, plan.n_kv)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    a = plan.q_lo // rep
+    b = (plan.q_lo + plan.n_q - 1) // rep + 1
+    y = y.narrow(dim, a, b - a).repeat_interleave(rep, dim=dim)
+    return y.narrow(dim, plan.q_lo - a * rep, plan.n_q)
+
+
+def _tp_qkv(p, xin, cfg: ModelConfig, t: TPRegion, plan: HeadPlan):
+    """The rank's q, k, v heads ``(..., heads, Dh)`` of ``xin`` (inside
+    the region).  Split columns that are not the rank's heads (an
+    unaligned k / v split, or q when tp does not divide H) are gathered
+    over ``"model"`` as activations, never as weights; a whole k / v
+    weight enters the region through ``into_tp``."""
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lead = tuple(xin.shape[:-1])
+    _split(t, p["wq"], -1, H * dh)
+    q = xin @ p["wq"]
+    if plan.kv == "all":
+        q = tpo.gather_over_model(q, t.mesh)
+    q = q.reshape(lead + (plan.n_q, dh))
+
+    def kv(w):
+        if plan.kv == "aligned":
+            _split(t, w, -1, KV * dh)
+            return (xin @ w).reshape(lead + (plan.n_kv, dh))
+        if _split(t, w, -1, KV * dh):
+            y = tpo.gather_over_model(xin @ w, t.mesh)
+        else:
+            y = xin @ tpo.into_tp(w, t.mesh)
+        return take_kv_heads(y.reshape(lead + (KV, dh)), cfg, plan, t.rank,
+                             -2)
+
+    k, v = kv(p["wk"]), kv(p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(tpo.into_tp(p["qn"], t.mesh), q)
+        k = rmsnorm(tpo.into_tp(p["kn"], t.mesh), k)
+    return q, k, v
+
+
+def _heads(p, x, cfg: ModelConfig):
+    """``(q, k, v, region, plan)``: the heads of ``x`` (..., D) that this
+    rank computes, every head outside a tensor-parallel region (``plan``
+    None)."""
+    t = tp_region()
+    plan = head_plan(cfg, t)
+    if plan is None:
+        return (*_qkv(p, x, cfg), t, plan)
+    return (*_tp_qkv(p, tpo.into_tp(x, t.mesh), cfg, t, plan), t, plan)
+
+
+def _out(p, out, cfg: ModelConfig, t: TPRegion, plan: HeadPlan | None):
+    """``wo`` on the heads' outputs ``(..., heads * Dh)``: in a
+    tensor-parallel region row-parallel, summed over ``"model"`` (with
+    every head on every rank, on the rank's block of rows of the
+    concatenated heads)."""
+    if plan is None:
+        return out @ p["wo"]
+    width = cfg.n_heads * cfg.head_dim
+    _split(t, p["wo"], -2, width)
+    if plan.kv == "all":
+        out = out.narrow(-1, t.rank * (width // t.size), width // t.size)
+    return tpo.out_of_tp(out @ p["wo"], t.mesh)
+
+
 def attn_apply(p, x, cfg: ModelConfig, kind: str, pos0: int = 0):
     """Training / prefill attention.  kind: full | local | bidir.
-    Returns (out, (k, v)) — k/v in (B, KV, S, Dh) for cache building."""
+    Returns (out, (k, v)) — k/v in (B, KV, S, Dh) for cache building (in
+    a tensor-parallel region the rank's heads: :func:`head_plan`)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v, t, plan = _heads(p, x, cfg)
     pos = pos0 + torch.arange(S, device=x.device)
     q = rope(q, pos[None, :], cfg.rope_theta)
     k = rope(k, pos[None, :], cfg.rope_theta)
@@ -241,11 +421,12 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str, pos0: int = 0):
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
     # GQA + TP, as the JAX package: when q heads shard over "model" but KV
-    # heads do not, KV is expanded to H heads (numerically the identity)
+    # heads do not, KV is expanded to H heads (numerically the identity;
+    # a tensor-parallel region's plan has taken the rank's share already)
     tp = _AXIS_HINTS["tp_size"] if _AXIS_HINTS["on"] else 0
     H, KV = cfg.n_heads, cfg.n_kv_heads
     ke, ve = kt, vt
-    if tp and H % tp == 0 and KV % tp != 0 and H != KV:
+    if plan is None and tp and H % tp == 0 and KV % tp != 0 and H != KV:
         ke = kt.repeat_interleave(H // KV, dim=1)
         ve = vt.repeat_interleave(H // KV, dim=1)
     causal = kind != "bidir"
@@ -253,7 +434,7 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str, pos0: int = 0):
     out = ops.flash_attention(qt, ke, ve, causal=causal, window=window,
                               softcap=cfg.attn_softcap)
     out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ p["wo"], (kt, vt)
+    return _out(p, out, cfg, t, plan), (kt, vt)
 
 
 def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
@@ -263,9 +444,10 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 def attn_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                     device="cpu") -> AttnCache:
     """Empty cache, stored in the config's ``kv_cache_dtype`` (the JAX
-    signature's unused ``dtype`` argument is dropped)."""
+    signature's unused ``dtype`` argument is dropped), of the heads the
+    rank holds (:func:`kv_heads_held`)."""
     C = _cache_len(cfg, kind, max_len)
-    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    KV, dh = kv_heads_held(cfg), cfg.head_dim
     sdtype = _cache_dtype(cfg)
     return AttnCache(
         k=torch.zeros((batch, KV, C, dh), dtype=sdtype, device=device),
@@ -303,18 +485,13 @@ def attn_cache_from_prefill(cfg: ModelConfig, kind: str, kt, vt, max_len: int
 
 def attn_decode(p, x, cfg: ModelConfig, kind: str, cache: AttnCache,
                 cache_len):
-    """One-token decode.  x: (B, D); cache_len: (B,) current lengths.
+    """One-token decode.  x: (B, D); cache_len: (B,) current lengths; in
+    a tensor-parallel region the rank's heads and cache.
     Returns (out, cache).  Unlike the JAX package's functional update, the
     new k/v are written into ``cache`` in place (the cache is the largest
     state of decoding; a copy per step would double its traffic)."""
     B, D = x.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, H, dh)
-    k = (x @ p["wk"]).reshape(B, KV, dh)
-    v = (x @ p["wv"]).reshape(B, KV, dh)
-    if cfg.qk_norm:
-        q = rmsnorm(p["qn"], q)
-        k = rmsnorm(p["kn"], k)
+    q, k, v, t, plan = _heads(p, x, cfg)
     q = rope(q, cache_len, cfg.rope_theta)
     k = rope(k, cache_len, cfg.rope_theta)
     C = cache.k.shape[2]
@@ -336,5 +513,4 @@ def attn_decode(p, x, cfg: ModelConfig, kind: str, cache: AttnCache,
         q, _dequant_kv(cache.k, cache.k_scale, cfg.cdtype),
         _dequant_kv(cache.v, cache.v_scale, cfg.cdtype), eff_len,
         window=0, softcap=cfg.attn_softcap)
-    out = out.reshape(B, H * dh)
-    return out @ p["wo"], cache
+    return _out(p, out.reshape(B, -1), cfg, t, plan), cache

@@ -24,6 +24,17 @@ every shard's tokens, and :func:`moe_apply` on a rank of a multi-rank
 step, where the rank is one shard, the counters are all-reduced over the
 data axes, and the load-balance loss is the rank's share of the global
 one (:func:`load_balance_share`).
+
+Expert parallelism: in a tensor-parallel region
+(:func:`repro_torch.models.layers.tp_region`) whose rules split the
+expert dim over ``"model"``, a rank holds experts ``[r E / tp, (r + 1) E
+/ tp)`` of ``wg``, ``wu`` and ``wd``.  The model ranks of one data shard
+hold the same tokens and route with the same key, so the routing is every
+rank's (its counters and load-balance loss too, never summed over
+``"model"``) and no token moves between ranks: the dispatch fills only the
+rank's ``(E / tp, C, D)`` buffers, from its slots on local expert ids
+(every other slot -1), the expert products run on them, and the rank's
+part of the combine (float32) is summed over ``"model"``.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from repro_torch.core import balance, prng
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import dp_index
 from repro_torch.models import layers
+from repro_torch.models import tensor_parallel as tpo
 
 
 def _experts(shape, fan_in: int, dtype, generator, device, lead=()):
@@ -78,33 +90,48 @@ def capacity_for(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, (cap + 7) // 8 * 8)
 
 
+def local_experts(expert, experts):
+    """``expert`` ids (-1 dropped) on the rank's experts ``experts = (lo,
+    n)``: ``expert - lo`` for the rank's, -1 for every other; ``expert``
+    itself when ``experts`` is None (every expert here)."""
+    if experts is None:
+        return expert
+    lo, n = experts
+    return torch.where((expert >= lo) & (expert < lo + n), expert - lo, -1)
+
+
 def route_dispatch_shard(xt, logits, cfg: ModelConfig, cap: int, groups,
-                         rng, shard: int):
+                         rng, shard: int, *, experts=None):
     """One data shard's routing and dispatch: its tokens ``xt`` (t, D) and
     router ``logits`` (t, E) routed with ``fold_in(rng, shard)`` over one
-    token group, dispatched into an ``(E, cap, D)`` buffer.  Returns
-    ``(buf, ve, pos, weight, probs, stats)``: ``ve`` the virtual expert
-    ``shard * E + expert`` (-1 where dropped), the rest as
-    :func:`repro_torch.core.balance.route` gives them."""
+    token group, dispatched into an ``(E, cap, D)`` buffer (with
+    ``experts = (lo, n)``, the ``(n, cap, D)`` buffer of experts ``[lo, lo
+    + n)`` only).  Returns ``(buf, ve, pos, weight, probs, stats)``:
+    ``ve`` the virtual expert ``shard * E + expert`` (-1 where dropped),
+    the rest as :func:`repro_torch.core.balance.route` gives them."""
     m = cfg.moe
     E = m.n_experts
     r = balance.route(logits, m.top_k, cap, groups, strategy=m.strategy,
                       p_local=m.p_local, key=prng.fold_in(rng, shard))
-    buf = ops.moe_dispatch(xt, r.expert, r.pos, n_experts=E, capacity=cap)
+    n = E if experts is None else experts[1]
+    buf = ops.moe_dispatch(xt, local_experts(r.expert, experts), r.pos,
+                           n_experts=n, capacity=cap)
     ve = torch.where(r.expert >= 0, shard * E + r.expert, -1)
     return buf, ve, r.pos, r.weight, r.probs, r.stats
 
 
 def route_dispatch_shards(xt, logits, cfg: ModelConfig, cap: int, groups,
-                          rng, G: int):
+                          rng, G: int, *, experts=None):
     """The global view: :func:`route_dispatch_shard` of each of ``G``
     contiguous token shards of ``xt`` (T, D).  Returns the ``(G, E, cap,
-    D)`` buffers, the ``(T, k)`` routing tables and ``(T, E)`` probs in
-    token order, and each counter summed over the shards."""
+    D)`` buffers (``E`` the ``experts``' count when given), the ``(T, k)``
+    routing tables and ``(T, E)`` probs in token order, and each counter
+    summed over the shards."""
     t = xt.shape[0] // G
     parts = [route_dispatch_shard(xt[s * t:(s + 1) * t],
                                   logits[s * t:(s + 1) * t], cfg, cap,
-                                  groups, rng, s) for s in range(G)]
+                                  groups, rng, s, experts=experts)
+             for s in range(G)]
     buf = torch.stack([part[0] for part in parts])
     ve, pos, weight, probs = (torch.cat([part[i] for part in parts])
                               for i in range(1, 5))
@@ -112,18 +139,24 @@ def route_dispatch_shards(xt, logits, cfg: ModelConfig, cap: int, groups,
     return buf, ve, pos, weight, probs, stats
 
 
-def combine_shards(y, ve, pos, weight, cfg: ModelConfig):
+def combine_shards(y, ve, pos, weight, cfg: ModelConfig, *, experts=None,
+                   dtype=None):
     """Each shard's expert outputs ``y[g]`` (E, C, D) back to its own
     tokens, on local expert ids (tokens never left their shard); the
-    ``(T, k)`` tables are in token order, shard after shard."""
+    ``(T, k)`` tables are in token order, shard after shard.  With
+    ``experts = (lo, n)``, ``y[g]`` holds experts ``[lo, lo + n)`` only
+    and the result is their part; ``dtype`` the result's (``y``'s by
+    default; the products are summed in float32 either way)."""
     E, G = cfg.moe.n_experts, y.shape[0]
     t = ve.shape[0] // G
     outs = []
     for g in range(G):
         ve_g = ve[g * t:(g + 1) * t]
         outs.append(ops.moe_combine(
-            y[g], torch.where(ve_g >= 0, ve_g % E, -1),
-            pos[g * t:(g + 1) * t], weight[g * t:(g + 1) * t], n_tokens=t))
+            y[g], local_experts(torch.where(ve_g >= 0, ve_g % E, -1),
+                                experts),
+            pos[g * t:(g + 1) * t], weight[g * t:(g + 1) * t], n_tokens=t,
+            dtype=dtype))
     return torch.cat(outs)
 
 
@@ -188,10 +221,20 @@ def moe_apply(p, x, cfg: ModelConfig, *, ep_groups: int, rng,
     logits = xt.float() @ p["router"]
     groups = balance.default_expert_groups(E, math.gcd(ep_groups, E),
                                            device=x.device)
+    # expert parallelism: the rank's experts, its tokens entering the
+    # region (their gradient, and the gate weights', summed over "model")
+    t = layers.tp_region()
+    experts, xd = None, xt
+    if layers._split(t, p["wg"], 0, E):
+        n_loc = E // t.size
+        experts = (t.rank * n_loc, n_loc)
+        xd = tpo.into_tp(xt, t.mesh)
+    n_e = E if experts is None else experts[1]
     if use_sm and local:
         dp = hints["dp"]
         buf, ve, pos, weight, probs, stats = route_dispatch_shard(
-            xt, logits, cfg, cap, groups, rng, dp_index(hints["mesh"]))
+            xd, logits, cfg, cap, groups, rng, dp_index(hints["mesh"]),
+            experts=experts)
         buf = buf[None]
         expert = torch.where(ve >= 0, ve % E, -1)
         # the global assignment counts and counters, in one all-reduce
@@ -205,7 +248,7 @@ def moe_apply(p, x, cfg: ModelConfig, *, ep_groups: int, rng,
         stats = dict(zip(stats, total[E:]))
     elif use_sm:
         buf, ve, pos, weight, probs, stats = route_dispatch_shards(
-            xt, logits, cfg, cap, groups, rng, G)
+            xd, logits, cfg, cap, groups, rng, G, experts=experts)
         lb = balance.load_balance_loss(
             probs, torch.where(ve >= 0, ve % E, -1), m.top_k)
     else:
@@ -214,23 +257,38 @@ def moe_apply(p, x, cfg: ModelConfig, *, ep_groups: int, rng,
         r = balance.route(logits, m.top_k, cap, groups, strategy=m.strategy,
                           p_local=m.p_local, key=rng,
                           token_group=token_group, n_token_groups=G)
-        # dispatch into flat (G * E, C, D) virtual-expert buffers
+        # dispatch into flat (G * E, C, D) virtual-expert buffers (the
+        # rank's (G * E / tp, C, D) under expert parallelism)
         ve = torch.where(r.expert >= 0, token_group[:, None] * E + r.expert,
                          -1)
-        buf = ops.moe_dispatch(xt, ve, r.pos, n_experts=G * E, capacity=cap)
-        buf = buf.reshape(G, E, cap, D)
+        ve_d = ve
+        if experts is not None:
+            e_loc = local_experts(r.expert, experts)
+            ve_d = torch.where(e_loc >= 0,
+                               token_group[:, None] * n_e + e_loc, -1)
+        buf = ops.moe_dispatch(xd, ve_d, r.pos, n_experts=G * n_e,
+                               capacity=cap)
+        buf = buf.reshape(G, n_e, cap, D)
         pos, weight, stats = r.pos, r.weight, r.stats
         lb = balance.load_balance_loss(r.probs, r.expert, m.top_k)
     act = F.silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
     h = act * torch.einsum("gecd,edf->gecf", buf, p["wu"])
     y = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    part = None              # the combine's dtype: float32 parts under EP
+    if experts is not None:
+        weight, part = tpo.into_tp(weight, t.mesh), torch.float32
     if use_sm:
-        out = combine_shards(y, ve, pos, weight, cfg).reshape(B, S, D)
+        out = combine_shards(y, ve, pos, weight, cfg, experts=experts,
+                             dtype=part)
     else:
-        out = ops.moe_combine(y.reshape(G * E, cap, D), ve, pos, weight,
-                              n_tokens=T).reshape(B, S, D)
+        out = ops.moe_combine(y.reshape(G * n_e, cap, D), ve_d, pos,
+                              weight, n_tokens=T, dtype=part)
+    if experts is not None:
+        out = tpo.out_of_tp(out, t.mesh).to(y.dtype)
+    out = out.reshape(B, S, D)
     if m.n_shared:
-        out = out + layers.mlp_apply(p["shared"], x, cfg)
+        out = out + layers.mlp_apply(p["shared"], x, cfg,
+                                     d_ff=m.d_expert_ff * m.n_shared)
     aux = {"lb_loss": lb}
     aux.update({k: v.float() for k, v in stats.items()})
     return out, aux

@@ -70,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.models import layers, moe, rwkv, ssm
+from repro_torch.models import tensor_parallel as tpo
 
 AUX_KEYS = ("lb_loss", "ntasks_static", "ntasks_stolen_local",
             "ntasks_stolen_remote", "ntasks_dropped", "max_load")
@@ -354,8 +355,33 @@ def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups,
     return x + m, src, aux
 
 
+def vocab_piece(cfg: ModelConfig):
+    """``(region, lo, n)`` when a tensor-parallel region splits the vocab
+    over ``"model"`` (the rank's rows ``[lo, lo + n)`` of ``embed``, its
+    columns of ``lm_head`` and of the logits), else None: the rules split
+    it where tp divides it."""
+    t = layers.tp_region()
+    if t is None or cfg.vocab % t.size:
+        return None
+    n = cfg.vocab // t.size
+    return t, t.rank * n, n
+
+
 def _embed_tokens(params, cfg: ModelConfig, tok):
-    x = params["embed"][tok.long()].to(cfg.cdtype)
+    vp = vocab_piece(cfg)
+    if vp is None:
+        x = params["embed"][tok.long()].to(cfg.cdtype)
+    else:
+        # vocab-parallel: the rank's rows, zeros for the ids it does not
+        # hold, summed over "model"
+        t, lo, n = vp
+        layers._split(t, params["embed"], 0, cfg.vocab)
+        ids = tok.long() - lo
+        mine = (ids >= 0) & (ids < n)
+        rows = params["embed"][ids.clamp(0, n - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device))
+        x = tpo.out_of_tp(rows, t.mesh).to(cfg.cdtype)
     if cfg.tie_embeddings:
         # the scale is rounded to the compute dtype first, as in JAX
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype,
@@ -384,8 +410,15 @@ def prompt_len(cfg: ModelConfig, batch) -> int:
 
 
 def _logits(params, cfg: ModelConfig, x):
-    """Logits in the compute dtype, with the final softcap."""
+    """Logits in the compute dtype, with the final softcap; the rank's
+    vocab columns when a tensor-parallel region splits the vocab
+    (:func:`vocab_piece`)."""
     x = layers.rmsnorm(params["final_norm"], x)
+    vp = vocab_piece(cfg)
+    if vp is not None:
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        layers._split(vp[0], head, 0 if cfg.tie_embeddings else 1, cfg.vocab)
+        x = tpo.into_tp(x, vp[0].mesh)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
@@ -489,6 +522,63 @@ class _ce_mean(torch.autograd.Function):
         return dflat, None
 
 
+class _ce_mean_tp(torch.autograd.Function):
+    """:class:`_ce_mean` over vocab-split logits: flat (N, V / tp) is the
+    rank's columns ``[lo, lo + V / tp)``.  The row maxima's maximum over
+    ``"model"`` (no gradient), then one sum over ``"model"`` of the
+    float32 sums of exponentials and of the target's logit (from the rank
+    that holds it, zero elsewhere); the backward is the rank's columns of
+    the softmax less the one-hot, with no collective."""
+
+    @staticmethod
+    def forward(ctx, flat, idx, mesh, lo):
+        with torch.profiler.record_function("cross_entropy"):
+            N, n = flat.shape
+            rows = torch.arange(N, device=flat.device)
+            ids = idx.long() - lo
+            mine = (ids >= 0) & (ids < n)
+            ids = ids.clamp(0, n - 1)
+            m = tpo.max_over_model(torch.amax(flat, dim=-1), mesh)
+            s = (flat - m[:, None]).float().exp_().sum(dim=-1)
+            tgt = torch.where(mine, flat[rows, ids].float(), 0.0)
+            s, tgt = tpo.out_of_tp(torch.stack([s, tgt]), mesh)
+            lse = m.float() + torch.log(s)
+        ctx.save_for_backward(flat, ids, mine, lse)
+        return (lse - tgt).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, ids, mine, lse = ctx.saved_tensors
+        with torch.profiler.record_function("cross_entropy_backward"):
+            N = flat.shape[0]
+            rows = torch.arange(N, device=flat.device)
+            p = flat.to(torch.float32, copy=True).sub_(lse[:, None]).exp_()
+            dflat = p.to(flat.dtype)
+            del p
+            dflat[rows, ids] -= mine.to(flat.dtype)
+            dflat *= (g / N).to(flat.dtype)
+        return dflat, None, None, None
+
+
+def greedy_ids(logits, cfg: ModelConfig):
+    """The greedy next token of each row of ``logits`` (int32): the lowest
+    index among equal maxima, as ``jnp.argmax`` takes it, also over
+    vocab-split logits (each rank's first maximum, the maxima and their
+    global ids gathered over ``"model"``, the first rank's of the largest
+    kept)."""
+    vp = vocab_piece(cfg)
+    if vp is None:
+        return torch.argmax(logits, -1).to(torch.int32)
+    t, lo, _ = vp
+    idx = torch.argmax(logits, -1, keepdim=True)
+    val = torch.gather(logits, -1, idx).float()
+    vals = tpo.gather_over_model(val, t.mesh)               # (..., tp)
+    ids = tpo.gather_over_model(idx + lo, t.mesh)
+    first = torch.argmax((vals == vals.amax(-1, keepdim=True)).to(
+        torch.int32), -1, keepdim=True)
+    return torch.gather(ids, -1, first)[..., 0].to(torch.int32)
+
+
 def loss_fn(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
             dp_groups=1):
     """``(total, metrics)``: total is the mean cross-entropy plus 0.01 times
@@ -499,8 +589,13 @@ def loss_fn(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
     logits, aux = forward(params, cfg, batch, rng, ep_groups=ep_groups,
                           dp_groups=dp_groups)
 
+    vp = vocab_piece(cfg)
+
     def _ce(lg, tg):
         V = lg.shape[-1]
+        if vp is not None:
+            return _ce_mean_tp.apply(lg.reshape(-1, V), tg.reshape(-1),
+                                     vp[0].mesh, vp[1])
         return _ce_mean.apply(lg.reshape(-1, V), tg.reshape(-1))
 
     if cfg.encoder_only:

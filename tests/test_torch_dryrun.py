@@ -241,6 +241,19 @@ def test_a_matmul_counts_2_m_n_k(op):
     assert c.flops == 2 * M * N * K * (1 if op in ("mm", "addmm") else G)
 
 
+def test_a_copy_between_devices_counts_no_bytes():
+    """A host value copied to another device (here the meta device, as a
+    learning rate goes to the card) crosses the host link: the call is
+    tallied, its bytes are not, so a step counts the same bytes on the
+    card as on the CPU, where it makes no such copy; a copy on one device
+    counts its input and output."""
+    x = torch.ones(6, 8)
+    _, c = ha.analyze(lambda: x.to("meta"))
+    assert c.hbm_bytes == 0 and c.by_op["aten._to_copy"]["calls"] == 1
+    _, c = ha.analyze(lambda: x.to(torch.float64))
+    assert c.hbm_bytes == 6 * 8 * (4 + 8)
+
+
 def test_views_count_no_bytes_and_ops_count_inputs_and_outputs():
     x = torch.randn(6, 8)
 

@@ -167,7 +167,7 @@ from repro_torch.configs import base as cb
 from repro_torch.data.pipeline import batch_for
 from repro_torch.launch import serve, sharding as shd, steps, train
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models import transformer as tfm
+from repro_torch.models import layers, transformer as tfm
 from repro_torch.optim import adamw_init
 
 rank, tmp = int(sys.argv[1]), sys.argv[2]
@@ -259,20 +259,28 @@ try:
         out[f"serve/{arch}/ids"] = g.ids.numpy()
         out[f"serve/{arch}/logits"] = g.prefill_logits.numpy()
     # a divisible batch: the serve steps bitwise those of the step before
-    # F5's repair (a copy of it), from one prefill state each
+    # F5's repair (a copy of it), from one prefill state each.  Both
+    # configs compute over "model": the copy takes each leaf's local
+    # piece (none is split over the data axes) and the greedy token from
+    # every rank's vocabulary columns, gathered here
     def unrepaired_serve_step(cfg, mesh, batch, max_len):
         dp, tp = steps.dp_size(mesh), steps.tp_size(mesh)
         device = steps._device(mesh)
         steps._check_rows(batch, mesh, "a batch")
+        group = mesh.get_group("model")
 
         def serve_step(params, state, tokens):
-            with torch.no_grad(), steps._hints(mesh):
+            with torch.no_grad(), layers.axis_hints(
+                    dp_axes=steps.dp_axes(mesh), dp_size=dp, tp_size=tp,
+                    mesh=mesh, tp_mesh=mesh):
                 logits, state = tfm.decode_step(
-                    tfm.tree_map(steps._full, params), cfg, state,
-                    steps._rows(tokens, mesh, device), ep_groups=tp,
-                    dp_groups=dp)
-                return steps.rows_on_mesh(torch.argmax(logits, -1).to(
-                    torch.int32), mesh), state
+                    tfm.tree_map(lambda x: x.to_local(), params), cfg,
+                    state, steps._rows(tokens, mesh, device),
+                    ep_groups=tp, dp_groups=dp)
+                parts = [torch.empty_like(logits) for _ in range(tp)]
+                dist.all_gather(parts, logits.contiguous(), group=group)
+                ids = torch.argmax(torch.cat(parts, -1), -1)
+                return steps.rows_on_mesh(ids.to(torch.int32), mesh), state
 
         return serve_step
 
@@ -302,7 +310,8 @@ try:
                 same(x, y) for x, y in zip(a_toks + a_state,
                                            b_toks + b_state)))
     # F5: batches the data axes do not divide; every rank decodes all
-    # lanes of a one-device prefill's state, the weights as DTensors
+    # lanes of a one-device prefill's state (placed on the rank's heads),
+    # the weights as DTensors
     for arch in F5["archs"]:
         c = cb.smoke_config(arch)
         params = weights(arch)
@@ -321,6 +330,7 @@ try:
                     tok = torch.argmax(lg, -1).to(torch.int32)
                     one.append(tok)
                 _, state = tfm.prefill(params, c, batch, max_len)
+            state = steps.shard_decode_state(c, mesh, state)
             step = steps.make_serve_step(c, mesh, B, max_len)
             tok, ids, replicated = first, [first], True
             for _ in range(F5["gen"] - 1):

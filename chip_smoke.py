@@ -96,17 +96,19 @@ In order, it
    more shapes, and its time beside the twin's, one ``index_put_`` call's
    (the kept slots' rows into a zeroed buffer) and its bound (the rows of
    x that a kept slot reads, the tables, the buffer);
-9. after phase 17, prints the ``kernels`` JSON line (``sched_step``'s
+9. after phase 18, prints the ``kernels`` JSON line (``sched_step``'s
    launches are the sweep's and the tuner's, ``flash_attention``'s those
    of phases 6, 8, 11, 12's two training runs, 13's hymba and moonshot,
-   14's gradient, 15's and 16's mesh runs and 17's tensor-parallel rank
-   0, ``rwkv6_scan``'s phase 7's, 13's and 16's rwkv6, ``moe_dispatch``'s
+   14's gradient, 15's and 16's mesh runs, 17's tensor-parallel rank 0
+   and 18's FSDP rank 0s, ``rwkv6_scan``'s phase 7's, 13's and 16's
+   rwkv6, ``moe_dispatch``'s
    phase 8's, 13's moonshot, 15's mesh run and 17's rank 0), the
    end-to-end rates, the ``serve_hybrid`` line of
    phase 11, the tuner's summary, the ``train`` line of phase 12, the
    ``train_families`` line of phase 13, the ``distributed`` line of phase
    14, the ``sharded`` line of phase 15, the ``dryrun`` line of phase 16,
-   the ``tp`` line of phase 17, the card line and last the device line;
+   the ``tp`` line of phase 17, the ``fsdp`` line of phase 18, the card
+   line and last the device line;
 10. runs the eleventh slice's path, Table I by search, between phase 8
    and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
    ``cuda_fused``, launch counts zeroed before each part.  (a) Each of the
@@ -271,17 +273,41 @@ In order, it
    timed; (c) the dispatch into moonshot's tp = 16 rank's 4 experts (T =
    4096, D = 2048, k = 6) bitwise its twin, timed beside its bound and
    ``index_put_``; then, with nothing timed, (d) ``train_4k`` of
-   gemma2_2b, yi_9b, mistral_nemo_12b and moonshot on both production
-   meshes dry-run on the card's fake tensors (one subprocess each, all
-   started at once), gemma2_2b's (16, 16) cell also on the CPU's, those
-   records equal, while (e) a tensor-parallel world of two gloo processes
+   gemma2_2b and moonshot (yi_9b's and mistral_nemo_12b's cells since
+   phase 18 left out) on both production meshes dry-run on the card's
+   fake tensors (one subprocess each, all started at once, with phase
+   18 (a)'s, below the worlds in the host's scheduler), gemma2_2b's
+   (16, 16) cell also on the CPU's, those records equal, while (e) a tensor-parallel world of two gloo processes
    on the card (a (1, 2) mesh; NCCL takes one rank a device) runs
    gemma2_2b and moonshot at full width, 2 layers, float32: each rank's
    pieces through ``loss_fn``'s value and gradient, ``make_prefill_step``
    and ``make_serve_step`` against the whole weights in the same process
    (loss, gradients and logits within ``TP_TOL``, ids equal, every rank's
    routing alike and within ``TP_ROUTE_FLIPS`` of the whole run's, the
-   same launches).
+   same launches), then phase 18 (b) and (c);
+18. runs the nineteenth slice's path, FSDP's per-layer gathers over
+   ``"data"``, after phase 17: (a) ``train_4k`` of llama4_maverick and
+   nemotron on both production meshes dry-run on the card's fake
+   tensors (started beside phase 17 (d)'s), nemotron's (2, 16, 16) cell
+   (fault F6's: microbatches the data shards do not divide) also on the
+   CPU's, those records equal; llama4's cells and nemotron's (16, 16)
+   fit, and each cell's ``coll_by_op`` holds FSDP's all-gathers and its
+   gradients' reduce-scatters; with nothing timed, beside the dry-runs of
+   (a) and phase 17 (d) after phase 17 (e), (b) a (2, 2)
+   ``("data", "model")`` world of four gloo processes on the card runs
+   gemma2_2b with ``fsdp`` at full width, 2 layers, float32, as
+   DTensors made from each rank's own blocks (FSDP and tensor
+   parallelism in one leaf): 2 train steps with 1 and with 2
+   microbatches of 4 x 256 tokens, a prefill and 4 greedy decode steps
+   through the
+   mesh-bound steps, against the one-device steps on the whole weights
+   (losses, ``grad_norm``, the last step's AdamW moments and logits
+   within ``TP_TOL``,
+   ids equal, flash launched alike on every rank); (c) nemotron_4_340b
+   at full width, 1 layer, bf16: a 2 x 512 prefill on the whole weights
+   in this process, then on a data = 2 world of two processes (logits
+   within 2e-2 of the largest, each process's peak memory below the
+   whole run's).
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -3649,10 +3675,10 @@ TP_MOE = dict(T=4096, D=2048, k=6, E=64, tp=16, rank=5)
 #: (d): the train cells dry-run on the card's fake tensors, beside the GiB
 #: a rank on (16, 16) / (2, 16, 16) of the step that gathered every weight
 #: whole (PERF.md section 5); TP_DRYRUN_CPU's cell also on the CPU's, the
-#: two records equal, as phase 16 (a) holds its own cell
+#: two records equal, as phase 16 (a) holds its own cell.  yi_9b's and
+#: mistral_nemo_12b's cells (PR 30's records in PERF.md section 5) are
+#: left out since phase 18, to keep the script inside its time
 TP_DRYRUN_ARCHS = {"moonshot_v1_16b_a3b": (281.9, 281.9),
-                   "yi_9b": (80.4, 83.4),
-                   "mistral_nemo_12b": (106.6, 121.3),
                    "gemma2_2b": (111.3, 63.1)}
 TP_DRYRUN_CPU = (("gemma2_2b", "pod1"),)
 #: (e): a tensor-parallel world of TP_WORLD processes on the one card
@@ -3913,38 +3939,9 @@ def tp_world(torch, reg):
     layers (:func:`tp_world_check`).  Returns (the launches of rank 0's
     tensor-parallel runs by kernel, report)."""
     import shutil
-    import tempfile
 
-    tmp = tempfile.mkdtemp(prefix="repro_tp_world_")
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
-         str(r), str(TP_WORLD), f"{tmp}/store", f"{tmp}/rank{r}.json"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=ROOT) for r in range(TP_WORLD)]
-    try:
-        logs = []
-        for r, proc in enumerate(procs):
-            try:
-                log, _ = proc.communicate(timeout=max(
-                    1.0, TP_WORLD_TIMEOUT_S - (time.perf_counter() - t0)))
-            except subprocess.TimeoutExpired:
-                raise SmokeFailure(f"tp (e): rank {r} passed "
-                                   f"{TP_WORLD_TIMEOUT_S} s")
-            logs.append(log)
-        for r, proc in enumerate(procs):
-            check(proc.returncode == 0, f"tp (e): rank {r} failed (rc "
-                  f"{proc.returncode}): {logs[r][-4000:]}")
-        ranks = []
-        for r in range(TP_WORLD):
-            with open(f"{tmp}/rank{r}.json") as f:
-                ranks.append(json.load(f))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+    ranks, tmp = spawn_world("--tp-rank", TP_WORLD, "tp (e)")
+    shutil.rmtree(tmp, ignore_errors=True)
     return tp_world_check(ranks, reg)
 
 
@@ -4002,23 +3999,23 @@ def tp_world_check(ranks: list, reg):
                           route_flips=TP_ROUTE_FLIPS)
 
 
-class TPDryruns:
-    """Phase 17 (d): ``train_4k`` of each ``TP_DRYRUN_ARCHS`` config on
-    both meshes on the card's fake tensors, and ``TP_DRYRUN_CPU``'s cells
-    again on the CPU's, one subprocess each (one thread), all started
-    together, the longest first; :meth:`wait` reads the records (each
-    process must exit 0), :meth:`stop` kills any still running and removes
-    the records."""
+class Dryruns:
+    """``train_4k`` of each ``archs`` config on both meshes on the card's
+    fake tensors, and the ``cpu`` cells (``(arch, mesh)``) again on the
+    CPU's, one subprocess each (one thread), all started together, the
+    longest first (phase 17 (d), phase 18 (a)); :meth:`wait` reads the
+    records (each process must exit 0), :meth:`stop` kills any still
+    running and removes the records."""
 
-    def __init__(self):
+    def __init__(self, archs, cpu):
         import os
         import tempfile
 
-        self.dir = Path(tempfile.mkdtemp(prefix="repro_tp_dryrun_"))
+        self.dir = Path(tempfile.mkdtemp(prefix="repro_dryrun_"))
         env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-        cells = [(arch, mp, "cuda") for arch in TP_DRYRUN_ARCHS
+        cells = [(arch, mp, "cuda") for arch in archs
                  for mp in ("pod1", "pod2")]
-        cells += [(arch, mp, "cpu") for arch, mp in TP_DRYRUN_CPU]
+        cells += [(arch, mp, "cpu") for arch, mp in cpu]
         self.procs = {}
         for arch, mp, device in cells:
             argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
@@ -4026,9 +4023,11 @@ class TPDryruns:
                     "--out", str(self.dir / device)]
             argv += (["--multi-pod"] if mp == "pod2" else []) + (
                 ["--device", "cpu"] if device == "cpu" else [])
+            # below the card's worlds in the host's scheduler
             self.procs[(arch, mp, device)] = subprocess.Popen(
                 argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True, cwd=ROOT, env=env)
+                text=True, cwd=ROOT, env=env,
+                preexec_fn=lambda: os.nice(10))
 
     def wait(self, timeout_s: float) -> dict:
         """``{(arch, mesh, device): record}`` once every process exits."""
@@ -4059,17 +4058,59 @@ class TPDryruns:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-def tp_phase(torch, dev, reg, sharded):
+def dryrun_records(records, archs, label, before) -> dict:
+    """The ``train_4k`` records of :class:`Dryruns` by ``arch/mesh``, each
+    without an error and, where the CPU traced it too, equal to the CPU's
+    in every count; printed beside the GiB a rank ``archs`` gives for the
+    step before (``before`` says what it did; None: it refused the
+    cell)."""
+    out = {}
+    for arch, was_both in archs.items():
+        for mp, was in zip(("pod1", "pod2"), was_both):
+            a = records[(arch, mp, "cuda")]
+            c = records.get((arch, mp, "cpu"))
+            diff = [k for k in DRYRUN_COUNTS
+                    if c is not None and a.get(k) != c.get(k)]
+            check("error" not in a and not diff,
+                  f"{arch} train_4k {mp}: the card's and the CPU's "
+                  f"records differ in {diff} ({a.get('error')})")
+            gib = a["memory_per_device_bytes"] / 2**30
+            out[f"{arch}/{mp}"] = dict(
+                gib=gib, before_gib=was, fits_hbm=a["fits_hbm"],
+                mesh=a["mesh"], trace_s=a["trace_s"],
+                cpu_trace_s=c and c["trace_s"],
+                microbatches=a["microbatches"], probes=a.get("probes"),
+                hlo_flops_per_dev=a["hlo_flops_per_dev"],
+                hlo_hbm_bytes_per_dev=a["hlo_hbm_bytes_per_dev"],
+                state_bytes_per_dev=a["state_bytes_per_dev"],
+                coll_by_op=a["coll_by_op"],
+                useful_flops_ratio=a["useful_flops_ratio"],
+                compute_s=a["compute_s"], memory_s=a["memory_s"],
+                collective_s=a["collective_s"], dominant=a["dominant"])
+            held = (f"the card's and the CPU's records equal (traced in "
+                    f"{a['trace_s']} / {c['trace_s']} s)" if c else
+                    f"traced in {a['trace_s']} s")
+            print(f"{label}: {arch} train_4k on {a['mesh']}: {gib:.2f} GiB "
+                  f"a rank ({before}: "
+                  f"{'refused' if was is None else f'{was} GiB'}), "
+                  f"fits_hbm {a['fits_hbm']}; useful FLOPs "
+                  f"{a['useful_flops_ratio']:.4f}; {held}", flush=True)
+    return out
+
+
+def tp_phase(torch, dev, reg, sharded, later: dict, beside=None):
     """Phase 17: (a) phase 15 (a)'s one-rank mesh steps (gemma2_2b,
     moonshot at 4 layers) already ran this slice's code at tp = 1, where
     the region is the identity, bitwise the one-device step (``sharded``,
     phase 15's report; not run again); (b) flash at a tp = 16 rank's shape
     of yi_9b against its twin; (c) the dispatch into a tp = 16 rank's 4
     experts of moonshot, bitwise its twin; then, with nothing timed, (d)
-    the train cells' dry-run traces start (:class:`TPDryruns`), (e) a tp =
-    2 world of processes runs the model's tensor-parallel path on the card
-    beside them (:func:`tp_world`), and (d)'s records are read: the card's
-    fake tensors, one cell also on the CPU's, those records equal.
+    the train cells' dry-run traces start (:class:`Dryruns`; phase 18
+    (a)'s with them, in ``later["dryruns"]``), (e) a tp = 2 world of
+    processes runs the model's tensor-parallel path on the card beside
+    them (:func:`tp_world`), then ``beside()`` (phase 18 (b) and (c); its
+    result in ``later["beside"]``), and (d)'s records are read: the
+    card's fake tensors, one cell also on the CPU's, those records equal.
     Returns ((e)'s rank 0 launches by kernel, report)."""
     from repro_torch.configs import base as cb
     from repro_torch.core import balance
@@ -4155,48 +4196,669 @@ def tp_phase(torch, dev, reg, sharded):
     del x, ve, pos, e_loc, got, want, lib
     torch.cuda.empty_cache()
 
-    # (d) the train cells' dry-run traces start; (e) the tensor-parallel
-    # world runs beside them (nothing in either is timed)
+    # (d) the train cells' dry-run traces start, and phase 18 (a)'s (read
+    # there); (e) the tensor-parallel world, then ``beside`` (phase 18 (b)
+    # and (c)), run beside them (nothing in any is timed)
     t_d = time.perf_counter()
-    dryruns = TPDryruns()
+    dryruns = Dryruns(TP_DRYRUN_ARCHS, TP_DRYRUN_CPU)
+    later["dryruns"] = Dryruns(FSDP_DRYRUN_ARCHS, FSDP_DRYRUN_CPU)
     try:
         launches, out["world"] = tp_world(torch, reg)
+        out["world_s"] = time.perf_counter() - t_d
+        if beside is not None:
+            later["beside"] = beside()
         records = dryruns.wait(420)
     finally:
         dryruns.stop()
     out["dryrun_s"] = time.perf_counter() - t_d
-    out["dryrun"] = {}
-    for arch, before in TP_DRYRUN_ARCHS.items():
-        for mp, was in zip(("pod1", "pod2"), before):
-            a = records[(arch, mp, "cuda")]
-            c = records.get((arch, mp, "cpu"))
-            diff = [k for k in DRYRUN_COUNTS
-                    if c is not None and a.get(k) != c.get(k)]
-            check("error" not in a and not diff,
-                  f"{arch} train_4k {mp}: the card's and the CPU's "
-                  f"records differ in {diff} ({a.get('error')})")
-            gib = a["memory_per_device_bytes"] / 2**30
-            out["dryrun"][f"{arch}/{mp}"] = dict(
-                gib=gib, gathered_gib=was, fits_hbm=a["fits_hbm"],
-                mesh=a["mesh"], trace_s=a["trace_s"],
-                cpu_trace_s=c and c["trace_s"],
-                hlo_flops_per_dev=a["hlo_flops_per_dev"],
-                hlo_hbm_bytes_per_dev=a["hlo_hbm_bytes_per_dev"],
-                coll_by_op=a["coll_by_op"],
-                useful_flops_ratio=a["useful_flops_ratio"],
-                compute_s=a["compute_s"], memory_s=a["memory_s"],
-                collective_s=a["collective_s"], dominant=a["dominant"])
-            held = (f"the card's and the CPU's records equal (traced in "
-                    f"{a['trace_s']} / {c['trace_s']} s)" if c else
-                    f"traced in {a['trace_s']} s")
-            print(f"tp (d): {arch} train_4k on {a['mesh']}: {gib:.2f} GiB "
-                  f"a rank (every weight gathered: {was} GiB), fits_hbm "
-                  f"{a['fits_hbm']}; useful FLOPs "
-                  f"{a['useful_flops_ratio']:.4f}; {held}", flush=True)
-    print(f"tp (d), (e): {len(records)} dry-runs and the tp = 2 world in "
+    out["dryrun"] = dryrun_records(records, TP_DRYRUN_ARCHS, "tp (d)",
+                                   "every weight gathered")
+    print(f"tp (d), (e): {len(records)} dry-runs and the tp = 2 world "
+          f"({out['world_s']:.1f} s; then phase 18 (b), (c)) in "
           f"{out['dryrun_s']:.1f} s", flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"tp phase took {out['phase_s']:.1f} s", flush=True)
+    return launches, out
+
+
+#: phase 18: FSDP's per-layer gathers over "data".  (a) ``train_4k`` of
+#: the two FSDP configs dry-run on both meshes on the card's fake tensors,
+#: beside the GiB a rank of the step that gathered every FSDP leaf whole
+#: over "data" (PERF.md section 5, PR 30; None: it refused the cell, fault
+#: F6); FSDP_DRYRUN_CPU's cell (F6's) also on the CPU's, the records equal
+FSDP_DRYRUN_ARCHS = {"llama4_maverick_400b_a17b": (255.3, 255.3),
+                     "nemotron_4_340b": (186.6, None)}
+FSDP_DRYRUN_CPU = (("nemotron_4_340b", "pod2"),)
+#: (b) a (data, model) world of FSDP_WORLD processes on the one card:
+#: FSDP_ARCH with ``fsdp`` at full width, FSDP_LAYERS layers, float32;
+#: FSDP_STEPS train steps (of FSDP_TOTAL: the first at the warmup's
+#: learning rate 0) with 1 and 2 microbatches of FSDP_B x FSDP_S tokens,
+#: then a prefill and FSDP_GEN - 1 greedy decode steps, against the whole
+#: weights in one process within TP_TOL
+FSDP_WORLD = (2, 2)
+FSDP_ARCH, FSDP_LAYERS = "gemma2_2b", 2
+FSDP_B, FSDP_S, FSDP_STEPS, FSDP_TOTAL, FSDP_GEN = 4, 256, 2, 20, 5
+#: (c) nemotron_4_340b at full width, 1 layer, bf16: a prefill of B x S
+#: tokens on a data = ``world`` world of processes against one process's
+#: prefill of the same weights, logits within ``tol`` of the largest
+FSDP_BIG = dict(arch="nemotron_4_340b", layers=1, B=2, S=512, world=2,
+                tol=2e-2)
+
+
+def fsdp_world_cfg():
+    from repro_torch.configs import base as cb
+
+    return dataclasses.replace(cb.get(FSDP_ARCH), n_layers=FSDP_LAYERS,
+                               param_dtype="float32",
+                               compute_dtype="float32", fsdp=True)
+
+
+def fsdp_big_cfg():
+    from repro_torch.configs import base as cb
+
+    return dataclasses.replace(cb.get(FSDP_BIG["arch"]),
+                               n_layers=FSDP_BIG["layers"])
+
+
+def mesh_piece(t, placements, mesh):
+    """This rank's block of ``t`` (whole on every rank) under
+    ``placements`` on ``mesh``, as a DTensor ``Shard`` takes it (several
+    shards of one dim nested in mesh order)."""
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            t = t.chunk(mesh.shape[i], pl.dim)[coord[i]]
+    return t
+
+
+def leaf_placements(tree, cfg, mesh) -> dict:
+    """``{path: placements}`` of ``tree``'s leaves under the rules
+    (``sharding.param_shardings``) on ``mesh``."""
+    from repro_torch.launch import sharding as shd
+
+    specs = shd.param_shardings(tree, cfg, mesh)
+    out = {}
+    for path, _ in shd._flatten_paths(tree):
+        node = specs
+        for k in path:
+            node = node[int(k)] if isinstance(node, (tuple, list)) \
+                else node[k]
+        out[path] = shd.placements(node, mesh)
+    return out
+
+
+def local_dtensors(tree, cfg, mesh, piece=None):
+    """``tree``'s leaves as DTensors of ``mesh`` under the rules'
+    placements, each made from this rank's own block
+    (``DTensor.from_local``: no collective), in a tree of dicts;
+    ``piece(path, leaf, placements)`` makes the block (default: the
+    block of the whole leaf)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import sharding as shd
+
+    leaves = dict(shd._flatten_paths(tree))
+    mapping = {}
+    for path, pl in leaf_placements(tree, cfg, mesh).items():
+        # a copy: the steps update their DTensors' blocks in place
+        block = piece(path, pl) if piece else mesh_piece(
+            leaves[path].detach(), pl, mesh).clone(
+                memory_format=torch.contiguous_format)
+        mapping[path] = DTensor.from_local(block, mesh, pl,
+                                           run_check=False)
+    return shd._rebuild(tree, mapping)
+
+
+def _rel(got, want) -> float:
+    """The largest difference relative to the largest of ``want`` (on
+    ``got``'s device)."""
+    got, want = got.float(), want.to(got.device).float()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def fsdp_world_rank(torch, rank: int, world: int, store: str, path: str,
+                    device: str = "cuda") -> int:
+    """One rank of phase 18 (b) (``chip_smoke.py --fsdp-rank``): a gloo
+    world of ``world`` processes on the one card as the ``FSDP_WORLD``
+    ``("data", "model")`` mesh.  The whole weights (seed 0, every rank
+    makes them) first go through the one-device step, prefill and decode,
+    two ranks at a time (two processes' memory at once); the rank keeps
+    its blocks of the results.  Then its pieces, DTensors made from
+    its own blocks, go through the mesh-bound train, prefill and serve
+    steps (FSDP's leaves gathered over ``"data"`` a layer at a time, the
+    rank's heads and vocabulary over ``"model"``; the moments in the
+    parameters' layout, so nothing leaves a rank but the model's
+    collectives), the launch counts zeroed just before and read just
+    after.  Writes each step's loss and ``grad_norm`` beside the whole
+    run's, the moments' and the prefill logits' largest errors (relative
+    to each leaf's largest), whether the ids are equal, the launches and
+    the split leaves to ``path`` (``device`` "cpu" rehearses it on the
+    CPU, the twin standing in for flash)."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import registry
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWState, adamw_init
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        fa.build()
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        mesh = mesh_mod.make_test_mesh(*FSDP_WORLD, device=dev.type)
+        cfg = fsdp_world_cfg()
+        params = tfm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                    batch_for(cfg, i, FSDP_B, FSDP_S).items()}
+                   for i in range(FSDP_STEPS)]
+        max_len = FSDP_S + FSDP_GEN
+        dp = mesh_mod.dp_size(mesh)
+        rows = slice(mesh_mod.dp_index(mesh) * FSDP_B // dp,
+                     (mesh_mod.dp_index(mesh) + 1) * FSDP_B // dp)
+        pl = list(leaf_placements(params, cfg, mesh).values())
+
+        def blocks(tree):
+            return [mesh_piece(t, p, mesh).clone()
+                    for t, p in zip(tfm.tree_leaves(tree), pl)]
+
+        # the whole weights in one process, two ranks at a time
+        whole = {}
+        for r in range(0, world, 2):
+            if r <= rank < r + 2:
+                for mb in (1, 2):
+                    p = tfm.tree_map(torch.clone, params)
+                    o = adamw_init(p)
+                    step = steps.make_train_step(
+                        cfg, dev, microbatches=mb, total_steps=FSDP_TOTAL)
+                    for i, b in enumerate(batches):
+                        p, o, m = step(p, o, b, i)
+                        whole[(mb, i)] = dict(
+                            loss=float(m["loss"]),
+                            grad_norm=float(m["grad_norm"]))
+                    # the moments after the last step (each step's
+                    # gradient is in them)
+                    whole[mb] = dict(m=blocks(o.m), v=blocks(o.v))
+                    del p, o, step
+                with torch.no_grad():
+                    logits, state = tfm.prefill(params, cfg, batches[0],
+                                                max_len)
+                    tok = torch.argmax(logits, -1).to(torch.int32)
+                    ids = [tok]
+                    for _ in range(FSDP_GEN - 1):
+                        lg, state = tfm.decode_step(params, cfg, state, tok)
+                        tok = torch.argmax(lg, -1).to(torch.int32)
+                        ids.append(tok)
+                whole["logits"] = logits[rows].clone()
+                whole["ids"] = torch.stack(ids, 1)[rows]
+                del logits, state, lg, ids
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        out["whole_s"] = time.perf_counter() - t0
+        # this rank's pieces through the mesh-bound steps
+        registry.reset_launches()
+        errs = dict(loss=0.0, grad_norm=0.0, m=0.0, v=0.0)
+        for mb in (1, 2):
+            p = local_dtensors(params, cfg, mesh)
+            zeros = tfm.tree_map(lambda d: DTensor.from_local(
+                torch.zeros_like(d.to_local()), mesh, d.placements,
+                run_check=False), p)
+            o = AdamWState(DTensor.from_local(
+                torch.zeros((), dtype=torch.int32, device=dev), mesh,
+                [Replicate()] * mesh.ndim, run_check=False), zeros,
+                tfm.tree_map(lambda d: DTensor.from_local(
+                    torch.zeros_like(d.to_local()), mesh, d.placements,
+                    run_check=False), p))
+            step = steps.make_train_step(cfg, mesh, microbatches=mb,
+                                         total_steps=FSDP_TOTAL)
+            for i, b in enumerate(batches):
+                p, o, m = step(p, o, b, i)
+                w = whole[(mb, i)]
+                for k in ("loss", "grad_norm"):
+                    out[f"{k}/{mb}/{i}"] = [float(m[k]), w[k]]
+                    errs[k] = max(errs[k], abs(float(m[k]) - w[k])
+                                  / abs(w[k]))
+            for part in ("m", "v"):
+                errs[part] = max([errs[part]] + [
+                    _rel(d.to_local(), want) for d, want in zip(
+                        tfm.tree_leaves(getattr(o, part)), whole[mb][part])])
+            del p, o, step
+        out["train_s"] = time.perf_counter() - t0 - out["whole_s"]
+        p = local_dtensors(params, cfg, mesh)
+        logits, state = steps.make_prefill_step(cfg, mesh, max_len)(
+            p, batches[0])
+        logits = logits.to_local()
+        tok = steps.rows_on_mesh(torch.argmax(logits, -1).to(torch.int32),
+                                 mesh)
+        ids = [tok.to_local()]
+        serve = steps.make_serve_step(cfg, mesh, FSDP_B, max_len)
+        for _ in range(FSDP_GEN - 1):
+            tok, state = serve(p, state, tok)
+            ids.append(tok.to_local())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = registry.launch_counts()
+        out["serve_s"] = time.perf_counter() - t0 - out["whole_s"] \
+            - out["train_s"]
+        errs["logits"] = _rel(logits, whole["logits"])
+        leaves = tfm.tree_leaves(p)
+        out.update(
+            errs=errs, ids_equal=bool(torch.equal(
+                torch.stack(ids, 1), whole["ids"])),
+            launches={k: v for k, v in launches.items() if v},
+            leaves=len(leaves),
+            fsdp_leaves=sum(shd.fsdp_dim(d) is not None for d in leaves),
+            both_leaves=sum(shd.fsdp_dim(d) is not None
+                            and shd.is_model_split(d) for d in leaves),
+            local_bytes=sum(d.to_local().numel() * d.element_size()
+                            for d in leaves),
+            whole_bytes=sum(d.numel() * d.element_size() for d in leaves))
+    finally:
+        dist.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def seeded_block(torch, shape, dtype, seed: int, index, dev, *,
+                 scale: float):
+    """The block ``index`` (one slice a dim) of a random leaf of ``shape``
+    without making the leaf: N(0, ``scale``^2) drawn in float32 in slabs
+    of at most 2^27 elements along its first dim longer than 1, each slab
+    from its own generator (``seed``, slab), so every block of a leaf is
+    cut from the same whole tensor; zeros for ``scale`` 0."""
+    block = tuple(s.indices(n) for s, n in zip(index, shape))
+    out_shape = tuple(b - a for a, b, _ in block)
+    if scale == 0:
+        return torch.zeros(out_shape, dtype=dtype, device=dev)
+    c = next(i for i, n in enumerate(shape) if n > 1)
+    per = max(1, (1 << 27) // (math.prod(shape) // shape[c]))
+    parts = []
+    for k, lo in enumerate(range(0, shape[c], per)):
+        hi = min(shape[c], lo + per)
+        a, b = max(lo, block[c][0]), min(hi, block[c][1])
+        if a >= b:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(seed * 100_003 + k)
+        slab = torch.randn(shape[:c] + (hi - lo,) + shape[c + 1:],
+                           generator=gen, device=dev) * scale
+        idx = [slice(x, y) for x, y, _ in block]
+        idx[c] = slice(a - lo, b - lo)
+        parts.append(slab[tuple(idx)].to(dtype))
+        del slab
+    return torch.cat(parts, c)
+
+
+def _leaf_scale(path, shape) -> float:
+    """The init scale of a leaf of ``FSDP_BIG``'s weights: the embedding
+    N(0, 1), a norm scale (one dim but a stack's) 0, a weight (in, out)
+    N(0, 1 / in)."""
+    dims = shape[1:] if path[0] == "streams" else shape
+    if path == ("embed",):
+        return 1.0
+    return 0.0 if len(dims) <= 1 else dims[-2] ** -0.5
+
+
+def block_index(shape, placements, mesh) -> tuple:
+    """The slices of this rank's block of a leaf of ``shape`` under
+    ``placements`` (as :func:`mesh_piece` cuts it)."""
+    coord = mesh.get_coordinate()
+    lo, n = [0] * len(shape), list(shape)
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            n[pl.dim] //= mesh.shape[i]
+            lo[pl.dim] += coord[i] * n[pl.dim]
+    return tuple(slice(a, a + k) for a, k in zip(lo, n))
+
+
+def fsdp_big_params(torch, cfg, mesh, dev):
+    """``FSDP_BIG``'s weights: the whole leaves (``mesh`` None) or this
+    rank's blocks as DTensors of ``mesh``, each cut from the same seeded
+    whole leaf (:func:`seeded_block`), in trees of dicts."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import transformer as tfm
+
+    meta = tfm.init_params(cfg, None, "meta")
+    leaves = shd._flatten_paths(meta)
+    seed = {path: i for i, (path, _) in enumerate(leaves)}
+    shape = {path: tuple(leaf.shape) for path, leaf in leaves}
+    dtype = {path: leaf.dtype for path, leaf in leaves}
+    if mesh is None:
+        return shd._rebuild(meta, {path: seeded_block(
+            torch, shape[path], dtype[path], seed[path],
+            tuple(slice(None) for _ in shape[path]), dev,
+            scale=_leaf_scale(path, shape[path])) for path in shape})
+    return local_dtensors(meta, cfg, mesh, piece=lambda path, pl: (
+        seeded_block(torch, shape[path], dtype[path], seed[path],
+                     block_index(shape[path], pl, mesh), dev,
+                     scale=_leaf_scale(path, shape[path]))))
+
+
+def fsdp_big_batch(torch, cfg, dev):
+    from repro_torch.data.pipeline import batch_for
+
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch_for(
+        cfg, 0, FSDP_BIG["B"], FSDP_BIG["S"]).items()}
+
+
+def fsdp_big_rank(torch, rank: int, world: int, store: str, path: str,
+                  device: str = "cuda") -> int:
+    """One rank of phase 18 (c) (``chip_smoke.py --fsdp-big-rank``): a
+    gloo world of ``world`` processes on the one card as a (``world``, 1)
+    ``("data", "model")`` mesh; the rank's blocks of ``FSDP_BIG``'s
+    seeded weights (FSDP's leaves split over ``"data"``) prefill its rows
+    through ``make_prefill_step``, the launch counts and the peak memory
+    zeroed just before and read just after.  Writes the rank's logits
+    (``path`` + ``.pt``), its peak, launches and bytes held to ``path``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import registry
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        fa.build()
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = mesh_mod.make_test_mesh(world, 1, device=dev.type)
+        cfg = fsdp_big_cfg()
+        p = fsdp_big_params(torch, cfg, mesh, dev)
+        batch = fsdp_big_batch(torch, cfg, dev)
+        leaves = tfm.tree_leaves(p)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        registry.reset_launches()
+        logits, _ = steps.make_prefill_step(cfg, mesh, FSDP_BIG["S"])(
+            p, batch)
+        logits = logits.to_local()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out = dict(
+            peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                      if dev.type == "cuda" else None),
+            launches={k: v for k, v in registry.launch_counts().items()
+                      if v},
+            rows=[mesh_mod.dp_index(mesh) * logits.shape[0],
+                  (mesh_mod.dp_index(mesh) + 1) * logits.shape[0]],
+            fsdp_leaves=sum(shd.fsdp_dim(d) is not None for d in leaves),
+            leaves=len(leaves),
+            local_gib=sum(d.to_local().numel() * d.element_size()
+                          for d in leaves) / 2**30)
+        torch.save(logits.cpu(), path + ".pt")
+    finally:
+        dist.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def spawn_world(flag: str, world: int, label: str) -> tuple:
+    """``world`` processes of ``chip_smoke.py flag rank world store
+    path`` on the one card (phases 17 (e), 18 (b) and (c)); each must
+    exit 0 within ``TP_WORLD_TIMEOUT_S``.  Returns (each rank's JSON
+    result, the directory of their files, which the caller removes)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="repro_world_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+         str(world), f"{tmp}/store", f"{tmp}/rank{r}.json"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(world)]
+    try:
+        logs = []
+        for r, proc in enumerate(procs):
+            try:
+                log, _ = proc.communicate(timeout=max(
+                    1.0, TP_WORLD_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{label}: rank {r} passed "
+                                   f"{TP_WORLD_TIMEOUT_S} s")
+            logs.append(log)
+        for r, proc in enumerate(procs):
+            check(proc.returncode == 0, f"{label}: rank {r} failed (rc "
+                  f"{proc.returncode}): {logs[r][-4000:]}")
+        ranks = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return ranks, tmp
+
+
+def fsdp_world(torch, reg):
+    """Phase 18 (b): :func:`fsdp_world_rank` on every rank of the
+    ``FSDP_WORLD`` mesh; every loss, ``grad_norm``, AdamW moment and the
+    prefill logits within ``TP_TOL`` of the whole weights', the greedy
+    ids equal, flash launched on every rank and the same count on each,
+    and leaves split over both axes.  Returns (rank 0's launches by
+    kernel, report)."""
+    import shutil
+
+    world = math.prod(FSDP_WORLD)
+    ranks, tmp = spawn_world("--fsdp-rank", world, "fsdp (b)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    for r, a in enumerate(ranks):
+        for k, e in a["errs"].items():
+            check(e <= TP_TOL, f"fsdp (b): rank {r}: {k} {e:.3g} above "
+                  f"{TP_TOL}")
+        check(a["ids_equal"], f"fsdp (b): rank {r}: greedy ids differ "
+              "from the whole weights'")
+        check(a["launches"].get("flash_attention", 0) > 0
+              and a["launches"] == ranks[0]["launches"],
+              f"fsdp (b): rank {r}: launches {a['launches']}, rank 0's "
+              f"{ranks[0]['launches']}")
+        check(a["both_leaves"] > 0, f"fsdp (b): rank {r}: no leaf split "
+              "over both \"data\" and \"model\"")
+    a = ranks[0]
+    print(f"fsdp (b): {FSDP_ARCH} (fsdp, {FSDP_LAYERS} layers, float32, "
+          f"{FSDP_B}x{FSDP_S}) on a {FSDP_WORLD} (data, model) gloo world "
+          f"of {world} processes on the card: {a['fsdp_leaves']} of "
+          f"{a['leaves']} leaves split over \"data\" ({a['both_leaves']} "
+          f"over both), {a['local_bytes'] / 2**30:.3f} of "
+          f"{a['whole_bytes'] / 2**30:.3f} GiB of weights a rank; "
+          f"{FSDP_STEPS} train steps with 1 and 2 microbatches, a prefill "
+          f"and {FSDP_GEN - 1} greedy decode steps; largest errors over "
+          f"the ranks against the whole weights "
+          f"{ {k: max(r['errs'][k] for r in ranks) for k in a['errs']} } "
+          f"(<= {TP_TOL}); ids equal; losses (mesh, whole) "
+          f"{ {k: v for k, v in a.items() if k.startswith('loss/')} }; "
+          f"launches {a['launches']} a rank; rank 0's seconds: the whole "
+          f"runs in turn {a['whole_s']:.1f}, train {a['train_s']:.1f}, "
+          f"serve {a['serve_s']:.1f}", flush=True)
+    launches = dict.fromkeys(reg.KERNELS, 0)
+    launches.update(a["launches"])
+    return launches, dict(ranks=ranks, world=list(FSDP_WORLD), tol=TP_TOL)
+
+
+def fsdp_big(torch, dev, reg):
+    """Phase 18 (c): ``FSDP_BIG``'s prefill in this process on the whole
+    weights (its peak read), the memory freed, then on a data =
+    ``world`` world (:func:`fsdp_big_rank`): each rank's logits within
+    ``tol`` of the largest whole logit, each rank's peak below the whole
+    run's, flash launched on each rank.  Returns (rank 0's launches by
+    kernel, report)."""
+    import shutil
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = fsdp_big_cfg()
+    torch.cuda.empty_cache()
+    params = fsdp_big_params(torch, cfg, None, dev)
+    batch = fsdp_big_batch(torch, cfg, dev)
+    whole_gib = sum(t.numel() * t.element_size()
+                    for t in tfm.tree_leaves(params)) / 2**30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, _ = tfm.prefill(params, cfg, batch, FSDP_BIG["S"])
+    torch.cuda.synchronize()
+    whole_peak = torch.cuda.max_memory_allocated() / 2**30
+    logits = logits.cpu()
+    del params, batch, _
+    torch.cuda.empty_cache()
+    ranks, tmp = spawn_world("--fsdp-big-rank", FSDP_BIG["world"],
+                             "fsdp (c)")
+    try:
+        errs = []
+        for r, a in enumerate(ranks):
+            got = torch.load(f"{tmp}/rank{r}.json.pt")
+            want = logits[a["rows"][0]:a["rows"][1]]
+            errs.append(float((got.float() - want.float()).abs().max())
+                        / float(logits.float().abs().max()))
+            check(errs[-1] <= FSDP_BIG["tol"], f"fsdp (c): rank {r}: "
+                  f"logits {errs[-1]:.3g} of the largest apart")
+            check(a["peak_gib"] is not None and a["peak_gib"] < whole_peak,
+                  f"fsdp (c): rank {r}: peak {a['peak_gib']} GiB, the "
+                  f"whole run's {whole_peak:.2f}")
+            check(a["launches"].get("flash_attention", 0) > 0,
+                  f"fsdp (c): rank {r}: launches {a['launches']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"fsdp (c): {FSDP_BIG['arch']} (1 layer, bf16, "
+          f"{FSDP_BIG['B']}x{FSDP_BIG['S']} prefill) on a data = "
+          f"{FSDP_BIG['world']} gloo world on the card: "
+          f"{ranks[0]['fsdp_leaves']} of {ranks[0]['leaves']} leaves split"
+          f" over \"data\"; weights {whole_gib:.2f} GiB whole, "
+          f"{[a['local_gib'] for a in ranks]} GiB a rank; peak "
+          f"{[a['peak_gib'] for a in ranks]} GiB a rank against "
+          f"{whole_peak:.2f} GiB whole; logits {[f'{e:.3g}' for e in errs]}"
+          f" of the largest apart (<= {FSDP_BIG['tol']}); launches "
+          f"{ranks[0]['launches']} a rank", flush=True)
+    launches = dict.fromkeys(reg.KERNELS, 0)
+    launches.update(ranks[0]["launches"])
+    return launches, dict(ranks=ranks, whole_gib=whole_gib,
+                          whole_peak_gib=whole_peak, logit_errs=errs,
+                          tol=FSDP_BIG["tol"])
+
+
+def fsdp_dryrun_gates(cells: dict) -> None:
+    """Phase 18 (a)'s gates on :func:`dryrun_records`' cells: llama4's
+    cells and nemotron's (16, 16) fit the card's HBM (every FSDP leaf
+    gathered whole they did not), and each cell's ``coll_by_op`` holds
+    FSDP's gathers and their gradients' reduce-scatters: at least a
+    microbatch's all-gathers of the rank's FSDP pieces (the operand, each
+    once) and reduce-scatters of the whole layers (``data`` times the
+    pieces) a microbatch."""
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as tfm
+
+    for key, c in cells.items():
+        arch, mp = key.split("/")
+        shape = tuple(int(n) for n in c["mesh"].split("x"))
+        names = ("pod", "data", "model")[-len(shape):]
+
+        class Desc:
+            axis_names = names
+
+        Desc.shape = dict(zip(names, shape))
+        cfg = cb.get(arch)
+        p_shape, _ = steps_mod.init_shapes(cfg)
+        specs = shd.param_shardings(p_shape, cfg, Desc())
+        pieces = 0
+        for path, leaf in tfm.tree_items(p_shape):
+            spec = specs
+            for k in path:
+                spec = spec[int(k)] if isinstance(spec, (tuple, list)) \
+                    else spec[k]
+            if "data" in spec:
+                n = leaf.numel() * leaf.element_size()
+                for e in spec:
+                    for a in ((e,) if isinstance(e, str) else (e or ())):
+                        n //= Desc.shape[a]
+                pieces += n
+        mb = c["microbatches"]
+        coll = c["coll_by_op"]
+        gathered = coll.get("all_gather_into_tensor", 0.0)
+        scattered = coll.get("reduce_scatter_tensor", 0.0)
+        check(gathered >= mb * pieces
+              and scattered >= mb * Desc.shape["data"] * pieces,
+              f"fsdp (a): {key}: all-gathers {gathered:.4g} and "
+              f"reduce-scatters {scattered:.4g} bytes, below {mb} "
+              f"microbatches of the rank's {pieces} bytes of FSDP pieces")
+        if not (arch == "nemotron_4_340b" and mp == "pod2"):
+            check(c["fits_hbm"], f"fsdp (a): {key} does not fit "
+                  f"({c['gib']:.2f} GiB a rank)")
+        c["fsdp_piece_bytes"] = pieces
+
+
+def fsdp_worlds(torch, dev, reg):
+    """Phase 18 (b) and (c), which run beside phase 17 (d)'s and 18 (a)'s
+    dry-runs: (:func:`fsdp_world`, :func:`fsdp_big`).  Returns (their rank
+    0 launches by kernel, report)."""
+    out = {}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, out["world"] = fsdp_world(torch, reg)
+    out["world_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big, out["big"] = fsdp_big(torch, dev, reg)
+    out["big_s"] = time.perf_counter() - t0
+    for k, v in big.items():
+        launches[k] += v
+    return launches, out
+
+
+def fsdp_phase(torch, dev, reg, later: dict):
+    """Phase 18: FSDP's per-layer gathers over ``"data"``.  (b) and (c)
+    (:func:`fsdp_worlds`) ran beside phase 17 (d)'s dry-runs
+    (``later["beside"]``); here (a)'s ``train_4k`` dry-runs of
+    ``FSDP_DRYRUN_ARCHS`` (the card's fake tensors, F6's cell also the
+    CPU's: ``later["dryruns"]``, started with phase 17 (d)'s) are read
+    and gated (:func:`dryrun_records`, :func:`fsdp_dryrun_gates`).
+    Returns ((b)'s and (c)'s rank 0 launches by kernel, report)."""
+    t_phase = time.perf_counter()
+    dryruns = later["dryruns"]
+    try:
+        records = dryruns.wait(420)
+    finally:
+        dryruns.stop()
+    launches, out = later["beside"]
+    out["dryrun"] = dryrun_records(records, FSDP_DRYRUN_ARCHS, "fsdp (a)",
+                                   "every FSDP leaf gathered whole")
+    fsdp_dryrun_gates(out["dryrun"])
+    out["wait_s"] = time.perf_counter() - t_phase
+    print(f"fsdp phase: (b) {out['world_s']:.1f} s and (c) "
+          f"{out['big_s']:.1f} s beside phase 17 (d)'s dry-runs, then "
+          f"{out['wait_s']:.1f} s for (a)'s", flush=True)
     return launches, out
 
 
@@ -4208,10 +4870,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device available")
     sys.path.insert(0, str(SRC))
-    if sys.argv[1:2] == ["--tp-rank"]:
-        # one rank of phase 17 (e)'s world: rank, world, store, output
+    worlds = {"--tp-rank": tp_world_rank, "--fsdp-rank": fsdp_world_rank,
+              "--fsdp-big-rank": fsdp_big_rank}
+    if sys.argv[1:2] and sys.argv[1] in worlds:
+        # one rank of phase 17 (e)'s or 18 (b)'s or (c)'s world: rank,
+        # world, store, output
         rank, world, store, path = sys.argv[2:6]
-        return tp_world_rank(torch, int(rank), int(world), store, path)
+        return worlds[sys.argv[1]](torch, int(rank), int(world), store,
+                                   path)
     try:
         return run(torch)
     except SmokeFailure as e:
@@ -4806,9 +5472,27 @@ def run(torch) -> int:
     # 17. this slice's path: tensor and expert parallelism (the one-rank
     # steps again, flash and the dispatch at a tp = 16 rank's shapes, a
     # tp = 2 world on the card, the train cells' dry-run)
-    tp_launches, report["tp"] = tp_phase(torch, dev, reg, report["sharded"])
+    # phase 18 (a)'s dry-runs, which phase 17 starts beside its own
+    later = {}
+    try:
+        tp_launches, report["tp"] = tp_phase(
+            torch, dev, reg, report["sharded"], later,
+            beside=lambda: fsdp_worlds(torch, dev, reg))
+    except BaseException:
+        if "dryruns" in later:
+            later["dryruns"].stop()
+        raise
     for row in (flash_row, moe_row):
         row["launches"] += tp_launches[row["name"]]
+
+    # 18. this slice's path: FSDP's per-layer gathers over "data" (the two
+    # FSDP configs' train cells dry-run, a (2, 2) world of gemma2_2b with
+    # fsdp on the card, nemotron_4_340b's prefill on a data = 2 world)
+    try:
+        fsdp_launches, report["fsdp"] = fsdp_phase(torch, dev, reg, later)
+    finally:
+        later["dryruns"].stop()
+    flash_row["launches"] += fsdp_launches["flash_attention"]
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -4890,6 +5574,7 @@ def run(torch) -> int:
     print(json.dumps({"sharded": report["sharded"]}))
     print(json.dumps({"dryrun": report["dryrun"]}))
     print(json.dumps({"tp": report["tp"]}))
+    print(json.dumps({"fsdp": report["fsdp"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

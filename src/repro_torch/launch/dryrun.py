@@ -46,9 +46,12 @@ with the JAX record's keys; what differs in meaning:
 The records show what a rank of the port's step holds and moves: its
 ``"model"`` pieces of the attention, MLP, vocabulary and expert leaves
 (tensor and expert parallelism; RWKV6 and hymba still gather every leaf
-whole), every leaf whole over ``"data"`` (FSDP's per-layer gathers and
-the KV caches' sequence split are ROADMAP item 11g), and its data shard's
-rows.
+whole), for a ``cfg.fsdp`` config its ``"data"`` pieces too, each
+gathered over ``"data"`` one layer at a time (``all_gather_into_tensor``
+in ``coll_by_op``; its gradient's ``reduce_scatter_tensor``), and its
+data shard's rows, or a whole microbatch that the data shards do not
+divide (fault F6).  The KV caches' sequence split and the gradients'
+reduce-scatter into ZeRO's layout are ROADMAP item 11g.
 
 Records go to ``runs/dryrun_torch/`` (``--out``), which ``.gitignore``
 lists; never ``experiments/dryrun``, which holds the JAX package's.  Cells
@@ -320,7 +323,7 @@ def _probed(cfg, cell, mesh, dev, microbatches: int):
     from repro_torch.models import transformer as tfm
 
     dp = dp_size(mesh)
-    if cell.global_batch % (microbatches * dp):
+    if cell.global_batch % microbatches or cell.global_batch % dp:
         raise ValueError(f"a batch of {cell.global_batch} rows does not "
                          f"split into {microbatches} microbatches over {dp} "
                          "data shards")
@@ -329,7 +332,14 @@ def _probed(cfg, cell, mesh, dev, microbatches: int):
     g = tfm._remat_group(cfg, n) if cfg.remat else 1
     groups = n // g
     ks = (1, 2) if groups > 2 else (groups,)
-    ms = (2, 3) if microbatches > 3 else (microbatches,)
+    # the two smallest probes whose batch the data shards divide (the step
+    # refuses another, as JAX does): 2 and 3 microbatches where the
+    # shards divide one, else (fault F6's cells) e.g. 2 and 4
+    rows = cell.global_batch // microbatches
+    ms = tuple([m for m in range(2, microbatches)
+                if rows * m % dp == 0][:2])
+    if len(ms) < 2:
+        ms = (microbatches,)
     total, mem = HloCost(), dict.fromkeys(("arg_bytes", "out_bytes",
                                            "peak_bytes"), 0.0)
     unknown = 0

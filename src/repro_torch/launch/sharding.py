@@ -273,28 +273,43 @@ def tp_compute(cfg: ModelConfig) -> bool:
     return cfg.family != "ssm" and not cfg.parallel_ssm
 
 
-def model_only(placements_: tuple, mesh) -> tuple:
-    """``placements_`` with only the ``"model"`` axis's ``Shard`` kept
-    (every other mesh axis ``Replicate``): the layout of a rank's
-    ``"model"`` piece, whole over the data axes."""
-    from torch.distributed.tensor import Replicate
-
-    return tuple(p if name == "model" else Replicate() for name, p in
-                 zip(mesh.mesh_dim_names, placements_))
-
-
 def model_piece(leaf):
-    """This rank's ``"model"`` piece of a DTensor leaf placed by the rules
-    (a plain tensor as it is): its local tensor, gathered over the data
-    axes only where the leaf is split there too (FSDP's ``"data"``); the
-    ``"model"`` split, the rules' (:func:`param_pspec`: a dim tp does not
-    divide stays whole), is never gathered."""
-    if not hasattr(leaf, "to_local"):
-        return leaf
-    keep = model_only(tuple(leaf.placements), leaf.device_mesh)
-    if keep != tuple(leaf.placements):
-        leaf = leaf.redistribute(leaf.device_mesh, keep)
-    return leaf.to_local()
+    """The local tensor a rank computes with for a DTensor leaf placed by
+    the rules (a plain tensor as it is): its ``"model"`` piece (the
+    rules' split, :func:`param_pspec`: a dim tp does not divide stays
+    whole) and, for a leaf FSDP splits over ``"data"``, its ``"data"``
+    piece of that, which the model gathers one layer at a time
+    (:func:`repro_torch.models.layers.fsdp_gather`).  Nothing is
+    gathered here."""
+    return leaf.to_local() if hasattr(leaf, "to_local") else leaf
+
+
+def fsdp_dim(leaf):
+    """The tensor dim that FSDP splits a DTensor leaf on over ``"data"``
+    (its placement there, from :func:`param_pspec`'s ``fs``), or None:
+    a plain tensor, a leaf the rules keep whole over ``"data"`` (a dim
+    ``"data"`` does not divide stays whole, as in JAX), a data axis of
+    one rank (where the split is the whole)."""
+    if not hasattr(leaf, "placements"):
+        return None
+    names = tuple(leaf.device_mesh.mesh_dim_names)
+    if "data" not in names or leaf.device_mesh.shape[
+            names.index("data")] == 1:
+        return None
+    pl = leaf.placements[names.index("data")]
+    return pl.dim if pl.is_shard() else None
+
+
+def fsdp_dims(params):
+    """``params``'s structure (a ``ParamTree`` as a dict, a ``ModuleList``
+    a tuple) holding each leaf's :func:`fsdp_dim`; None when no leaf is
+    split over ``"data"`` (a config without ``fsdp``, a data axis of one
+    rank)."""
+    leaves = _flatten_paths(params)
+    dims = {path: fsdp_dim(leaf) for path, leaf in leaves}
+    if all(d is None for d in dims.values()):
+        return None
+    return _rebuild(params, dims)
 
 
 def is_model_split(leaf) -> bool:

@@ -8,34 +8,46 @@ parameters and the state updated in place (as the JAX step's donated
 buffers are).
 
 ``make_train_step(cfg, mesh)`` with a ``DeviceMesh`` builds the sharded
-step.  Each rank takes its data shard of every microbatch (the rows of
-its :func:`~repro_torch.launch.mesh.dp_index`); the parameters and AdamW's
-``m`` and ``v`` are DTensors under the rules' placements
-(:func:`shard_train_state`: ``param_shardings`` / ``opt_shardings``,
-ZeRO-1 for the moments).  Over ``"model"`` a rank computes only its piece
-(tensor and expert parallelism, for every config that
-``sharding.tp_compute`` names): it takes its ``"model"`` piece of each
-leaf (``sharding.model_piece``: gathered over ``"data"`` only where FSDP
-splits it there, never over ``"model"``) and the layers compute its
-heads, FFN columns, vocabulary rows and experts, summing the partial
-results over the ``"model"`` group (:mod:`repro_torch.models.layers`,
-``moe``, ``transformer``).  RWKV6 and hymba gather every leaf whole
-(``full_tensor``) and compute over ``"model"`` replicated.  MoE layers
-route shard-locally (:mod:`repro_torch.models.moe`), the rank's loss is
-its share of the global one (the cross-entropy of its rows times their
-share of the batch, and its share of the load-balance loss), so the
-gradients summed over the data axes (``runtime.collectives``: the tree
-all-reduce when the mesh has pods) are the global gradient of the rank's
-pieces; a leaf every model rank holds whole gets its whole gradient on
-each (the region's entry sums it), so nothing is summed over ``"model"``
-but the gradient norm's split leaves.  AdamW then updates each rank's
-shard of the moments, and the parameters are gathered back into their
-own placements (over the data axes).  Reported are the global loss,
-``ce``, ``lb_loss``, counters and ``grad_norm``.  Like the JAX step, it
-does not compress gradients.
+step.  The parameters and AdamW's ``m`` and ``v`` are DTensors under the
+rules' placements (:func:`shard_train_state`: ``param_shardings`` /
+``opt_shardings``, ZeRO-1 for the moments), and a rank computes with its
+local tensors (``sharding.model_piece``; every config that
+``sharding.tp_compute`` names):
+
+- over ``"model"`` its piece of each leaf (tensor and expert
+  parallelism): the layers compute its heads, FFN columns, vocabulary
+  rows and experts and sum the partial results over the ``"model"``
+  group (:mod:`repro_torch.models.layers`, ``moe``, ``transformer``);
+- over ``"data"``, for a ``cfg.fsdp`` config, its piece of each leaf the
+  rules split there too: the model gathers each one whole over
+  ``"data"`` just before its layer (``layers.fsdp_gather``, inside the
+  layer's checkpointed group), and the gather's backward reduce-scatters
+  its gradient, summed over ``"data"``, back into the rank's piece.
+
+RWKV6 and hymba gather every leaf whole (``full_tensor``) and compute
+over ``"model"`` replicated.  Each rank takes its data shard of every
+microbatch (the rows of its :func:`~repro_torch.launch.mesh.dp_index`)
+and its loss is its share of the global one: the cross-entropy of its
+rows times their share of the batch, and its share of the load-balance
+loss (MoE layers route shard-locally, :mod:`repro_torch.models.moe`).  A
+microbatch whose rows the data shards do not divide (fault F6) is
+computed whole by every data rank under the model's global view, as the
+JAX step's hints leave such a dim unsplit, and its share is its mean
+loss over the data ranks.  The gradients are summed over the data axes
+(``runtime.collectives``: the tree all-reduce when the mesh has pods),
+FSDP's pieces over ``"pod"`` only, so they are the global gradient of the
+rank's pieces; a leaf every model rank holds whole gets its whole
+gradient on each (the region's entry sums it).  The gradient norm sums
+the squares of a leaf split over ``"model"`` or ``"data"`` over that
+axis.  AdamW then updates each rank's shard of the moments (FSDP's leaf
+its own piece), and the parameters are gathered back into their own
+placements (over the data axes; an identity for FSDP's pieces).
+Reported are the global loss, ``ce``, ``lb_loss``, counters and
+``grad_norm``.  Like the JAX step, it does not compress gradients.
 
 ``make_prefill_step`` and ``make_serve_step`` are bound to a mesh the same
-way: a rank prefills and decodes its data shard's rows with its pieces;
+way: a rank prefills and decodes its data shard's rows with its pieces
+(FSDP's gathered a layer at a time);
 logits and tokens come back as DTensors split over the data axes (the
 logits gathered over the vocabulary), and the decode state is the rank's
 own (its attention heads' caches).  A serve batch that the data axes do
@@ -64,6 +76,7 @@ from repro_torch.models import tensor_parallel as tpo
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                cosine_schedule, global_norm)
+from repro_torch.runtime import collectives as col
 
 
 def init_shapes(cfg: ModelConfig):
@@ -170,14 +183,18 @@ class _Description:
         self.shape = dict(zip(self.axis_names, mesh.shape))
 
 
-def _hints(mesh, *, rank_rows: bool = True, tp: bool = False):
+def _hints(mesh, *, rank_rows: bool = True, tp: bool = False, fsdp=None):
     """The model's axis hints of ``mesh`` for one step call; with
     ``rank_rows`` False the rank holds the whole batch (global view); with
-    ``tp`` the weights are the rank's ``"model"`` pieces."""
+    ``tp`` the weights are the rank's ``"model"`` pieces; ``fsdp`` (the
+    parameters' :func:`~repro_torch.launch.sharding.fsdp_dims`) names the
+    leaves that are the rank's ``"data"`` pieces, gathered one layer at a
+    time."""
     return layers.axis_hints(dp_axes=dp_axes(mesh), dp_size=dp_size(mesh),
                              tp_size=tp_size(mesh),
                              mesh=mesh if rank_rows else _Description(mesh),
-                             tp_mesh=mesh if tp else None)
+                             tp_mesh=mesh if tp else None, fsdp_mesh=mesh,
+                             fsdp_dims=fsdp)
 
 
 def _full(x):
@@ -186,20 +203,27 @@ def _full(x):
 
 
 def _pieces(params, cfg: ModelConfig):
-    """The leaves a rank computes with: its ``"model"`` pieces for a
-    config that the steps split over ``"model"``, else the whole
-    tensors."""
+    """The leaves a rank computes with: its local pieces (over
+    ``"model"`` and, for FSDP's leaves, ``"data"``) for a config that the
+    steps split over ``"model"``, else the whole tensors."""
     return tfm.tree_map(shd.model_piece if shd.tp_compute(cfg) else _full,
                         params)
 
 
+def _fsdp(params, cfg: ModelConfig):
+    """The parameters' FSDP dims for the hints (None when no leaf is a
+    ``"data"`` piece: a config the steps gather whole, or no FSDP)."""
+    return shd.fsdp_dims(params) if shd.tp_compute(cfg) else None
+
+
 def _source(leaf, mesh, cfg: ModelConfig) -> tuple:
     """The placements of the tensor a rank computes with for ``leaf``:
-    its ``"model"`` piece's, or replicated for a whole tensor."""
+    the leaf's own (its local pieces), or replicated for a whole
+    tensor."""
     from torch.distributed.tensor import Replicate
 
     if shd.tp_compute(cfg) and hasattr(leaf, "placements"):
-        return shd.model_only(tuple(leaf.placements), mesh)
+        return tuple(leaf.placements)
     return (Replicate(),) * mesh.ndim
 
 
@@ -268,30 +292,49 @@ def shard_train_state(cfg: ModelConfig, mesh, params, opt_state):
                 opt_state, params, cfg, mesh), mesh))
 
 
-def _sum_over_data(tensors: list, mesh) -> list:
+def _sum_over_data(tensors: list, mesh, fsdp=None) -> list:
     """Each tensor summed over the data axes: the tree all-reduce with
-    pods, one flat all-reduce without."""
-    from repro_torch.runtime import collectives as col
+    pods, one flat all-reduce without.  A tensor whose flag in ``fsdp`` is
+    set (a gradient of FSDP's ``"data"`` piece, which the gather's
+    backward has summed over ``"data"`` already) is summed over ``"pod"``
+    only, and with no pods left as it is."""
+    def psum(ts):
+        if "pod" in mesh.mesh_dim_names:
+            return col.hierarchical_psum_grads(ts, mesh)
+        return col.flat_psum_grads(ts, mesh, ("data",))
 
+    if not fsdp or not any(fsdp):
+        return psum(tensors)
+    rest = iter(psum([t for t, f in zip(tensors, fsdp) if not f]))
+    pieces = [t for t, f in zip(tensors, fsdp) if f]
     if "pod" in mesh.mesh_dim_names:
-        return col.hierarchical_psum_grads(tensors, mesh)
-    return col.flat_psum_grads(tensors, mesh, ("data",))
+        pieces = col.flat_psum_grads(pieces, mesh, ("pod",))
+    pieces = iter(pieces)
+    return [next(pieces) if f else next(rest) for f in fsdp]
 
 
-def _grad_norm(grads, dleaves, mesh, cfg: ModelConfig):
+def _grad_norm(grads, dleaves, mesh, cfg: ModelConfig, fsdp=None):
     """The global gradient norm of the rank's gradients (summed over the
     data axes): the squares of leaves split over ``"model"`` summed over
-    ``"model"``, a leaf every model rank holds whole counted once."""
-    if tp_size(mesh) == 1 or not shd.tp_compute(cfg):
-        return global_norm(grads)
+    ``"model"``, of FSDP's ``"data"`` pieces (flags ``fsdp``) over
+    ``"data"``, of a leaf split over both over both; a leaf every rank of
+    an axis holds whole is counted once there."""
+    tp = tp_size(mesh) > 1 and shd.tp_compute(cfg)
+    if not fsdp or not any(fsdp):
+        fsdp = None
+        if not tp:
+            return global_norm(grads)
     zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    split, whole = zero, zero
-    for g, p in zip(grads, dleaves):
-        sq = torch.sum(torch.square(g.float()))
-        if shd.is_model_split(p):
-            split = split + sq
-        else:
-            whole = whole + sq
+    # [whole, split over "model", over "data", over both]
+    sums = [zero] * 4
+    for i, (g, p) in enumerate(zip(grads, dleaves)):
+        k = (tp and shd.is_model_split(p)) + 2 * bool(fsdp and fsdp[i])
+        sums[k] = sums[k] + torch.sum(torch.square(g.float()))
+    whole, split = sums[0], sums[1]
+    if fsdp is not None:
+        data, both = col.flat_psum_grads([torch.stack(sums[2:])], mesh,
+                                         ("data",))[0]
+        whole, split = whole + data, split + both
     return torch.sqrt(tpo.out_of_tp(split, mesh) + whole)
 
 
@@ -304,47 +347,63 @@ def _sharded_train_step(cfg: ModelConfig, mesh, *, microbatches: int,
     warmup = max(1, min(2000, total_steps // 10))
 
     def train_step(params, opt_state, batch, step):
-        with _hints(mesh, tp=tpc):
-            dleaves = tfm.tree_leaves(params)
-            device = dleaves[0].device
+        dleaves = tfm.tree_leaves(params)
+        device = dleaves[0].device
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+        n = next(iter(batch.values())).shape[0]
+        if n % microbatches or n % dp:
+            raise ValueError(
+                f"a batch of {n} rows does not split into "
+                f"{microbatches} microbatches over {dp} data shards")
+        # F6: a microbatch whose rows the data shards do not divide is
+        # computed whole by every data rank (the global view), as the JAX
+        # step's hints leave such a dim unsplit
+        whole = (n // microbatches) % dp != 0
+        fsdp = _fsdp(params, cfg)
+        flags = None if fsdp is None else [
+            shd.fsdp_dim(p) is not None for p in dleaves]
+        with _hints(mesh, rank_rows=not whole, tp=tpc, fsdp=fsdp):
             leaves = [p.detach().requires_grad_(True)
                       for p in tfm.tree_leaves(_pieces(params, cfg))]
             tree = tfm.tree_unflatten(params, leaves)
             rng = prng.fold_in(prng.PRNGKey(17), int(step))
-            batch = {k: torch.as_tensor(v, device=device)
-                     for k, v in batch.items()}
-            n = next(iter(batch.values())).shape[0]
-            if n % (microbatches * dp):
-                raise ValueError(
-                    f"a batch of {n} rows does not split into "
-                    f"{microbatches} microbatches over {dp} data shards")
-            mbs = [{k: _rows(v, mesh, device) for k, v in mb.items()}
-                   for mb in _split(batch, microbatches)]
+            mbs = _split(batch, microbatches)
+            if not whole:
+                mbs = [{k: _rows(v, mesh, device) for k, v in mb.items()}
+                       for mb in mbs]
 
             def value_and_grad(mb):
                 loss, metrics = tfm.loss_fn(tree, cfg, mb, rng,
                                             ep_groups=tp, dp_groups=dp)
-                # the rank's share of the global loss: its rows' mean
-                # cross-entropy weighted by their share of the rows, and
-                # its share of the load-balance loss
-                share = metrics["ce"] * (1.0 / dp) \
-                    + 0.01 * metrics["lb_loss"]
+                if whole:
+                    # every data rank holds the whole microbatch: its
+                    # share is the mean loss over the data ranks
+                    share = loss * (1.0 / dp)
+                    lb = metrics["lb_loss"] * (1.0 / dp)
+                else:
+                    # the rank's share of the global loss: its rows' mean
+                    # cross-entropy weighted by their share of the rows,
+                    # and its share of the load-balance loss
+                    share = metrics["ce"] * (1.0 / dp) \
+                        + 0.01 * metrics["lb_loss"]
+                    lb = metrics["lb_loss"]
                 grads = _grads(share, leaves)
                 metrics = {k: v.detach() for k, v in metrics.items()}
                 total = _sum_over_data([torch.stack([
                     share.detach(), metrics["ce"] * (1.0 / dp),
-                    metrics["lb_loss"]])], mesh)[0]
+                    lb.detach()])], mesh)[0]
                 metrics.update(ce=total[1], lb_loss=total[2])
                 return total[0], metrics, grads
 
             loss, metrics, local = _accumulate(value_and_grad, leaves, mbs,
                                                device)
-            grads = _sum_over_data(local, mesh)
+            grads = _sum_over_data(local, mesh, flags)
             del local
             lr = cosine_schedule(step, peak_lr=peak_lr, total=total_steps,
                                  warmup=warmup).to(device)
             with torch.no_grad():
-                gnorm = _grad_norm(grads, dleaves, mesh, cfg)
+                gnorm = _grad_norm(grads, dleaves, mesh, cfg, flags)
                 ms = tfm.tree_leaves(opt_state.m)
                 vs = tfm.tree_leaves(opt_state.v)
                 src = [_source(p, mesh, cfg) for p in dleaves]
@@ -392,7 +451,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, max_len: int):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        with _hints(mesh, tp=tpc):
+        with _hints(mesh, tp=tpc, fsdp=_fsdp(params, cfg)):
             pieces = _pieces(params, cfg)
             local = {k: _rows(v, mesh, device) for k, v in batch.items()}
             if cfg.encoder_only:
@@ -449,7 +508,8 @@ def make_serve_step(cfg: ModelConfig, mesh, batch: int, max_len: int):
 
     @torch.no_grad()
     def serve_step(params, state, tokens):
-        with _hints(mesh, rank_rows=split, tp=tpc):
+        with _hints(mesh, rank_rows=split, tp=tpc,
+                    fsdp=_fsdp(params, cfg)):
             if split:
                 tokens = _rows(tokens, mesh, device)
             elif hasattr(tokens, "to_local"):

@@ -26,6 +26,13 @@ column-parallel in ``wg`` / ``wu`` / ``w1`` and row-parallel in ``wd`` /
 are summed by ``out_of_tp``; a leaf every model rank holds whole (a norm
 scale, a weight whose dim tp does not divide) that a region reads enters
 through ``into_tp`` too, so its gradient comes out whole on every rank.
+
+FSDP: when a step also names the leaves a ``cfg.fsdp`` config's rules
+split over ``"data"`` (``fsdp_mesh``, ``fsdp_dims``), the weights are the
+rank's ``"data"`` pieces of those too, and the model gathers each one
+whole over ``"data"`` just before its use (:func:`fsdp_gather`): one
+layer at a time, inside the layer's checkpointed group, so the recompute
+gathers again and no gathered layer outlives its group.
 """
 
 from __future__ import annotations
@@ -58,18 +65,26 @@ _AXIS_HINTS = {"on": False, "dp": None, "dp_size": 0, "tp_size": 0,
 #: are given (the rank's pieces; see :func:`tp_region`), None when they are
 #: whole
 _TP_MESH = {"mesh": None}
+#: FSDP: the ``DeviceMesh`` whose ``"data"`` axis splits the weights the
+#: layers are given, and the parameters' structure holding each leaf's
+#: split dim or None (``launch.sharding.fsdp_dims``); both None when no
+#: weight is split over ``"data"`` (see :func:`fsdp_gather`)
+_FSDP = {"mesh": None, "dims": None}
 
 
 def set_axis_hints(*, dp_axes=None, dp_size=0, tp_size=0, mesh=None,
-                   tp_mesh=None):
+                   tp_mesh=None, fsdp_mesh=None, fsdp_dims=None):
     _AXIS_HINTS.update(on=bool(dp_axes), dp=dp_axes, dp_size=dp_size,
                        tp_size=tp_size, mesh=mesh)
     _TP_MESH["mesh"] = tp_mesh
+    _FSDP.update(mesh=fsdp_mesh if fsdp_dims is not None else None,
+                 dims=fsdp_dims)
 
 
 def clear_axis_hints():
     _AXIS_HINTS.update(on=False, dp=None, dp_size=0, tp_size=0, mesh=None)
     _TP_MESH["mesh"] = None
+    _FSDP.update(mesh=None, dims=None)
 
 
 @contextlib.contextmanager
@@ -77,7 +92,8 @@ def axis_hints(**hints):
     """:func:`set_axis_hints` for the length of a ``with`` block; the hints
     that were set before are restored on exit, also when the block
     raises."""
-    saved, saved_tp = dict(_AXIS_HINTS), _TP_MESH["mesh"]
+    saved, saved_tp, saved_fsdp = (dict(_AXIS_HINTS), _TP_MESH["mesh"],
+                                   dict(_FSDP))
     set_axis_hints(**hints)
     try:
         yield
@@ -85,6 +101,7 @@ def axis_hints(**hints):
         _AXIS_HINTS.clear()
         _AXIS_HINTS.update(saved)
         _TP_MESH["mesh"] = saved_tp
+        _FSDP.update(saved_fsdp)
 
 
 def hint_spec(shape, *axes) -> tuple:
@@ -145,6 +162,34 @@ def tp_region():
     if size == 1:
         return None
     return TPRegion(mesh, size, mesh.get_local_rank("model"))
+
+
+def _gathered(node, dims, mesh, lead: int):
+    """``node``'s leaves (nested dicts) gathered over ``"data"`` where
+    ``dims`` (the same structure) names a split dim, less ``lead``
+    stacked dims (a plain recursive function, not a closure)."""
+    if isinstance(node, dict):
+        return {k: _gathered(v, dims[k], mesh, lead)
+                for k, v in node.items()}
+    if dims is None:
+        return node
+    return tpo.gather_over(node, mesh, "data", dims - lead)
+
+
+def fsdp_gather(tree, *path, lead: int = 0):
+    """FSDP's gather of one use: ``tree`` (a leaf, or a layer's dict of
+    leaves) at ``path`` of the parameters, each leaf that the hints'
+    ``fsdp_dims`` split over ``"data"`` gathered whole over that axis
+    (:func:`repro_torch.models.tensor_parallel.gather_over`: its gradient
+    reduce-scattered back, summed over ``"data"``); ``lead`` the stacked
+    dims ``tree`` lacks (1 for a layer of a stack).  ``tree`` as it is
+    without FSDP hints."""
+    dims = _FSDP["dims"]
+    if not _AXIS_HINTS["on"] or dims is None:
+        return tree
+    for k in path:
+        dims = dims[int(k)] if isinstance(dims, (tuple, list)) else dims[k]
+    return _gathered(tree, dims, _FSDP["mesh"], lead)
 
 
 def _split(t: TPRegion, w, dim: int, full: int) -> bool:

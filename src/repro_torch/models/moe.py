@@ -50,6 +50,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import dp_index
 from repro_torch.models import layers
 from repro_torch.models import tensor_parallel as tpo
+from repro_torch.runtime import collectives
 
 
 def _experts(shape, fan_in: int, dtype, generator, device, lead=()):
@@ -180,8 +181,6 @@ def _expert_counts(expert, E: int, dtype):
 
 def _sum_over_data(x, mesh, dp_axes):
     """``x`` all-reduced (summed) over the data axes of ``mesh``."""
-    from repro_torch.runtime import collectives   # it imports the models
-
     return collectives.flat_psum_grads([x], mesh, dp_axes)[0]
 
 
@@ -247,8 +246,13 @@ def moe_apply(p, x, cfg: ModelConfig, *, ep_groups: int, rng,
                                 T * n_ranks)
         stats = dict(zip(stats, total[E:]))
     elif use_sm:
+        # the JAX package's shard_map splits the tokens over every data
+        # shard, whatever G is (a microbatch of fewer rows than shards:
+        # fault F6), each with the capacity of T / G tokens
+        dpn = hints["dp_size"]
         buf, ve, pos, weight, probs, stats = route_dispatch_shards(
-            xd, logits, cfg, cap, groups, rng, G, experts=experts)
+            xd, logits, cfg, cap, groups, rng, dpn if T % dpn == 0 else G,
+            experts=experts)
         lb = balance.load_balance_loss(
             probs, torch.where(ve >= 0, ve % E, -1), m.top_k)
     else:

@@ -1,13 +1,18 @@
 """The operations of a tensor-parallel region over the ``"model"`` axis
-of a ``DeviceMesh``: what the JAX package's GSPMD inserts where a rank
-computes only its ``"model"`` piece (:mod:`repro_torch.models.layers`,
-``moe``, ``transformer``).
+of a ``DeviceMesh``, and the gather of FSDP's pieces over ``"data"``:
+what the JAX package's GSPMD inserts where a rank computes only its
+``"model"`` piece (:mod:`repro_torch.models.layers`, ``moe``,
+``transformer``) or holds only its ``"data"`` piece of a weight.
 
 A tensor outside the region is the same on every model rank and so is
 its gradient; inside, each rank holds its piece, and the gradient of a
 value every rank holds is a part whose sum over ``"model"`` is the
-whole.  At a ``"model"`` axis of size 1 each operation is the identity and
-runs no collective; a mesh without that axis raises.
+whole.  :func:`gather_over` concatenates the pieces of one mesh axis
+and reduce-scatters the gradient back: over ``"model"`` the activations'
+gather, over ``"data"`` FSDP's per-layer gather of a weight, whose
+gradient so comes back summed over ``"data"`` in the rank's layout.  At
+an axis of size 1 each operation is the identity and runs no
+collective; a mesh without the axis raises.
 """
 
 from __future__ import annotations
@@ -23,14 +28,20 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
 
 
 
-def model_group(mesh):
-    """``(group, size)`` of the mesh's ``"model"`` axis; a mesh without
-    one raises (nothing falls back to gathering the weights)."""
+def axis_group(mesh, axis: str):
+    """``(group, size)`` of the mesh's axis ``axis`` (the group None at
+    size 1); a mesh without it raises (nothing falls back to gathering
+    the weights)."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    if "model" not in names:
-        raise ValueError(f"the mesh {names} has no \"model\" axis")
-    size = mesh.shape[names.index("model")]
-    return (mesh.get_group("model") if size > 1 else None), size
+    if axis not in names:
+        raise ValueError(f"the mesh {names} has no \"{axis}\" axis")
+    size = mesh.shape[names.index(axis)]
+    return (mesh.get_group(axis) if size > 1 else None), size
+
+
+def model_group(mesh):
+    """``(group, size)`` of the mesh's ``"model"`` axis."""
+    return axis_group(mesh, "model")
 
 
 def _all_reduce(x, group, op=None):
@@ -39,20 +50,56 @@ def _all_reduce(x, group, op=None):
     return out
 
 
+#: the most bytes one gather's output (one reduce-scatter's input) moves
+#: in a call: a larger one goes in blocks of its leading rows, so the
+#: buffers it needs beside its output (its input made contiguous, and on
+#: CUDA tensors gloo's copy of the whole output) hold at most a block
+BLOCK_BYTES = 1 << 28
+
+
+def _blocks(n: int, row_bytes: int, size: int) -> list:
+    """``[a, b)`` blocks of ``n`` rows of ``row_bytes`` each, every block
+    of the ``size`` ranks together within :data:`BLOCK_BYTES`."""
+    step = max(1, BLOCK_BYTES // max(1, size * row_bytes))
+    return [(a, min(n, a + step)) for a in range(0, n, step)]
+
+
 def _gather(x, group, size: int, dim: int):
     """The pieces ``x`` of every rank of ``group`` concatenated along
-    ``dim``, in rank order."""
-    lead = x.movedim(dim, 0).contiguous()
-    out = lead.new_empty((size * lead.shape[0],) + tuple(lead.shape[1:]))
-    _all_gather(out, lead, group=group)
+    ``dim``, in rank order (in :func:`_blocks` of the other ranks'
+    rows)."""
+    lead = x.movedim(dim, 0)
+    n, rest = lead.shape[0], tuple(lead.shape[1:])
+    out = lead.new_empty((size * n,) + rest)
+    blocks = _blocks(n, lead[0].numel() * lead.element_size() if n else 0,
+                     size)
+    if len(blocks) <= 1:
+        _all_gather(out, lead.contiguous(), group=group)
+    else:
+        parts = out.view((size, n) + rest)
+        for a, b in blocks:
+            buf = lead.new_empty((size * (b - a),) + rest)
+            _all_gather(buf, lead[a:b].contiguous(), group=group)
+            parts[:, a:b].copy_(buf.view((size, b - a) + rest))
+            del buf
     return out.movedim(0, dim)
 
 
 def _scatter_sum(g, group, size: int, dim: int):
-    """``g`` summed over ``group``, the rank's block of ``dim`` kept."""
-    lead = g.movedim(dim, 0).contiguous()
-    out = lead.new_empty((lead.shape[0] // size,) + tuple(lead.shape[1:]))
-    _reduce_scatter(out, lead, group=group)
+    """``g`` summed over ``group``, the rank's block of ``dim`` kept (in
+    :func:`_blocks` of the rows)."""
+    lead = g.movedim(dim, 0)
+    n, rest = lead.shape[0] // size, tuple(lead.shape[1:])
+    out = lead.new_empty((n,) + rest)
+    blocks = _blocks(n, lead[0].numel() * lead.element_size() if n else 0,
+                     size)
+    if len(blocks) <= 1:
+        _reduce_scatter(out, lead.contiguous(), group=group)
+    else:
+        parts = lead.unflatten(0, (size, n))
+        for a, b in blocks:
+            _reduce_scatter(out[a:b], parts[:, a:b].reshape(
+                (size * (b - a),) + rest), group=group)
     return out.movedim(0, dim)
 
 
@@ -83,10 +130,10 @@ class _OutOfTP(torch.autograd.Function):
         return g, None
 
 
-class _GatherModel(torch.autograd.Function):
-    """(iv) The pieces of every model rank concatenated along ``dim``; the
-    gradient summed over ``"model"`` and the rank's block kept (a
-    reduce-scatter)."""
+class _Gather(torch.autograd.Function):
+    """(iv) The pieces of every rank of one mesh axis concatenated along
+    ``dim``; the gradient summed over the axis and the rank's block kept
+    (a reduce-scatter)."""
 
     @staticmethod
     def forward(ctx, x, group, size, dim):
@@ -122,14 +169,20 @@ def max_over_model(x, mesh):
     return x if size == 1 else _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
-def gather_over_model(x, mesh, dim: int = -1):
-    """(iv) The model ranks' pieces ``x`` concatenated along ``dim`` in
-    rank order; the gradient reduce-scattered back (summed over
-    ``"model"``, the rank's block kept)."""
-    group, size = model_group(mesh)
+def gather_over(x, mesh, axis: str, dim: int = -1):
+    """(iv) The pieces ``x`` of the ranks of the mesh axis ``axis``
+    concatenated along ``dim`` in rank order; the gradient
+    reduce-scattered back (summed over ``axis``, the rank's block
+    kept)."""
+    group, size = axis_group(mesh, axis)
     if size == 1:
         return x
     dim = dim % x.dim()
     if torch.is_grad_enabled() and x.requires_grad:
-        return _GatherModel.apply(x, group, size, dim)
+        return _Gather.apply(x, group, size, dim)
     return _gather(x, group, size, dim)
+
+
+def gather_over_model(x, mesh, dim: int = -1):
+    """:func:`gather_over` the ``"model"`` axis."""
+    return gather_over(x, mesh, "model", dim)

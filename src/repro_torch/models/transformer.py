@@ -55,6 +55,12 @@ package; layer ``idx`` of pattern position ``pidx`` routes with
 default, as in the JAX package) is the expert-group count of the routing's
 locality bonus; ``dp_groups`` (1 by default) the data shards an MoE layer
 routes apart (:func:`repro_torch.models.moe.moe_apply`).
+
+Under a mesh-bound step's FSDP hints the leaves a ``cfg.fsdp`` config
+splits over ``"data"`` are the rank's pieces: ``forward`` and
+``decode_step`` gather each layer's just before its block (inside the
+checkpointed group, so the recompute gathers again), the embedding and
+head where they are read (:func:`repro_torch.models.layers.fsdp_gather`).
 """
 
 from __future__ import annotations
@@ -368,17 +374,18 @@ def vocab_piece(cfg: ModelConfig):
 
 
 def _embed_tokens(params, cfg: ModelConfig, tok):
+    embed = layers.fsdp_gather(params["embed"], "embed")
     vp = vocab_piece(cfg)
     if vp is None:
-        x = params["embed"][tok.long()].to(cfg.cdtype)
+        x = embed[tok.long()].to(cfg.cdtype)
     else:
         # vocab-parallel: the rank's rows, zeros for the ids it does not
         # hold, summed over "model"
         t, lo, n = vp
-        layers._split(t, params["embed"], 0, cfg.vocab)
+        layers._split(t, embed, 0, cfg.vocab)
         ids = tok.long() - lo
         mine = (ids >= 0) & (ids < n)
-        rows = params["embed"][ids.clamp(0, n - 1)]
+        rows = embed[ids.clamp(0, n - 1)]
         rows = torch.where(mine[..., None], rows, torch.zeros(
             (), dtype=rows.dtype, device=rows.device))
         x = tpo.out_of_tp(rows, t.mesh).to(cfg.cdtype)
@@ -414,15 +421,13 @@ def _logits(params, cfg: ModelConfig, x):
     vocab columns when a tensor-parallel region splits the vocab
     (:func:`vocab_piece`)."""
     x = layers.rmsnorm(params["final_norm"], x)
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head = layers.fsdp_gather(params[name], name)
     vp = vocab_piece(cfg)
     if vp is not None:
-        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         layers._split(vp[0], head, 0 if cfg.tie_embeddings else 1, cfg.vocab)
         x = tpo.into_tp(x, vp[0].mesh)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["lm_head"]
+    logits = x @ (head.T if cfg.tie_embeddings else head)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -461,9 +466,14 @@ def forward(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
         aux = dict(zip(AUX_KEYS, aux_vals))
         for idx in idxs:
             for pidx, kind in enumerate(kinds):
+                # FSDP: the layer's leaves gathered over "data" here,
+                # inside the checkpointed group (the recompute gathers
+                # again), and dropped before the next layer gathers
+                bp = layers.fsdp_gather(layers_p[pidx][idx], "streams",
+                                        pidx, lead=1)
                 x, src, layer_aux = _apply_block(
-                    layers_p[pidx][idx], x, cfg, kind, keys[idx][pidx],
-                    ep_groups, dp_groups)
+                    bp, x, cfg, kind, keys[idx][pidx], ep_groups, dp_groups)
+                del bp
                 if layer_aux is not None:
                     aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
                 if collect_cache:
@@ -734,10 +744,13 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens,
     n = cfg.n_layers // len(kinds)
     for idx in range(n):
         for pidx, kind in enumerate(kinds):
-            x = _decode_block(_index(params["streams"][pidx], idx), x,
-                              cfg, kind, _index(state.caches[pidx], idx),
+            bp = layers.fsdp_gather(_index(params["streams"][pidx], idx),
+                                    "streams", pidx, lead=1)
+            x = _decode_block(bp, x, cfg, kind,
+                              _index(state.caches[pidx], idx),
                               state.length, keys[idx][pidx], ep_groups,
                               dp_groups)
+            del bp
     logits = _logits(params, cfg, x)
     return logits, DecodeState(caches=state.caches,
                                length=state.length + 1)

@@ -27,11 +27,27 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_sizes
-from repro_torch.models.transformer import tree_map
 
 #: (default process group, mesh, axes) -> this rank's group over several
 #: mesh axes
 _GROUPS: dict = {}
+
+
+def tree_map(fn, tree):
+    """``tree`` (tensors in dicts, lists, tuples and NamedTuples) holding
+    ``fn(leaf)`` at each leaf, called in the JAX package's leaf order
+    (mapping keys sorted).  A plain recursive function, not a closure, so
+    no reference cycle keeps a leaf alive; it imports nothing of the
+    models, so the models can import this module."""
+    if isinstance(tree, dict):
+        out = {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if hasattr(tree, "_fields"):                       # NamedTuple
+        return type(tree)(*(tree_map(fn, x) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, x) for x in tree]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(tree)
 
 
 def _axes(axes) -> tuple:

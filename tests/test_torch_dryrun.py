@@ -669,6 +669,126 @@ def test_a_probed_train_cell_counts_as_the_whole_step(no_world):
 
 
 # ---------------------------------------------------------------------------
+# FSDP's per-layer gathers and fault F6 in the dry-run
+# ---------------------------------------------------------------------------
+
+def _fsdp_trace(mesh_shape, fsdp: bool, monkeypatch, rows_a_rank: int = 2):
+    """Smoke llama4 (``fsdp`` as given) one train step traced on a fake
+    world of ``mesh_shape``, each data rank holding ``rows_a_rank`` rows of
+    16: ``(cost, got)``, ``got`` rank 0's FSDP piece bytes of the stacked
+    leaves and of the others, the operand bytes of the model's gathers
+    over ``"data"`` (``tensor_parallel._gather``) and their count."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import dp_size
+    from repro_torch.models import tensor_parallel as tpo
+
+    arch = "llama4_maverick_400b_a17b"
+    cfg = dataclasses.replace(cb.smoke_config(arch), fsdp=fsdp)
+    n = int(np.prod(mesh_shape))
+    got = dict(stacked=0, other=0, gathered=0, gathers=0)
+    gather = tpo._gather
+
+    def counted(x, group, size, dim):
+        if dist.get_process_group_ranks(group) == data_ranks:
+            got["gathered"] += x.numel() * x.element_size()
+            got["gathers"] += 1
+        return gather(x, group, size, dim)
+
+    with dryrun.fake_world(n), monkeypatch.context() as mp:
+        mesh = dryrun._mesh(tuple(mesh_shape), torch.device("cpu"))
+        data_ranks = dist.get_process_group_ranks(mesh.get_group("data"))
+        mp.setattr(tpo, "_gather", counted)
+        dp = dp_size(mesh)
+        cell = ShapeCell("smoke_train", "train", 16, rows_a_rank * dp)
+        cost, _ = dryrun.trace_cell(arch, "smoke_train", True,
+                                    microbatches=1, device="cpu", cell=cell,
+                                    mesh_shape=mesh_shape, cfg=cfg)
+        params = tfm.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                              steps.init_shapes(cfg)[0])
+        p, _ = steps.shard_train_state(cfg, mesh, params,
+                                       adamw_init(params))
+        for path, leaf in tfm.tree_items(p):
+            if shd.fsdp_dim(leaf) is None and leaf.to_local().numel() % (
+                    mesh_shape[-2]) == 0:
+                # summed by the tree all-reduce: reduce-scattered in a pod
+                got["tree"] = got.get("tree", 0) + \
+                    leaf.to_local().numel() * leaf.element_size()
+            if shd.fsdp_dim(leaf) is not None:
+                got["stacked" if path[0] == "streams" else "other"] += \
+                    leaf.to_local().numel() * leaf.element_size()
+                got["layers"] = got.get("layers", 0) + (
+                    leaf.shape[0] if path[0] == "streams" else 0)
+                got["heads"] = got.get("heads", 0) + (path[0] != "streams")
+    got["data"] = mesh_shape[-2]
+    return cost, got
+
+
+def test_an_fsdp_train_cell_gathers_each_layer_and_reduce_scatters_back(
+        no_world, monkeypatch):
+    """Smoke llama4 with ``fsdp`` on a fake (2, 2, 2) world: the model
+    gathers over ``"data"`` each FSDP piece of a layer twice (the forward
+    and its recompute) and the embedding's and head's once, one gather
+    a leaf and layer, and ``coll_by_op`` counts those operands among its
+    ``all_gather_into_tensor`` bytes; its ``reduce_scatter_tensor``
+    operands are each gathered leaf once (``data`` times the piece) and
+    the other leaves' gradients, which the tree all-reduce reduce-scatters
+    inside the pod.  Without ``fsdp`` nothing is gathered over ``"data"``
+    (the tensor-parallel heads and vocabulary gather nothing in a train
+    step) and every leaf's gradient goes through the tree all-reduce."""
+    cost, b = _fsdp_trace((2, 2, 2), True, monkeypatch)
+    assert b["stacked"] > 0 and b["other"] > 0
+    assert b["gathers"] == 2 * b["layers"] + b["heads"]
+    assert b["gathered"] == 2 * b["stacked"] + b["other"]
+    assert cost.coll_by_op["all_gather_into_tensor"] >= b["gathered"]
+    assert cost.coll_by_op["reduce_scatter_tensor"] == b["data"] * (
+        b["stacked"] + b["other"]) + b["tree"]
+    plain, b0 = _fsdp_trace((2, 2, 2), False, monkeypatch)
+    assert b0["stacked"] == b0["other"] == b0["gathers"] == 0
+    assert plain.coll_by_op["reduce_scatter_tensor"] == b0["tree"]
+    assert b0["tree"] > b["tree"]
+
+
+def test_an_fsdp_train_cells_peak_falls_as_the_data_axis_grows(
+        no_world, monkeypatch):
+    """The same step, each data rank holding 2 rows, on (2, 2, 2) and
+    (2, 4, 2): a rank's arguments (its pieces of the weights and moments)
+    and its peak fall as the data axis grows; without ``fsdp`` the
+    arguments stay (the moments' ZeRO shards fall, the weights do not)
+    and more than the FSDP step's."""
+    fsdp2, _ = _fsdp_trace((2, 2, 2), True, monkeypatch)
+    fsdp4, _ = _fsdp_trace((2, 4, 2), True, monkeypatch)
+    assert fsdp4.arg_bytes < fsdp2.arg_bytes
+    assert fsdp4.peak_bytes < fsdp2.peak_bytes
+    plain4, _ = _fsdp_trace((2, 4, 2), False, monkeypatch)
+    assert plain4.arg_bytes > fsdp4.arg_bytes
+    assert plain4.peak_bytes > fsdp4.peak_bytes
+
+
+@pytest.mark.parametrize("arch", ("gemma2_2b", "moonshot_v1_16b_a3b"))
+def test_a_train_cell_whose_microbatch_the_data_shards_do_not_divide_traces(
+        arch, no_world):
+    """Fault F6 in the dry-run: a batch of 4 rows in 2 microbatches on a
+    fake (2, 2, 2) world (2 rows a microbatch, 4 data shards) traces, each
+    rank computing both microbatches whole, so it counts more FLOPs than
+    the same step with 8 rows in 2 (a row a rank a microbatch); a batch
+    the data shards do not divide is still refused."""
+    cfg = cb.smoke_config(arch)
+    costs = {}
+    with dryrun.fake_world(8):
+        for rows in (4, 8):
+            cell = ShapeCell("smoke_train", "train", 16, rows)
+            costs[rows], _ = dryrun.trace_cell(
+                arch, "smoke_train", True, microbatches=2, device="cpu",
+                cell=cell, mesh_shape=(2, 2, 2), cfg=cfg)
+        with pytest.raises(ValueError, match="does not split"):
+            dryrun.trace_cell(arch, "smoke_train", True, microbatches=2,
+                              device="cpu", cfg=cfg, mesh_shape=(2, 2, 2),
+                              cell=ShapeCell("smoke_train", "train", 16, 6),
+                              probe=True)
+    assert costs[4].flops > costs[8].flops > 0
+
+
+# ---------------------------------------------------------------------------
 # variants
 # ---------------------------------------------------------------------------
 

@@ -107,8 +107,8 @@ In order, it
    phase 11, the tuner's summary, the ``train`` line of phase 12, the
    ``train_families`` line of phase 13, the ``distributed`` line of phase
    14, the ``sharded`` line of phase 15, the ``dryrun`` line of phase 16,
-   the ``tp`` line of phase 17, the ``fsdp`` line of phase 18, the card
-   line and last the device line;
+   the ``tp`` line of phase 17, the ``fsdp`` line of phase 18, the ``seq``
+   line of phase 19, the card line and last the device line;
 10. runs the eleventh slice's path, Table I by search, between phase 8
    and the lines of 9: the DLB-knob tuner (``repro_torch.core.tune``) on
    ``cuda_fused``, launch counts zeroed before each part.  (a) Each of the
@@ -272,34 +272,37 @@ In order, it
    + TP expansion, 4 x 1024, Dh 128, bf16) within 2e-2 of its twin,
    timed; (c) the dispatch into moonshot's tp = 16 rank's 4 experts (T =
    4096, D = 2048, k = 6) bitwise its twin, timed beside its bound and
-   ``index_put_``; then, with nothing timed, (d) ``train_4k`` of
-   gemma2_2b and moonshot (yi_9b's and mistral_nemo_12b's cells since
-   phase 18 left out) on both production meshes dry-run on the card's
-   fake tensors (one subprocess each, all started at once, with phase
-   18 (a)'s, below the worlds in the host's scheduler), gemma2_2b's
-   (16, 16) cell also on the CPU's, those records equal, while (e) a tensor-parallel world of two gloo processes
-   on the card (a (1, 2) mesh; NCCL takes one rank a device) runs
-   gemma2_2b and moonshot at full width, 2 layers, float32: each rank's
-   pieces through ``loss_fn``'s value and gradient, ``make_prefill_step``
-   and ``make_serve_step`` against the whole weights in the same process
-   (loss, gradients and logits within ``TP_TOL``, ids equal, every rank's
-   routing alike and within ``TP_ROUTE_FLIPS`` of the whole run's, the
-   same launches), then phase 18 (b) and (c);
+   ``index_put_`` (each the median of 7 timed runs); then, with nothing
+   timed, (d) ``train_4k`` of gemma2_2b and moonshot (yi_9b's and
+   mistral_nemo_12b's cells since phase 18 left out) on both production
+   meshes dry-run on the card's fake tensors (one subprocess each, all
+   started before phase 13 with phases 18 (a)'s and 19 (a)'s, below the
+   card's work in the host's scheduler), gemma2_2b's (16, 16) cell also
+   on the CPU's, those records equal; (e) a tensor-parallel world of two
+   gloo processes on the card (a (1, 2) mesh; NCCL takes one rank a
+   device) runs moonshot at full width, 2 layers, float32 (gemma2_2b's
+   tensor-parallel path runs in phase 18 (b)'s world since phase 19):
+   each rank's pieces through ``loss_fn``'s value and gradient,
+   ``make_prefill_step`` and ``make_serve_step`` against the whole
+   weights in the same process (loss, gradients and logits within
+   ``TP_TOL``, ids equal, every rank's routing alike and within
+   ``TP_ROUTE_FLIPS`` of the whole run's, the same launches), then phase
+   18 (b) and (c);
 18. runs the nineteenth slice's path, FSDP's per-layer gathers over
    ``"data"``, after phase 17: (a) ``train_4k`` of llama4_maverick and
    nemotron on both production meshes dry-run on the card's fake
-   tensors (started beside phase 17 (d)'s), nemotron's (2, 16, 16) cell
+   tensors (started with phase 17 (d)'s), nemotron's (2, 16, 16) cell
    (fault F6's: microbatches the data shards do not divide) also on the
    CPU's, those records equal; llama4's cells and nemotron's (16, 16)
    fit, and each cell's ``coll_by_op`` holds FSDP's all-gathers and its
-   gradients' reduce-scatters; with nothing timed, beside the dry-runs of
-   (a) and phase 17 (d) after phase 17 (e), (b) a (2, 2)
+   gradients' reduce-scatters; with nothing timed, after phase 17 (e),
+   (b) a (2, 2)
    ``("data", "model")`` world of four gloo processes on the card runs
    gemma2_2b with ``fsdp`` at full width, 2 layers, float32, as
    DTensors made from each rank's own blocks (FSDP and tensor
    parallelism in one leaf): 2 train steps with 1 and with 2
    microbatches of 4 x 256 tokens, a prefill and 4 greedy decode steps
-   through the
+   (caches of 264 slots) through the
    mesh-bound steps, against the one-device steps on the whole weights
    (losses, ``grad_norm``, the last step's AdamW moments and logits
    within ``TP_TOL``,
@@ -307,7 +310,20 @@ In order, it
    at full width, 1 layer, bf16: a 2 x 512 prefill on the whole weights
    in this process, then on a data = 2 world of two processes (logits
    within 2e-2 of the largest, each process's peak memory below the
-   whole run's).
+   whole run's);
+19. runs the twentieth slice's path, the KV caches' sequence split, after
+   phase 18: (a) nemotron_4_340b's and llama4_maverick's ``decode_32k``
+   and gemma2_2b's ``long_500k`` on the (16, 16) mesh dry-run on the
+   card's fake tensors and on the CPU's (started with phase 17 (d)'s),
+   the records equal, each below the GiB a rank of the step that kept the
+   rank's heads' caches whole (nemotron's below 20, llama4's below 15)
+   and counting the merge's all-reduces; (b) in phase 18 (b)'s world, the
+   serve's caches on each rank hold every KV head and 264 / 2 slots (the
+   rank's block over ``"model"``), the 4 greedy decode steps' logits
+   within 1e-5 of the whole weights'; then one lane of the same prompt,
+   the one-device prefill's state placed by ``shard_decode_state``,
+   decodes 4 greedy steps with its caches split 4 ways over ``("data",
+   "model")`` (264 / 4 slots a rank): ids equal, logits within 1e-5.
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
@@ -320,6 +336,7 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1431,8 +1448,8 @@ def moe_phase(torch, dev, reg):
                                                 capacity=C), 50, torch)
     plain_ms = cuda_time_ms(lambda i: mref.moe_dispatch(x0, e0, p0, E, C),
                             20, torch)
-    nbytes, rows_read, lib_ms, lib = dispatch_cost(torch, x0, e0, p0, E,
-                                                   C)
+    nbytes, rows_read, (lib_ms,), lib = dispatch_cost(torch, x0, e0, p0,
+                                                      E, C)
     lib_same = bool(torch.equal(lib, mref.moe_dispatch(x0, e0, p0, E, C)))
     del lib
     with profile(activities=[ProfilerActivity.CPU,
@@ -3521,12 +3538,13 @@ def dryrun_phase(torch, dev, reg):
     main_launches = dict.fromkeys(reg.KERNELS, 0)
     tmp = tempfile.mkdtemp(prefix="repro_dryrun_")
     try:
-        # (a) the CLI on the card's fake tensors and on the CPU's
-        recs = {}
-        for device in (None, "cpu"):
-            d = str(Path(tmp) / (device or "default"))
-            rec = dryrun_cli(d, device)
-            recs[rec["device"]] = rec
+        # (a) the CLI on the card's fake tensors and on the CPU's, the two
+        # subprocesses at once
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            futures = [pool.submit(dryrun_cli, str(
+                Path(tmp) / (device or "default")), device)
+                for device in (None, "cpu")]
+            recs = {r["device"]: r for r in (f.result() for f in futures)}
         a, b = recs.values()
         diff = [k for k in DRYRUN_COUNTS if a[k] != b[k]]
         check(a["device"] != b["device"] and not diff,
@@ -3672,6 +3690,9 @@ def dryrun_phase(torch, dev, reg):
 #: moonshot at tp = 16: 4 of the 64 experts (rank 5's, [20, 24))
 TP_FLASH_SHAPE = (4, 2, 2, 1024, 128)
 TP_MOE = dict(T=4096, D=2048, k=6, E=64, tp=16, rank=5)
+#: (c)'s dispatch and ``index_put_`` are each the median of this many
+#: timed runs
+TP_TIMED_RUNS = 7
 #: (d): the train cells dry-run on the card's fake tensors, beside the GiB
 #: a rank on (16, 16) / (2, 16, 16) of the step that gathered every weight
 #: whole (PERF.md section 5); TP_DRYRUN_CPU's cell also on the CPU's, the
@@ -3691,21 +3712,24 @@ TP_DRYRUN_CPU = (("gemma2_2b", "pod1"),)
 #: at most TP_ROUTE_FLIPS of its tokens, and every model rank's tables
 #: are bitwise alike
 TP_WORLD = 2
-TP_WORLD_ARCHS = (("gemma2_2b", 2), ("moonshot_v1_16b_a3b", 2))
+#: gemma2_2b's tensor-parallel path runs in phase 18 (b)'s world (with
+#: ``fsdp``, through the real mesh-bound steps), so this one holds the
+#: expert-parallel MoE layer alone
+TP_WORLD_ARCHS = (("moonshot_v1_16b_a3b", 2),)
 TP_B, TP_S, TP_GEN = 2, 1024, 4
 TP_TOL = 1e-4
 TP_ROUTE_FLIPS = 1e-2
 TP_WORLD_TIMEOUT_S = 300
 
 
-def dispatch_cost(torch, x, ve, pos, E, C):
+def dispatch_cost(torch, x, ve, pos, E, C, runs: int = 1):
     """The dispatch's least bytes on these inputs and one library call's
     time: the rows of ``x`` that a kept slot reads (each read once), both
     (T, k) tables read once and the (E, C, D) buffer written once, no
     arithmetic; the library call is ``index_put_`` of the kept slots' rows
     into a zeroed buffer (no slot is written twice, so no
-    ``accumulate``).  Returns (bytes, rows read, library ms, the library
-    call's buffer)."""
+    ``accumulate``).  Returns (bytes, rows read, the library call's ms in
+    each of ``runs`` timed runs, the library call's buffer)."""
     keep = ve >= 0
     rows = int(keep.any(-1).sum())
     D, size = x.shape[1], x.element_size()
@@ -3717,7 +3741,8 @@ def dispatch_cost(torch, x, ve, pos, E, C):
         return torch.zeros((E * C, D), dtype=x.dtype,
                            device=x.device).index_put_((flat,), src)
 
-    lib_ms = cuda_time_ms(lambda i: library(), 20, torch)
+    lib_ms = [cuda_time_ms(lambda i: library(), 20, torch)
+              for _ in range(runs)]
     return nbytes, rows, lib_ms, library().reshape(E, C, D)
 
 
@@ -3999,32 +4024,38 @@ def tp_world_check(ranks: list, reg):
                           route_flips=TP_ROUTE_FLIPS)
 
 
-class Dryruns:
-    """``train_4k`` of each ``archs`` config on both meshes on the card's
-    fake tensors, and the ``cpu`` cells (``(arch, mesh)``) again on the
-    CPU's, one subprocess each (one thread), all started together, the
-    longest first (phase 17 (d), phase 18 (a)); :meth:`wait` reads the
-    records (each process must exit 0), :meth:`stop` kills any still
-    running and removes the records."""
+def train_cells(archs, cpu) -> list:
+    """The :class:`Dryruns` cells of ``train_4k`` of each ``archs`` config
+    on both meshes on the card's fake tensors, and the ``cpu`` cells
+    (``(arch, mesh)``) again on the CPU's (phase 17 (d), phase 18
+    (a))."""
+    return [(arch, "train_4k", mp, "cuda") for arch in archs
+            for mp in ("pod1", "pod2")] + [
+        (arch, "train_4k", mp, "cpu") for arch, mp in cpu]
 
-    def __init__(self, archs, cpu):
+
+class Dryruns:
+    """The dry-run of each cell ``(arch, shape, mesh, device)``, the card's
+    fake tensors or the CPU's, one subprocess each (one thread), all
+    started together, the longest first (phases 17 (d), 18 (a) and 19
+    (a)); :meth:`wait` reads the records (each process must exit 0),
+    :meth:`stop` kills any still running and removes the records."""
+
+    def __init__(self, cells):
         import os
         import tempfile
 
         self.dir = Path(tempfile.mkdtemp(prefix="repro_dryrun_"))
         env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-        cells = [(arch, mp, "cuda") for arch in archs
-                 for mp in ("pod1", "pod2")]
-        cells += [(arch, mp, "cpu") for arch, mp in cpu]
         self.procs = {}
-        for arch, mp, device in cells:
+        for arch, shape, mp, device in cells:
             argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                    "--arch", arch, "--shape", "train_4k", "--force",
+                    "--arch", arch, "--shape", shape, "--force",
                     "--out", str(self.dir / device)]
             argv += (["--multi-pod"] if mp == "pod2" else []) + (
                 ["--device", "cpu"] if device == "cpu" else [])
             # below the card's worlds in the host's scheduler
-            self.procs[(arch, mp, device)] = subprocess.Popen(
+            self.procs[(arch, shape, mp, device)] = subprocess.Popen(
                 argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True, cwd=ROOT, env=env,
                 preexec_fn=lambda: os.nice(10))
@@ -4042,8 +4073,8 @@ class Dryruns:
                                    f"{timeout_s} s")
             check(proc.returncode == 0, f"the dry-run of {key} failed (rc "
                   f"{proc.returncode}): {log[-3000:]}")
-            arch, mp, device = key
-            with open(self.dir / device / f"{arch}__train_4k__{mp}.json") \
+            arch, shape, mp, device = key
+            with open(self.dir / device / f"{arch}__{shape}__{mp}.json") \
                     as f:
                 records[key] = json.load(f)
         return records
@@ -4067,8 +4098,8 @@ def dryrun_records(records, archs, label, before) -> dict:
     out = {}
     for arch, was_both in archs.items():
         for mp, was in zip(("pod1", "pod2"), was_both):
-            a = records[(arch, mp, "cuda")]
-            c = records.get((arch, mp, "cpu"))
+            a = records[(arch, "train_4k", mp, "cuda")]
+            c = records.get((arch, "train_4k", mp, "cpu"))
             diff = [k for k in DRYRUN_COUNTS
                     if c is not None and a.get(k) != c.get(k)]
             check("error" not in a and not diff,
@@ -4104,13 +4135,13 @@ def tp_phase(torch, dev, reg, sharded, later: dict, beside=None):
     the region is the identity, bitwise the one-device step (``sharded``,
     phase 15's report; not run again); (b) flash at a tp = 16 rank's shape
     of yi_9b against its twin; (c) the dispatch into a tp = 16 rank's 4
-    experts of moonshot, bitwise its twin; then, with nothing timed, (d)
-    the train cells' dry-run traces start (:class:`Dryruns`; phase 18
-    (a)'s with them, in ``later["dryruns"]``), (e) a tp = 2 world of
-    processes runs the model's tensor-parallel path on the card beside
-    them (:func:`tp_world`), then ``beside()`` (phase 18 (b) and (c); its
-    result in ``later["beside"]``), and (d)'s records are read: the
-    card's fake tensors, one cell also on the CPU's, those records equal.
+    experts of moonshot, bitwise its twin; then, with nothing timed, (e)
+    a tp = 2 world of processes runs the model's tensor-parallel path on
+    the card (:func:`tp_world`), then ``beside()`` (phase 18 (b) and (c);
+    its result in ``later["beside"]``), and (d)'s train cells' dry-runs
+    (:class:`Dryruns`, started before phase 13: ``later["tp_dryruns"]``)
+    are read: the card's fake tensors, one cell also on the CPU's, those
+    records equal.
     Returns ((e)'s rank 0 launches by kernel, report)."""
     from repro_torch.configs import base as cb
     from repro_torch.core import balance
@@ -4172,36 +4203,45 @@ def tp_phase(torch, dev, reg, sharded, later: dict, beside=None):
           "the dispatch at moonshot's tp=16 rank shape differs from its "
           "twin")
     kept = int((e_loc >= 0).sum())
-    ms = cuda_time_ms(lambda i: md.moe_dispatch(
+    # a launch-bound call whose times spread between runs: the median of
+    # TP_TIMED_RUNS timed runs of each
+    runs = [cuda_time_ms(lambda i: md.moe_dispatch(
         x, e_loc, pos, n_experts=n_loc, capacity=C), 50, torch)
+        for _ in range(TP_TIMED_RUNS)]
+    ms = statistics.median(runs)
     plain_ms = cuda_time_ms(lambda i: kref.moe_dispatch(
         x, e_loc, pos, n_loc, C), 20, torch)
-    nbytes, rows, lib_ms, lib = dispatch_cost(torch, x, e_loc, pos, n_loc,
-                                              C)
+    nbytes, rows, lib_runs, lib = dispatch_cost(
+        torch, x, e_loc, pos, n_loc, C, runs=TP_TIMED_RUNS)
+    lib_ms = statistics.median(lib_runs)
     bnd, by = bound_ms(nbytes, 0)
     out["dispatch"] = dict(T=T, D=D, k=kk, experts=list(experts),
                            capacity=C, kept_slots=kept, rows_read=rows,
-                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           ms=ms, ms_runs=runs, library_ms_runs=lib_runs,
+                           plain_ms=plain_ms, library_ms=lib_ms,
                            library_same=bool(torch.equal(lib, want)),
                            bytes=nbytes, bound_ms=bnd, bound_by=by,
                            bitwise=True)
     print(f"tp (c): moe_dispatch at moonshot's tp=16 rank shape, T={T} "
           f"D={D} k={kk} into experts [{experts[0]}, {experts[0] + n_loc})"
           f" x {C} bf16 ({kept} of {e_loc.numel()} slots kept, {rows} rows"
-          f" of x read): bitwise the twin; {ms:.4f} ms a call "
+          f" of x read): bitwise the twin; {ms:.4f} ms a call (the "
+          f"median of {TP_TIMED_RUNS} runs: {[round(t, 4) for t in runs]})"
+          f" "
           f"({ms / bnd:.2f}x its bound {bnd:.5f} ms by {by}, {nbytes} "
           f"bytes), twin {plain_ms:.4f} ms, index_put_ of the kept rows "
-          f"{lib_ms:.4f} ms (equal to the twin's buffer: "
+          f"{lib_ms:.4f} ms (median of "
+          f"{[round(t, 4) for t in lib_runs]}; equal to the twin's buffer: "
           f"{out['dispatch']['library_same']})", flush=True)
     del x, ve, pos, e_loc, got, want, lib
     torch.cuda.empty_cache()
 
-    # (d) the train cells' dry-run traces start, and phase 18 (a)'s (read
-    # there); (e) the tensor-parallel world, then ``beside`` (phase 18 (b)
-    # and (c)), run beside them (nothing in any is timed)
+    # (d) the train cells' dry-run traces (started before phase 13 with
+    # phases 18 (a)'s and 19 (a)'s: ``later["tp_dryruns"]``); (e) the
+    # tensor-parallel world, then ``beside`` (phase 18 (b) and (c)), and
+    # (d)'s records read (nothing in any is timed)
     t_d = time.perf_counter()
-    dryruns = Dryruns(TP_DRYRUN_ARCHS, TP_DRYRUN_CPU)
-    later["dryruns"] = Dryruns(FSDP_DRYRUN_ARCHS, FSDP_DRYRUN_CPU)
+    dryruns = later["tp_dryruns"]
     try:
         launches, out["world"] = tp_world(torch, reg)
         out["world_s"] = time.perf_counter() - t_d
@@ -4213,8 +4253,8 @@ def tp_phase(torch, dev, reg, sharded, later: dict, beside=None):
     out["dryrun_s"] = time.perf_counter() - t_d
     out["dryrun"] = dryrun_records(records, TP_DRYRUN_ARCHS, "tp (d)",
                                    "every weight gathered")
-    print(f"tp (d), (e): {len(records)} dry-runs and the tp = 2 world "
-          f"({out['world_s']:.1f} s; then phase 18 (b), (c)) in "
+    print(f"tp (d), (e): the tp = 2 world ({out['world_s']:.1f} s), then "
+          f"phase 18 (b), (c), then {len(records)} dry-runs read, in "
           f"{out['dryrun_s']:.1f} s", flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"tp phase took {out['phase_s']:.1f} s", flush=True)
@@ -4243,6 +4283,19 @@ FSDP_B, FSDP_S, FSDP_STEPS, FSDP_TOTAL, FSDP_GEN = 4, 256, 2, 20, 5
 #: prefill of the same weights, logits within ``tol`` of the largest
 FSDP_BIG = dict(arch="nemotron_4_340b", layers=1, B=2, S=512, world=2,
                 tol=2e-2)
+#: phase 19: the KV caches' sequence split.  (a) decode cells dry-run on
+#: the card's fake tensors and on the CPU's, the records equal, beside the
+#: GiB a rank of the step that kept the rank's heads' caches whole
+#: (PERF.md section 5, in brackets)
+SEQ_DRYRUN_CELLS = {("nemotron_4_340b", "decode_32k"): 60.83,
+                    ("llama4_maverick_400b_a17b", "decode_32k"): 32.10,
+                    ("gemma2_2b", "long_500k"): 28.7}
+#: (b) in phase 18 (b)'s world: the caches' slots (a multiple of the
+#: world's 4 ranks, so that a one-lane batch splits them over "data" and
+#: "model" together), decode logits within SEQ_TOL of the whole weights'
+#: (relative to the largest)
+SEQ_SLOTS = 4 * -(-(FSDP_S + FSDP_GEN) // 4)
+SEQ_TOL = 1e-5
 
 
 def fsdp_world_cfg():
@@ -4347,6 +4400,7 @@ def fsdp_world_rank(torch, rank: int, world: int, store: str, path: str,
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import steps
+    from repro_torch.models import tensor_parallel as tpo
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import AdamWState, adamw_init
 
@@ -4362,6 +4416,27 @@ def fsdp_world_rank(torch, rank: int, world: int, store: str, path: str,
                             timeout=datetime.timedelta(seconds=120))
     out = {}
     t0 = time.perf_counter()
+    # phase 19 (b): the mesh-bound serve step's logits (gathered over a
+    # vocabulary split over "model"), read where it takes its greedy ids
+    greedy0, mesh_logits = tfm.greedy_ids, []
+
+    def greedy(logits, c):
+        vp = tfm.vocab_piece(c)
+        mesh_logits.append(logits if vp is None else
+                           tpo.gather_over_model(logits, vp[0].mesh))
+        return greedy0(logits, c)
+
+    def decode_whole(state, tok):
+        """FSDP_GEN - 1 greedy steps of the whole weights: (ids, each
+        step's logits)."""
+        ids, lgs = [tok], []
+        for _ in range(FSDP_GEN - 1):
+            lg, state = tfm.decode_step(params, cfg, state, tok)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            ids.append(tok)
+            lgs.append(lg)
+        return torch.stack(ids, 1), torch.stack(lgs)
+
     try:
         mesh = mesh_mod.make_test_mesh(*FSDP_WORLD, device=dev.type)
         cfg = fsdp_world_cfg()
@@ -4370,7 +4445,7 @@ def fsdp_world_rank(torch, rank: int, world: int, store: str, path: str,
         batches = [{k: torch.as_tensor(v, device=dev) for k, v in
                     batch_for(cfg, i, FSDP_B, FSDP_S).items()}
                    for i in range(FSDP_STEPS)]
-        max_len = FSDP_S + FSDP_GEN
+        max_len = SEQ_SLOTS
         dp = mesh_mod.dp_size(mesh)
         rows = slice(mesh_mod.dp_index(mesh) * FSDP_B // dp,
                      (mesh_mod.dp_index(mesh) + 1) * FSDP_B // dp)
@@ -4401,15 +4476,22 @@ def fsdp_world_rank(torch, rank: int, world: int, store: str, path: str,
                 with torch.no_grad():
                     logits, state = tfm.prefill(params, cfg, batches[0],
                                                 max_len)
-                    tok = torch.argmax(logits, -1).to(torch.int32)
-                    ids = [tok]
-                    for _ in range(FSDP_GEN - 1):
-                        lg, state = tfm.decode_step(params, cfg, state, tok)
-                        tok = torch.argmax(lg, -1).to(torch.int32)
-                        ids.append(tok)
+                    ids, lgs = decode_whole(state, torch.argmax(
+                        logits, -1).to(torch.int32))
+                    # phase 19 (b): the first lane alone, its prefill's
+                    # state kept (decoding writes into the caches)
+                    lg1, one = tfm.prefill(params, cfg, {
+                        k: v[:1] for k, v in batches[0].items()}, max_len)
+                    whole["one_state"] = tfm.DecodeState(
+                        caches=tuple({k: v.clone() for k, v in c.items()}
+                                     for c in one.caches),
+                        length=one.length.clone())
+                    whole["one_ids"], whole["one_logits"] = decode_whole(
+                        one, torch.argmax(lg1, -1).to(torch.int32))
                 whole["logits"] = logits[rows].clone()
-                whole["ids"] = torch.stack(ids, 1)[rows]
-                del logits, state, lg, ids
+                whole["ids"] = ids[rows]
+                whole["decode_logits"] = lgs[:, rows].clone()
+                del logits, state, lgs, ids, lg1, one
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
                     torch.cuda.empty_cache()
@@ -4452,15 +4534,37 @@ def fsdp_world_rank(torch, rank: int, world: int, store: str, path: str,
                                  mesh)
         ids = [tok.to_local()]
         serve = steps.make_serve_step(cfg, mesh, FSDP_B, max_len)
-        for _ in range(FSDP_GEN - 1):
-            tok, state = serve(p, state, tok)
-            ids.append(tok.to_local())
+        tfm.greedy_ids = greedy
+        try:
+            for _ in range(FSDP_GEN - 1):
+                tok, state = serve(p, state, tok)
+                ids.append(tok.to_local())
+            # phase 19 (b): one lane, every rank its block of the first
+            # lane's whole state over ("data", "model")
+            one = steps.shard_decode_state(cfg, mesh, whole["one_state"])
+            one_ids = [whole["one_ids"][:, 0]]
+            serve1 = steps.make_serve_step(cfg, mesh, 1, max_len)
+            for _ in range(FSDP_GEN - 1):
+                tok1, one = serve1(p, one, one_ids[-1])
+                one_ids.append(tok1.to_local())
+        finally:
+            tfm.greedy_ids = greedy0
         if dev.type == "cuda":
             torch.cuda.synchronize()
         launches = registry.launch_counts()
         out["serve_s"] = time.perf_counter() - t0 - out["whole_s"] \
             - out["train_s"]
         errs["logits"] = _rel(logits, whole["logits"])
+        n = FSDP_GEN - 1
+        out["seq"] = dict(
+            slots=[list(c["k"].shape) for c in state.caches],
+            one_slots=[list(c["k"].shape) for c in one.caches],
+            decode_logits=_rel(torch.stack(mesh_logits[:n]),
+                               whole["decode_logits"]),
+            one_logits=_rel(torch.stack(mesh_logits[n:]),
+                            whole["one_logits"]),
+            one_ids_equal=bool(torch.equal(torch.stack(one_ids, 1),
+                                           whole["one_ids"])))
         leaves = tfm.tree_leaves(p)
         out.update(
             errs=errs, ids_equal=bool(torch.equal(
@@ -4839,7 +4943,7 @@ def fsdp_worlds(torch, dev, reg):
 
 def fsdp_phase(torch, dev, reg, later: dict):
     """Phase 18: FSDP's per-layer gathers over ``"data"``.  (b) and (c)
-    (:func:`fsdp_worlds`) ran beside phase 17 (d)'s dry-runs
+    (:func:`fsdp_worlds`) ran in phase 17 after its world
     (``later["beside"]``); here (a)'s ``train_4k`` dry-runs of
     ``FSDP_DRYRUN_ARCHS`` (the card's fake tensors, F6's cell also the
     CPU's: ``later["dryruns"]``, started with phase 17 (d)'s) are read
@@ -4857,9 +4961,87 @@ def fsdp_phase(torch, dev, reg, later: dict):
     fsdp_dryrun_gates(out["dryrun"])
     out["wait_s"] = time.perf_counter() - t_phase
     print(f"fsdp phase: (b) {out['world_s']:.1f} s and (c) "
-          f"{out['big_s']:.1f} s beside phase 17 (d)'s dry-runs, then "
+          f"{out['big_s']:.1f} s in phase 17, then "
           f"{out['wait_s']:.1f} s for (a)'s", flush=True)
     return launches, out
+
+
+def seq_phase(later: dict, fsdp: dict):
+    """Phase 19: the KV caches' sequence split.  (a) ``SEQ_DRYRUN_CELLS``
+    (started with phase 17 (d)'s dry-runs: ``later["seq_dryruns"]``) on
+    the card's fake tensors and the CPU's, the records equal, each
+    fitting the card (nemotron's below 20 GiB a rank, llama4's below 15)
+    and counting the merge's all-reduces; (b) phase 18 (b)'s world's
+    serve caches (``fsdp``, phase 18's report): every KV head and
+    ``SEQ_SLOTS`` / 2 slots of each cache on each rank of the (2, 2)
+    mesh, a one-lane decode's / 4 (the data axes folded in), decode
+    logits within ``SEQ_TOL`` of the whole weights' and the one lane's
+    ids equal.  Returns the report."""
+    t_phase = time.perf_counter()
+    dryruns = later["seq_dryruns"]
+    try:
+        records = dryruns.wait(420)
+    finally:
+        dryruns.stop()
+    out = {"dryrun": {}}
+    gates = {"nemotron_4_340b": 20.0, "llama4_maverick_400b_a17b": 15.0}
+    for (arch, shape), before in SEQ_DRYRUN_CELLS.items():
+        a = records[(arch, shape, "pod1", "cuda")]
+        c = records[(arch, shape, "pod1", "cpu")]
+        diff = [k for k in DRYRUN_COUNTS if a.get(k) != c.get(k)]
+        check("error" not in a and "error" not in c and not diff,
+              f"seq (a): {arch} {shape}: the card's and the CPU's records "
+              f"differ in {diff} ({a.get('error')}, {c.get('error')})")
+        gib = a["memory_per_device_bytes"] / 2**30
+        check(a["fits_hbm"] and gib < gates.get(arch, before),
+              f"seq (a): {arch} {shape}: {gib:.2f} GiB a rank")
+        check(a["coll_by_op"].get("all_reduce", 0) > 0,
+              f"seq (a): {arch} {shape}: no all-reduce counted")
+        out["dryrun"][f"{arch}/{shape}"] = dict(
+            gib=gib, before_gib=before, mesh=a["mesh"],
+            trace_s=a["trace_s"], cpu_trace_s=c["trace_s"],
+            coll_by_op=a["coll_by_op"], memory_s=a["memory_s"],
+            collective_s=a["collective_s"], dominant=a["dominant"])
+        print(f"seq (a): {arch} {shape} on {a['mesh']}: {gib:.2f} GiB a "
+              f"rank (the rank's heads' caches whole: {before} GiB); the "
+              f"card's and the CPU's records equal (traced in "
+              f"{a['trace_s']} / {c['trace_s']} s); all-reduce "
+              f"{a['coll_by_op']['all_reduce']:.4g} bytes", flush=True)
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+
+    cfg = fsdp_world_cfg()
+    kinds = tfm.pattern(cfg)
+    n = cfg.n_layers // len(kinds)
+    dp, tp = FSDP_WORLD
+    slots = [layers._cache_len(cfg, k.attn, SEQ_SLOTS) for k in kinds]
+    want = [[n, FSDP_B // dp, cfg.n_kv_heads, c // tp, cfg.head_dim]
+            for c in slots]
+    want_one = [[n, 1, cfg.n_kv_heads, c // (dp * tp), cfg.head_dim]
+                for c in slots]
+    ranks = [r["seq"] for r in fsdp["world"]["ranks"]]
+    for r, a in enumerate(ranks):
+        check(a["slots"] == want and a["one_slots"] == want_one,
+              f"seq (b): rank {r}: caches {a['slots']} and one lane's "
+              f"{a['one_slots']}, not {want} and {want_one}")
+        check(a["decode_logits"] <= SEQ_TOL and a["one_logits"] <= SEQ_TOL,
+              f"seq (b): rank {r}: decode logits {a['decode_logits']:.3g} "
+              f"/ one lane {a['one_logits']:.3g} above {SEQ_TOL}")
+        check(a["one_ids_equal"], f"seq (b): rank {r}: the one lane's ids "
+              "differ from the whole weights'")
+    out["world"] = dict(ranks=ranks, slots=want, one_slots=want_one,
+                        tol=SEQ_TOL)
+    print(f"seq (b): {FSDP_ARCH} on the {FSDP_WORLD} world (phase 18 (b)): "
+          f"each rank's caches {want} (layers, lanes, KV heads, {slots} / "
+          f"{tp} slots), a one-lane decode's {want_one} (over data and "
+          f"model); decode logits within "
+          f"{max(a['decode_logits'] for a in ranks):.3g} / one lane "
+          f"{max(a['one_logits'] for a in ranks):.3g} of the whole "
+          f"weights' (<= {SEQ_TOL}); ids equal", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"seq phase: {out['phase_s']:.1f} s waiting for (a)'s dry-runs",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -5442,57 +5624,67 @@ def run(torch) -> int:
     train_launches, report["train"] = train_phase(torch, dev, reg)
     flash_row["launches"] += train_launches
 
-    # 13. this slice's path: training rwkv6_1_6b, hymba_1_5b and
-    # moonshot_v1_16b_a3b, the backwards of rwkv6_scan and moe_dispatch
-    family_launches, report["train_families"] = family_phase(torch, dev,
-                                                             reg)
-    for row in (flash_row, rwkv_row, moe_row):
-        row["launches"] += family_launches[row["name"]]
-
-    # 14. this slice's path: the distributed pieces on a world of one
-    # (gemma2_2b's gradient through the flash kernel, then compressed,
-    # all-reduced and placed as DTensors)
-    dist_launches, report["distributed"] = dist_phase(torch, dev, reg)
-    flash_row["launches"] += dist_launches
-
-    # 15. this slice's path: the sharded step, the mesh-bound prefill and
-    # serve steps and the elastic restore on a world of one
-    shard_launches, report["sharded"] = sharded_phase(
-        torch, dev, reg, report["train"]["ckpt_dir"],
-        report["train"]["gemma2_2b"]["warm_step_s"])
-    for row in (flash_row, moe_row):
-        row["launches"] += shard_launches[row["name"]]
-
-    # 16. this slice's path: the dry-run without HLO (the CLI on the JAX
-    # test's cell; gemma2_2b's and rwkv6_1_6b's steps traced, then run)
-    dryrun_launches, report["dryrun"] = dryrun_phase(torch, dev, reg)
-    for row in (flash_row, rwkv_row):
-        row["launches"] += dryrun_launches[row["name"]]
-
-    # 17. this slice's path: tensor and expert parallelism (the one-rank
-    # steps again, flash and the dispatch at a tp = 16 rank's shapes, a
-    # tp = 2 world on the card, the train cells' dry-run)
-    # phase 18 (a)'s dry-runs, which phase 17 starts beside its own
-    later = {}
+    # the dry-runs of phases 17 (d), 18 (a) and 19 (a) (subprocesses below
+    # the card's work in the host's scheduler), started here so that they
+    # end before phase 17's worlds, which they would slow
+    later = {"tp_dryruns": Dryruns(train_cells(TP_DRYRUN_ARCHS,
+                                               TP_DRYRUN_CPU))}
     try:
+        later["dryruns"] = Dryruns(train_cells(FSDP_DRYRUN_ARCHS,
+                                               FSDP_DRYRUN_CPU))
+        later["seq_dryruns"] = Dryruns([
+            (arch, shape, "pod1", device)
+            for arch, shape in SEQ_DRYRUN_CELLS for device in ("cuda", "cpu")])
+        # 13. this slice's path: training rwkv6_1_6b, hymba_1_5b and
+        # moonshot_v1_16b_a3b, the backwards of rwkv6_scan and moe_dispatch
+        family_launches, report["train_families"] = family_phase(torch, dev,
+                                                                 reg)
+        for row in (flash_row, rwkv_row, moe_row):
+            row["launches"] += family_launches[row["name"]]
+
+        # 14. this slice's path: the distributed pieces on a world of one
+        # (gemma2_2b's gradient through the flash kernel, then compressed,
+        # all-reduced and placed as DTensors)
+        dist_launches, report["distributed"] = dist_phase(torch, dev, reg)
+        flash_row["launches"] += dist_launches
+
+        # 15. this slice's path: the sharded step, the mesh-bound prefill and
+        # serve steps and the elastic restore on a world of one
+        shard_launches, report["sharded"] = sharded_phase(
+            torch, dev, reg, report["train"]["ckpt_dir"],
+            report["train"]["gemma2_2b"]["warm_step_s"])
+        for row in (flash_row, moe_row):
+            row["launches"] += shard_launches[row["name"]]
+
+        # 16. this slice's path: the dry-run without HLO (the CLI on the JAX
+        # test's cell; gemma2_2b's and rwkv6_1_6b's steps traced, then run)
+        dryrun_launches, report["dryrun"] = dryrun_phase(torch, dev, reg)
+        for row in (flash_row, rwkv_row):
+            row["launches"] += dryrun_launches[row["name"]]
+
+        # 17. this slice's path: tensor and expert parallelism (the one-rank
+        # steps again, flash and the dispatch at a tp = 16 rank's shapes, a
+        # tp = 2 world on the card, the train cells' dry-run)
         tp_launches, report["tp"] = tp_phase(
             torch, dev, reg, report["sharded"], later,
             beside=lambda: fsdp_worlds(torch, dev, reg))
-    except BaseException:
-        if "dryruns" in later:
-            later["dryruns"].stop()
-        raise
-    for row in (flash_row, moe_row):
-        row["launches"] += tp_launches[row["name"]]
+        for row in (flash_row, moe_row):
+            row["launches"] += tp_launches[row["name"]]
 
-    # 18. this slice's path: FSDP's per-layer gathers over "data" (the two
-    # FSDP configs' train cells dry-run, a (2, 2) world of gemma2_2b with
-    # fsdp on the card, nemotron_4_340b's prefill on a data = 2 world)
-    try:
+        # 18. this slice's path: FSDP's per-layer gathers over "data" (the two
+        # FSDP configs' train cells dry-run, a (2, 2) world of gemma2_2b with
+        # fsdp on the card, nemotron_4_340b's prefill on a data = 2 world)
         fsdp_launches, report["fsdp"] = fsdp_phase(torch, dev, reg, later)
+        flash_row["launches"] += fsdp_launches["flash_attention"]
+
+        # 19. this slice's path: the KV caches' sequence split (decode cells
+        # dry-run; phase 18 (b)'s world's caches, split over "model" and, for
+        # one lane, over "data" and "model")
+        report["seq"] = seq_phase(later, report["fsdp"])
     finally:
-        later["dryruns"].stop()
-    flash_row["launches"] += fsdp_launches["flash_attention"]
+        for key in ("tp_dryruns", "dryruns", "seq_dryruns"):
+            if key in later:
+                later[key].stop()
     report["kernels"] = kernels
     print(json.dumps({"report": report}))
 
@@ -5575,6 +5767,7 @@ def run(torch) -> int:
     print(json.dumps({"dryrun": report["dryrun"]}))
     print(json.dumps({"tp": report["tp"]}))
     print(json.dumps({"fsdp": report["fsdp"]}))
+    print(json.dumps({"seq": report["seq"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

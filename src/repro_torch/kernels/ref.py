@@ -264,6 +264,45 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=0, softcap=None):
     return out.reshape(B, H, Dh).to(q.dtype)
 
 
+def decode_attention_partial(q, k_cache, v_cache, filled, softcap=None):
+    """:func:`decode_attention`'s softmax over one rank's block of a cache
+    split along its slots, unnormalised: ``(m, l, o)``, the float32 row
+    maxima ``(B, KV, rep)``, sums of exponentials and outputs ``(B, KV,
+    rep, Dh)`` of the block.  ``filled`` ``(B, n)`` marks the block's
+    filled slots; the rest are masked with ``NEG_INF`` after the softcap,
+    so a block with none contributes nothing to the merge."""
+    B, H, Dh = q.shape
+    KV = k_cache.shape[1]
+    rep = H // KV
+    qr = q.reshape(B, KV, rep, Dh).float() * Dh ** -0.5
+    s = torch.einsum("bgrd,bgkd->bgrk", qr, k_cache.float())
+    s = _softcap(s, softcap)
+    s = torch.where(filled[:, None, None, :], s, NEG_INF)
+    m = torch.amax(s, dim=-1)
+    e = torch.exp(s - m[..., None])
+    o = torch.einsum("bgrk,bgkd->bgrd", e, v_cache.float())
+    return m, e.sum(dim=-1), o
+
+
+def decode_attention_merge(m, l, o, dtype, reduce_max=None,
+                           reduce_sum=None):
+    """The exact softmax of the blocks whose :func:`decode_attention_partial`
+    are ``(m, l, o)``: every block rescaled to the maximum over the blocks,
+    the sums of exponentials and outputs summed in float32 and divided,
+    then cast to ``dtype`` once.  ``reduce_max`` / ``reduce_sum`` take the
+    elementwise maximum / sum of a float32 tensor over the ranks that
+    share the split (one all-reduce each); None for a single block.
+    Returns ``(B, H, Dh)``."""
+    big = m if reduce_max is None else reduce_max(m)
+    w = torch.exp(m - big)
+    part = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
+    if reduce_sum is not None:
+        part = reduce_sum(part)
+    out = part[..., :-1] / part[..., -1:]
+    B, KV, rep, Dh = o.shape
+    return out.reshape(B, KV * rep, Dh).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 (Finch): data-dependent per-channel decay linear attention
 # ---------------------------------------------------------------------------

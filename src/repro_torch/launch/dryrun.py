@@ -50,8 +50,11 @@ whole), for a ``cfg.fsdp`` config its ``"data"`` pieces too, each
 gathered over ``"data"`` one layer at a time (``all_gather_into_tensor``
 in ``coll_by_op``; its gradient's ``reduce_scatter_tensor``), and its
 data shard's rows, or a whole microbatch that the data shards do not
-divide (fault F6).  The KV caches' sequence split and the gradients'
-reduce-scatter into ZeRO's layout are ROADMAP item 11g.
+divide (fault F6); a prefill or decode cell's KV caches hold every KV
+head and the rank's block of their slots, split over ``"model"`` (with
+the data axes folded in when the batch does not split), the decode's
+softmax merged by an all-reduce max and sum over those axes.  The
+gradients' reduce-scatter into ZeRO's layout is ROADMAP item 11g.
 
 Records go to ``runs/dryrun_torch/`` (``--out``), which ``.gitignore``
 lists; never ``experiments/dryrun``, which holds the JAX package's.  Cells
@@ -260,7 +263,6 @@ def _trace(cfg, cell, mesh, dev, microbatches: int):
     from repro_torch.launch import hlo_analysis
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.launch.mesh import dp_size
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw_init
 
@@ -286,9 +288,8 @@ def _trace(cfg, cell, mesh, dev, microbatches: int):
                 args = (p, batch)
             else:
                 B = cell.global_batch
-                lanes = B // dp_size(mesh) if B % dp_size(mesh) == 0 else B
                 fn = steps_mod.make_serve_step(cfg, mesh, B, cell.seq)
-                args = (p, steps_mod.init_decode_state(cfg, mesh, lanes,
+                args = (p, steps_mod.init_decode_state(cfg, mesh, B,
                                                        cell.seq, dev),
                         torch.zeros((B,), dtype=torch.int32, device=dev))
         del params

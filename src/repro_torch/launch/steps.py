@@ -50,13 +50,16 @@ way: a rank prefills and decodes its data shard's rows with its pieces
 (FSDP's gathered a layer at a time);
 logits and tokens come back as DTensors split over the data axes (the
 logits gathered over the vocabulary), and the decode state is the rank's
-own (its attention heads' caches).  A serve batch that the data axes do
-not divide (the ``long_500k`` cell's one lane on 32 data shards) is
-decoded whole by every rank, its tokens replicated DTensors, as the JAX
+piece of ``decode_state_shardings``: each attention cache every KV head
+and the rank's block of its slots, split over ``"model"``
+(:func:`repro_torch.models.layers.seq_plan`).  A serve batch that the data
+axes do not divide (the ``long_500k`` cell's one lane on 32 data shards)
+is decoded whole by every rank, its caches' slots split over the data
+axes and ``"model"`` together, its tokens replicated DTensors, as the JAX
 step replicates them; the prefill refuses such a batch, as the JAX
-``batch_shardings`` does.  A whole state (all heads, as one device's
-``prefill`` makes it) becomes a rank's through :func:`shard_decode_state`,
-as the JAX package places a state onto the serve step's shardings.
+``batch_shardings`` does.  A whole state (as one device's ``prefill``
+makes it) becomes a rank's through :func:`shard_decode_state`, as the JAX
+package places a state onto the serve step's shardings.
 
 Every mesh-bound step sets the model's axis hints
 (:func:`repro_torch.models.layers.axis_hints`) for the length of one call
@@ -183,18 +186,23 @@ class _Description:
         self.shape = dict(zip(self.axis_names, mesh.shape))
 
 
-def _hints(mesh, *, rank_rows: bool = True, tp: bool = False, fsdp=None):
+def _hints(mesh, *, rank_rows: bool = True, tp: bool = False, fsdp=None,
+           max_len=None):
     """The model's axis hints of ``mesh`` for one step call; with
     ``rank_rows`` False the rank holds the whole batch (global view); with
     ``tp`` the weights are the rank's ``"model"`` pieces; ``fsdp`` (the
     parameters' :func:`~repro_torch.launch.sharding.fsdp_dims`) names the
     leaves that are the rank's ``"data"`` pieces, gathered one layer at a
-    time."""
+    time; with ``max_len`` the decode caches of that many slots are split
+    along their slots as ``decode_state_shardings`` lays them out
+    (:func:`repro_torch.models.layers.seq_plan`)."""
     return layers.axis_hints(dp_axes=dp_axes(mesh), dp_size=dp_size(mesh),
                              tp_size=tp_size(mesh),
                              mesh=mesh if rank_rows else _Description(mesh),
                              tp_mesh=mesh if tp else None, fsdp_mesh=mesh,
-                             fsdp_dims=fsdp)
+                             fsdp_dims=fsdp,
+                             seq_mesh=None if max_len is None else mesh,
+                             max_len=max_len)
 
 
 def _full(x):
@@ -451,7 +459,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, max_len: int):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        with _hints(mesh, tp=tpc, fsdp=_fsdp(params, cfg)):
+        with _hints(mesh, tp=tpc, fsdp=_fsdp(params, cfg), max_len=max_len):
             pieces = _pieces(params, cfg)
             local = {k: _rows(v, mesh, device) for k, v in batch.items()}
             if cfg.encoder_only:
@@ -466,24 +474,33 @@ def make_prefill_step(cfg: ModelConfig, mesh, max_len: int):
 
 
 def shard_decode_state(cfg: ModelConfig, mesh, state):
-    """A whole decode ``state`` (every head, as one device's ``prefill``
-    makes it) as a rank of ``mesh`` holds it for :func:`make_serve_step`:
-    each attention cache cut to the rank's heads
-    (:func:`repro_torch.models.layers.take_kv_heads`), as the JAX package
-    places a state onto the serve step's shardings."""
-    with _hints(mesh, tp=shd.tp_compute(cfg)):
-        t = layers.tp_region()
-        plan = layers.head_plan(cfg, t)
-    if plan is None or plan.kv == "all":
-        return state
+    """A whole decode ``state`` (every lane, as one device's ``prefill``
+    makes it) as a rank of ``mesh`` holds it for :func:`make_serve_step`,
+    as the JAX package places a state onto the serve step's shardings
+    (``decode_state_shardings``): the rank's lanes where the data axes
+    divide the batch (else every lane), and each attention cache's block
+    of slots under the sequence split
+    (:func:`repro_torch.models.layers.seq_plan`; whole where tp does not
+    divide its slots).  The RWKV6 and SSM states stay whole over
+    ``"model"``, as the steps compute those layers.  The pieces are
+    copies: decoding writes into them in place."""
+    B = state.length.shape[0]
+    rows = B % dp_size(mesh) == 0
+    b = B // dp_size(mesh) if rows else B
+    lanes = dp_index(mesh) * b if rows else 0
     caches = []
     for c in state.caches:
-        if "k" in c:
-            c = dict(c, **{f: layers.take_kv_heads(
-                c[f], cfg, plan, t.rank, 2).contiguous()
-                for f in tfm.CACHE_KEYS})
-        caches.append(c)
-    return tfm.DecodeState(caches=tuple(caches), length=state.length)
+        sp = layers.seq_plan(c["k"].shape[3], mesh, rows) if "k" in c \
+            else None
+        piece = {}
+        for f, t in c.items():
+            t = t.narrow(1, lanes, b)
+            if sp is not None and f in tfm.CACHE_KEYS:
+                t = t.narrow(3, sp.lo, sp.n)
+            piece[f] = t.clone(memory_format=torch.contiguous_format)
+        caches.append(piece)
+    return tfm.DecodeState(caches=tuple(caches),
+                           length=state.length.narrow(0, lanes, b).clone())
 
 
 def make_serve_step(cfg: ModelConfig, mesh, batch: int, max_len: int):
@@ -508,8 +525,8 @@ def make_serve_step(cfg: ModelConfig, mesh, batch: int, max_len: int):
 
     @torch.no_grad()
     def serve_step(params, state, tokens):
-        with _hints(mesh, rank_rows=split, tp=tpc,
-                    fsdp=_fsdp(params, cfg)):
+        with _hints(mesh, rank_rows=split, tp=tpc, fsdp=_fsdp(params, cfg),
+                    max_len=max_len):
             if split:
                 tokens = _rows(tokens, mesh, device)
             elif hasattr(tokens, "to_local"):
@@ -527,10 +544,15 @@ def make_serve_step(cfg: ModelConfig, mesh, batch: int, max_len: int):
     return serve_step
 
 
-def init_decode_state(cfg: ModelConfig, mesh, lanes: int, max_len: int,
+def init_decode_state(cfg: ModelConfig, mesh, batch: int, max_len: int,
                       device=None):
-    """An empty decode state of ``lanes`` lanes as a rank of ``mesh``
-    holds it for :func:`make_serve_step` (its attention heads' caches)."""
-    with _hints(mesh, tp=shd.tp_compute(cfg)):
-        return tfm.init_decode_state(cfg, lanes, max_len,
-                                     device or _device(mesh))
+    """An empty decode state for a global batch of ``batch`` lanes as a
+    rank of ``mesh`` holds it for :func:`make_serve_step`: the rank's
+    lanes where the data axes divide ``batch`` (else every lane), each
+    attention cache every KV head and its block of slots."""
+    rows = batch % dp_size(mesh) == 0
+    with _hints(mesh, rank_rows=rows, tp=shd.tp_compute(cfg),
+                max_len=max_len):
+        return tfm.init_decode_state(
+            cfg, batch // dp_size(mesh) if rows else batch, max_len,
+            device or _device(mesh))

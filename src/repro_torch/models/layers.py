@@ -33,18 +33,27 @@ rank's ``"data"`` pieces of those too, and the model gathers each one
 whole over ``"data"`` just before its use (:func:`fsdp_gather`): one
 layer at a time, inside the layer's checkpointed group, so the recompute
 gathers again and no gathered layer outlives its group.
+
+Sequence split (the JAX package's SP): when a prefill or serve step also
+names the mesh whose axes split the decode caches (``seq_mesh``) and the
+caches' ``max_len``, every attention cache holds all KV heads and the
+rank's block of its slots (:func:`seq_plan`): the prefill writes the
+block (:func:`attn_cache_from_prefill`) and :func:`attn_decode` attends
+over it and merges the blocks' softmaxes across the ranks that share the
+split.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import tensor_parallel as tpo
 
 # ---------------------------------------------------------------------------
@@ -70,21 +79,28 @@ _TP_MESH = {"mesh": None}
 #: split dim or None (``launch.sharding.fsdp_dims``); both None when no
 #: weight is split over ``"data"`` (see :func:`fsdp_gather`)
 _FSDP = {"mesh": None, "dims": None}
+#: the sequence split of the decode caches: the ``DeviceMesh`` whose axes
+#: split their slots (:func:`seq_plan`) and the ``max_len`` they were made
+#: for; both None when the caches are whole
+_SEQ = {"mesh": None, "max_len": None}
 
 
 def set_axis_hints(*, dp_axes=None, dp_size=0, tp_size=0, mesh=None,
-                   tp_mesh=None, fsdp_mesh=None, fsdp_dims=None):
+                   tp_mesh=None, fsdp_mesh=None, fsdp_dims=None,
+                   seq_mesh=None, max_len=None):
     _AXIS_HINTS.update(on=bool(dp_axes), dp=dp_axes, dp_size=dp_size,
                        tp_size=tp_size, mesh=mesh)
     _TP_MESH["mesh"] = tp_mesh
     _FSDP.update(mesh=fsdp_mesh if fsdp_dims is not None else None,
                  dims=fsdp_dims)
+    _SEQ.update(mesh=seq_mesh, max_len=max_len if seq_mesh else None)
 
 
 def clear_axis_hints():
     _AXIS_HINTS.update(on=False, dp=None, dp_size=0, tp_size=0, mesh=None)
     _TP_MESH["mesh"] = None
     _FSDP.update(mesh=None, dims=None)
+    _SEQ.update(mesh=None, max_len=None)
 
 
 @contextlib.contextmanager
@@ -92,8 +108,8 @@ def axis_hints(**hints):
     """:func:`set_axis_hints` for the length of a ``with`` block; the hints
     that were set before are restored on exit, also when the block
     raises."""
-    saved, saved_tp, saved_fsdp = (dict(_AXIS_HINTS), _TP_MESH["mesh"],
-                                   dict(_FSDP))
+    saved, saved_tp, saved_fsdp, saved_seq = (
+        dict(_AXIS_HINTS), _TP_MESH["mesh"], dict(_FSDP), dict(_SEQ))
     set_axis_hints(**hints)
     try:
         yield
@@ -102,6 +118,7 @@ def axis_hints(**hints):
         _AXIS_HINTS.update(saved)
         _TP_MESH["mesh"] = saved_tp
         _FSDP.update(saved_fsdp)
+        _SEQ.update(saved_seq)
 
 
 def hint_spec(shape, *axes) -> tuple:
@@ -162,6 +179,51 @@ def tp_region():
     if size == 1:
         return None
     return TPRegion(mesh, size, mesh.get_local_rank("model"))
+
+
+class SeqPlan(NamedTuple):
+    """A rank's block of a decode cache split along its slots, as the JAX
+    package's ``decode_state_shardings`` lays it out: slots ``[lo, lo +
+    n)`` of the cache, split over the mesh axes ``axes`` (in mesh order)
+    of the ``DeviceMesh`` ``mesh``."""
+    lo: int
+    n: int
+    axes: tuple
+    mesh: object
+
+
+def seq_plan(C: int, mesh=None, rows: bool = True) -> SeqPlan | None:
+    """The rank's :class:`SeqPlan` of a cache of ``C`` slots on ``mesh``
+    (by default the hints' ``seq_mesh``, ``rows`` then
+    :func:`rank_local`), by the JAX rule: over ``"model"`` when the data
+    axes split the batch (``rows``); else over the data axes and
+    ``"model"`` where their product divides C, else over ``"model"``.
+    None where tp does not divide C (the cache whole on every rank, as
+    JAX replicates it) and for a split of one rank.  A block's index
+    over several axes is row-major in mesh order (pod, data, model), as
+    ``devices_indices_map`` lays the blocks out."""
+    if mesh is None:
+        mesh = _SEQ["mesh"] if _AXIS_HINTS["on"] else None
+        if mesh is None:
+            return None
+        rows = rank_local()
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    tp = sizes["model"]
+    if not rows and C % (math.prod(sizes[a] for a in dp) * tp) == 0:
+        axes = dp + ("model",)
+    elif C % tp == 0:
+        axes = ("model",)
+    else:
+        return None
+    coord = dict(zip(names, mesh.get_coordinate()))
+    block, size = 0, 1
+    for a in axes:
+        block, size = block * sizes[a] + coord[a], size * sizes[a]
+    if size == 1:
+        return None
+    return SeqPlan(block * (C // size), C // size, axes, mesh)
 
 
 def _gathered(node, dims, mesh, lead: int):
@@ -354,7 +416,7 @@ class HeadPlan(NamedTuple):
     q_lo: int      # the q heads computed: [q_lo, q_lo + n_q)
     n_q: int
     kv: str
-    n_kv: int      # the k / v heads the rank holds (and caches)
+    n_kv: int      # the k / v heads the rank's attention reads
 
 
 def head_plan(cfg: ModelConfig, t: TPRegion) -> HeadPlan | None:
@@ -370,13 +432,6 @@ def head_plan(cfg: ModelConfig, t: TPRegion) -> HeadPlan | None:
     if KV % t.size == 0:
         return HeadPlan(t.rank * n, n, "aligned", KV // t.size)
     return HeadPlan(t.rank * n, n, "expand", n)
-
-
-def kv_heads_held(cfg: ModelConfig) -> int:
-    """The k / v heads a rank's decode cache holds under the current
-    hints: its plan's (:func:`head_plan`), else all ``n_kv_heads``."""
-    plan = head_plan(cfg, tp_region())
-    return cfg.n_kv_heads if plan is None else plan.n_kv
 
 
 def take_kv_heads(y, cfg: ModelConfig, plan: HeadPlan, rank: int,
@@ -396,12 +451,16 @@ def take_kv_heads(y, cfg: ModelConfig, plan: HeadPlan, rank: int,
     return y.narrow(dim, plan.q_lo - a * rep, plan.n_q)
 
 
-def _tp_qkv(p, xin, cfg: ModelConfig, t: TPRegion, plan: HeadPlan):
+def _tp_qkv(p, xin, cfg: ModelConfig, t: TPRegion, plan: HeadPlan,
+            all_kv: bool = False):
     """The rank's q, k, v heads ``(..., heads, Dh)`` of ``xin`` (inside
-    the region).  Split columns that are not the rank's heads (an
-    unaligned k / v split, or q when tp does not divide H) are gathered
-    over ``"model"`` as activations, never as weights; a whole k / v
-    weight enters the region through ``into_tp``."""
+    the region), and with ``all_kv`` every KV head's k and v (else None).
+    Split columns that are not the rank's heads (an unaligned k / v split,
+    or q when tp does not divide H) are gathered over ``"model"`` as
+    activations, never as weights; a whole k / v weight enters the region
+    through ``into_tp``.  Every KV head is what those gathers hold, or
+    under ``"aligned"`` a gather of the rank's KV heads (never of the
+    expansion)."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lead = tuple(xin.shape[:-1])
     _split(t, p["wq"], -1, H * dh)
@@ -411,32 +470,48 @@ def _tp_qkv(p, xin, cfg: ModelConfig, t: TPRegion, plan: HeadPlan):
     q = q.reshape(lead + (plan.n_q, dh))
 
     def kv(w):
+        """The rank's heads, and every KV head where they are not
+        those."""
         if plan.kv == "aligned":
             _split(t, w, -1, KV * dh)
-            return (xin @ w).reshape(lead + (plan.n_kv, dh))
+            return (xin @ w).reshape(lead + (plan.n_kv, dh)), None
         if _split(t, w, -1, KV * dh):
             y = tpo.gather_over_model(xin @ w, t.mesh)
         else:
             y = xin @ tpo.into_tp(w, t.mesh)
-        return take_kv_heads(y.reshape(lead + (KV, dh)), cfg, plan, t.rank,
-                             -2)
+        y = y.reshape(lead + (KV, dh))
+        return take_kv_heads(y, cfg, plan, t.rank, -2), y
 
-    k, v = kv(p["wk"]), kv(p["wv"])
+    (k, k_all), (v, v_all) = kv(p["wk"]), kv(p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(tpo.into_tp(p["qn"], t.mesh), q)
-        k = rmsnorm(tpo.into_tp(p["kn"], t.mesh), k)
-    return q, k, v
+        kn = tpo.into_tp(p["kn"], t.mesh)
+        k = rmsnorm(kn, k)
+        if all_kv and plan.kv == "expand":
+            k_all = rmsnorm(kn, k_all)
+    if not all_kv:
+        return q, k, v, None
+    if plan.kv == "aligned":
+        k_all = tpo.gather_over_model(k, t.mesh, -2)
+        v_all = tpo.gather_over_model(v, t.mesh, -2)
+    elif plan.kv == "all":
+        k_all = k
+    return q, k, v, (k_all, v_all)
 
 
-def _heads(p, x, cfg: ModelConfig):
-    """``(q, k, v, region, plan)``: the heads of ``x`` (..., D) that this
-    rank computes, every head outside a tensor-parallel region (``plan``
-    None)."""
+def _heads(p, x, cfg: ModelConfig, all_kv: bool = False):
+    """``(q, k, v, region, plan, kv_all)``: the heads of ``x`` (..., D)
+    that this rank computes, every head outside a tensor-parallel region
+    (``plan`` None); ``kv_all`` every KV head's ``(k, v)`` with
+    ``all_kv``, else None."""
     t = tp_region()
     plan = head_plan(cfg, t)
     if plan is None:
-        return (*_qkv(p, x, cfg), t, plan)
-    return (*_tp_qkv(p, tpo.into_tp(x, t.mesh), cfg, t, plan), t, plan)
+        q, k, v = _qkv(p, x, cfg)
+        return q, k, v, t, plan, (k, v) if all_kv else None
+    q, k, v, kv_all = _tp_qkv(p, tpo.into_tp(x, t.mesh), cfg, t, plan,
+                              all_kv)
+    return q, k, v, t, plan, kv_all
 
 
 def _out(p, out, cfg: ModelConfig, t: TPRegion, plan: HeadPlan | None):
@@ -453,12 +528,14 @@ def _out(p, out, cfg: ModelConfig, t: TPRegion, plan: HeadPlan | None):
     return tpo.out_of_tp(out @ p["wo"], t.mesh)
 
 
-def attn_apply(p, x, cfg: ModelConfig, kind: str, pos0: int = 0):
+def attn_apply(p, x, cfg: ModelConfig, kind: str, pos0: int = 0, *,
+               all_kv: bool = False):
     """Training / prefill attention.  kind: full | local | bidir.
-    Returns (out, (k, v)) — k/v in (B, KV, S, Dh) for cache building (in
-    a tensor-parallel region the rank's heads: :func:`head_plan`)."""
+    Returns (out, (k, v)) — k/v in (B, KV, S, Dh) for cache building: in
+    a tensor-parallel region the rank's heads (:func:`head_plan`), with
+    ``all_kv`` every KV head (what a decode cache holds)."""
     B, S, _ = x.shape
-    q, k, v, t, plan = _heads(p, x, cfg)
+    q, k, v, t, plan, kv_all = _heads(p, x, cfg, all_kv)
     pos = pos0 + torch.arange(S, device=x.device)
     q = rope(q, pos[None, :], cfg.rope_theta)
     k = rope(k, pos[None, :], cfg.rope_theta)
@@ -479,6 +556,9 @@ def attn_apply(p, x, cfg: ModelConfig, kind: str, pos0: int = 0):
     out = ops.flash_attention(qt, ke, ve, causal=causal, window=window,
                               softcap=cfg.attn_softcap)
     out = out.transpose(1, 2).reshape(B, S, -1)
+    if all_kv and plan is not None and plan.kv != "all":
+        kt = rope(kv_all[0], pos[None, :], cfg.rope_theta).transpose(1, 2)
+        vt = kv_all[1].transpose(1, 2)
     return _out(p, out, cfg, t, plan), (kt, vt)
 
 
@@ -489,73 +569,126 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 def attn_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                     device="cpu") -> AttnCache:
     """Empty cache, stored in the config's ``kv_cache_dtype`` (the JAX
-    signature's unused ``dtype`` argument is dropped), of the heads the
-    rank holds (:func:`kv_heads_held`)."""
+    signature's unused ``dtype`` argument is dropped), of every KV head
+    and, under the hints' sequence split, the rank's block of the slots
+    (:func:`seq_plan`)."""
     C = _cache_len(cfg, kind, max_len)
-    KV, dh = kv_heads_held(cfg), cfg.head_dim
+    sp = seq_plan(C)
+    n = C if sp is None else sp.n
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
     sdtype = _cache_dtype(cfg)
     return AttnCache(
-        k=torch.zeros((batch, KV, C, dh), dtype=sdtype, device=device),
-        v=torch.zeros((batch, KV, C, dh), dtype=sdtype, device=device),
-        k_scale=torch.zeros((batch, KV, C), dtype=torch.float32,
+        k=torch.zeros((batch, KV, n, dh), dtype=sdtype, device=device),
+        v=torch.zeros((batch, KV, n, dh), dtype=sdtype, device=device),
+        k_scale=torch.zeros((batch, KV, n), dtype=torch.float32,
                             device=device),
-        v_scale=torch.zeros((batch, KV, C), dtype=torch.float32,
+        v_scale=torch.zeros((batch, KV, n), dtype=torch.float32,
                             device=device))
 
 
 def attn_cache_from_prefill(cfg: ModelConfig, kind: str, kt, vt, max_len: int
                             ) -> AttnCache:
-    """Build a decode cache from prefill k/v (B, KV, S, Dh).  Windowed layers
-    keep a ring of the last `window` positions at slots pos % window."""
+    """Build a decode cache from prefill k/v (B, KV, S, Dh) of every KV
+    head: the positions a cache of ``max_len`` slots keeps (windowed
+    layers a ring of the last ``window`` at slots ``pos % window``), in
+    the rank's block of the slots under the hints' sequence split
+    (:func:`seq_plan`; the whole cache without one).  Each slot's source
+    position is found by arithmetic, so an empty slot is masked, never
+    indexed."""
     B, KV, S, dh = kt.shape
     C = _cache_len(cfg, kind, max_len)
+    sp = seq_plan(C)
+    lo, n = (0, C) if sp is None else (sp.lo, sp.n)
     quant = cfg.kv_cache_dtype == "int8"
     sdtype = _cache_dtype(cfg)
-    c = attn_cache_init(cfg, kind, B, max_len, device=kt.device)
-    if kind == "local" and S > C:
-        take = C
-        src_pos = S - C + torch.arange(C, device=kt.device)
-    else:
-        take = min(S, C)
-        src_pos = torch.arange(take, device=kt.device)
-    slots = src_pos % C
-    kq, ks = _quant_kv(kt[:, :, S - take:], quant)
-    vq, vs = _quant_kv(vt[:, :, S - take:], quant)
-    c.k[:, :, slots] = kq.to(sdtype)
-    c.v[:, :, slots] = vq.to(sdtype)
-    c.k_scale[:, :, slots] = ks
-    c.v_scale[:, :, slots] = vs
-    return c
+    # the last ``take`` positions are kept, the i-th at slot (off + i) % C
+    off = S - C if kind == "local" and S > C else 0
+    take = min(S, C)
+    i = (torch.arange(lo, lo + n, device=kt.device) - off) % C
+    ok = i < take
+    src = S - take + torch.where(ok, i, 0)
+    kq, ks = _quant_kv(kt.index_select(2, src), quant)
+    vq, vs = _quant_kv(vt.index_select(2, src), quant)
+    zero = torch.zeros((), dtype=torch.float32, device=kt.device)
+    return AttnCache(
+        k=torch.where(ok[:, None], kq.to(sdtype), zero.to(sdtype)),
+        v=torch.where(ok[:, None], vq.to(sdtype), zero.to(sdtype)),
+        k_scale=torch.where(ok, ks, zero), v_scale=torch.where(ok, vs, zero))
+
+
+def _write_slot(buf, bidx, slot, new, mine=None):
+    """``buf[b, :, slot[b]] = new[b]``, for the lanes ``mine`` marks only
+    (the others write back what the slot holds: no index leaves
+    ``buf``)."""
+    new = new.to(buf.dtype)
+    if mine is not None:
+        new = torch.where(mine.view((-1,) + (1,) * (new.dim() - 1)), new,
+                          buf[bidx, :, slot])
+    buf[bidx, :, slot] = new
 
 
 def attn_decode(p, x, cfg: ModelConfig, kind: str, cache: AttnCache,
                 cache_len):
     """One-token decode.  x: (B, D); cache_len: (B,) current lengths; in
-    a tensor-parallel region the rank's heads and cache.
+    a tensor-parallel region the rank's heads.  The cache holds every KV
+    head.  Under the hints' sequence split (:func:`seq_plan` of the
+    hints' ``max_len``) it is the rank's block of the slots: the new k/v
+    go into a lane's slot on the rank whose block holds it, every rank
+    attends all H heads (q gathered over ``"model"``) over its own
+    slots, and the blocks' softmaxes are merged exactly (one all-reduce
+    max, one all-reduce sum over the plan's axes); the rank then keeps
+    its heads' outputs for ``wo``.  Whole, the rank attends its heads
+    over the cache as on one device.
     Returns (out, cache).  Unlike the JAX package's functional update, the
     new k/v are written into ``cache`` in place (the cache is the largest
     state of decoding; a copy per step would double its traffic)."""
     B, D = x.shape
-    q, k, v, t, plan = _heads(p, x, cfg)
+    q, _, _, t, plan, (k, v) = _heads(p, x, cfg, all_kv=True)
     q = rope(q, cache_len, cfg.rope_theta)
     k = rope(k, cache_len, cfg.rope_theta)
-    C = cache.k.shape[2]
-    slot = cache_len % C
+    max_len = _SEQ["max_len"] if _AXIS_HINTS["on"] else None
+    C = cache.k.shape[2] if max_len is None else _cache_len(cfg, kind,
+                                                            max_len)
+    sp = seq_plan(C)
+    lo, n = (0, C) if sp is None else (sp.lo, sp.n)
+    if cache.k.shape[2] != n:
+        raise ValueError(f"a cache of {cache.k.shape[2]} slots is not this "
+                         f"rank's {n} of {C}")
+    slot = cache_len % C - lo
+    mine = None
+    if sp is not None:
+        mine = (slot >= 0) & (slot < n)
+        slot = slot.clamp(0, n - 1)
     bidx = torch.arange(B, device=x.device)
     quant = cfg.kv_cache_dtype == "int8"
     kq, ks = _quant_kv(k, quant)
     vq, vs = _quant_kv(v, quant)
-    cache.k[bidx, :, slot] = kq.to(cache.k.dtype)
-    cache.v[bidx, :, slot] = vq.to(cache.v.dtype)
-    cache.k_scale[bidx, :, slot] = ks
-    cache.v_scale[bidx, :, slot] = vs
+    for buf, new in zip(cache, (kq, vq, ks, vs)):
+        _write_slot(buf, bidx, slot, new, mine)
     # Ring semantics: slots hold the last min(len+1, C) positions (in
     # arbitrary ring order — softmax is permutation-invariant and RoPE was
     # applied at true positions before writing), so the only mask needed is
     # "slot is filled".
     eff_len = torch.clamp_max(cache_len + 1, C)
-    out = ops.decode_attention(
-        q, _dequant_kv(cache.k, cache.k_scale, cfg.cdtype),
-        _dequant_kv(cache.v, cache.v_scale, cfg.cdtype), eff_len,
-        window=0, softcap=cfg.attn_softcap)
+    kc = _dequant_kv(cache.k, cache.k_scale, cfg.cdtype)
+    vc = _dequant_kv(cache.v, cache.v_scale, cfg.cdtype)
+    if sp is None:
+        if plan is not None:
+            kc = take_kv_heads(kc, cfg, plan, t.rank, 1)
+            vc = take_kv_heads(vc, cfg, plan, t.rank, 1)
+        out = ops.decode_attention(q, kc, vc, eff_len, window=0,
+                                   softcap=cfg.attn_softcap)
+        return _out(p, out.reshape(B, -1), cfg, t, plan), cache
+    mine_heads = plan is not None and plan.kv != "all"
+    if mine_heads:
+        q = tpo.gather_over_model(q, t.mesh, -2)
+    filled = lo + torch.arange(n, device=x.device) < eff_len[:, None]
+    m, l, o = ref.decode_attention_partial(q, kc, vc, filled,
+                                           cfg.attn_softcap)
+    out = ref.decode_attention_merge(
+        m, l, o, q.dtype,
+        reduce_max=lambda a: tpo.reduce_over(a, sp.mesh, sp.axes, "max"),
+        reduce_sum=lambda a: tpo.reduce_over(a, sp.mesh, sp.axes))
+    if mine_heads:
+        out = out.narrow(1, plan.q_lo, plan.n_q)
     return _out(p, out.reshape(B, -1), cfg, t, plan), cache

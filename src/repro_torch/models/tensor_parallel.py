@@ -169,6 +169,17 @@ def max_over_model(x, mesh):
     return x if size == 1 else _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
+def reduce_over(x, mesh, axes: tuple, op: str = "sum"):
+    """The elementwise sum (``op`` ``"max"``: maximum) of ``x`` over the
+    ranks of the mesh axes ``axes``: one all-reduce over their product
+    group (``runtime.collectives``), without a gradient (the merge of a
+    softmax split along a decode cache's slots)."""
+    from repro_torch.runtime.collectives import _group
+
+    return _all_reduce(x.detach(), _group(mesh, tuple(axes)),
+                       dist.ReduceOp.MAX if op == "max" else None)
+
+
 def gather_over(x, mesh, axis: str, dim: int = -1):
     """(iv) The pieces ``x`` of the ranks of the mesh axis ``axis``
     concatenated along ``dim`` in rank order; the gradient

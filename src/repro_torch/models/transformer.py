@@ -61,6 +61,9 @@ splits over ``"data"`` are the rank's pieces: ``forward`` and
 ``decode_step`` gather each layer's just before its block (inside the
 checkpointed group, so the recompute gathers again), the embedding and
 head where they are read (:func:`repro_torch.models.layers.fsdp_gather`).
+Under its sequence hints the decode caches are the rank's blocks of
+their slots (:func:`repro_torch.models.layers.seq_plan`): ``prefill``
+builds each layer's as the layer ends.
 """
 
 from __future__ import annotations
@@ -323,11 +326,13 @@ def _remat_group(cfg: ModelConfig, n: int) -> int:
 
 
 def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups,
-                 dp_groups):
-    """Prefill block.  Returns (x, cache_src, aux): what decode needs (k/v
-    and, with SSM heads, the SSM state and conv carry; or the RWKV state
-    and token-shift tails; all final), and the MoE layer's counters (None
-    for other blocks)."""
+                 dp_groups, max_len=None):
+    """Prefill block.  Returns (x, cache, aux): with ``max_len`` the
+    layer's decode state (its attention cache of ``max_len`` slots, built
+    here from every KV head in the rank's layout, and, with SSM heads, the
+    SSM state and conv carry; or the RWKV state and token-shift tails; all
+    final), else None; and the MoE layer's counters (None for other
+    blocks)."""
     h = layers.rmsnorm(bp["ln1"], x)
     if kind.rwkv:
         state0 = torch.zeros((x.shape[0], cfg.n_heads, cfg.head_dim,
@@ -339,11 +344,15 @@ def _apply_block(bp, x, cfg: ModelConfig, kind: BlockKind, rng, ep_groups,
                                     layers.rmsnorm(bp["ln2"], x))
         return x + m, {"rwkv_state": state, "tm_last": tail,
                        "cm_last": tail2}, None
-    a, (kt, vt) = layers.attn_apply(bp["attn"], h, cfg, kind.attn)
-    src = {"k": kt, "v": vt}
+    a, (kt, vt) = layers.attn_apply(bp["attn"], h, cfg, kind.attn,
+                                    all_kv=max_len is not None)
+    src = None if max_len is None else layers.attn_cache_from_prefill(
+        cfg, kind.attn, kt, vt, max_len)._asdict()
+    del kt, vt
     if kind.ssm:
-        s_out, src["ssm_state"], src["ssm_conv"] = ssm.ssm_apply(
-            bp["ssm"], h, cfg)
+        s_out, s_state, s_conv = ssm.ssm_apply(bp["ssm"], h, cfg)
+        if src is not None:
+            src.update(ssm_state=s_state, ssm_conv=s_conv)
         a = 0.5 * (layers.rmsnorm(bp["attn_ln"], a)
                    + layers.rmsnorm(bp["ssm_ln"], s_out))
     if cfg.post_block_norms:
@@ -446,12 +455,16 @@ def _layer_keys(rng, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
-            dp_groups=1, collect_cache=False):
-    """Full-sequence forward.  Returns (logits, aux[, cache_srcs]): aux is
+            dp_groups=1, max_len=None):
+    """Full-sequence forward.  Returns (logits, aux[, caches]): aux is
     the JAX package's MoE counters summed over the layers (all zero for a
-    stack without MoE layers); cache_srcs holds per pattern position the
-    stacked ``(n, B, KV, S, Dh)`` k and v (with the stacked SSM states and
-    conv carries of SSM heads), or the stacked RWKV states and tails."""
+    stack without MoE layers); with ``max_len``, caches holds per pattern
+    position the stacked decode state: each layer's attention cache of
+    ``max_len`` slots (:func:`repro_torch.models.layers.
+    attn_cache_from_prefill`, made as its layer ends, so no layer's k / v
+    of every position outlives it), with the stacked SSM states and conv
+    carries of SSM heads, or the stacked RWKV states and tails."""
+    collect_cache = max_len is not None
     kinds = pattern(cfg)
     keys = _layer_keys(rng, cfg)
     x = _embed_inputs(params, cfg, batch)
@@ -472,7 +485,8 @@ def forward(params, cfg: ModelConfig, batch, rng=None, *, ep_groups=16,
                 bp = layers.fsdp_gather(layers_p[pidx][idx], "streams",
                                         pidx, lead=1)
                 x, src, layer_aux = _apply_block(
-                    bp, x, cfg, kind, keys[idx][pidx], ep_groups, dp_groups)
+                    bp, x, cfg, kind, keys[idx][pidx], ep_groups, dp_groups,
+                    max_len)
                 del bp
                 if layer_aux is not None:
                     aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
@@ -665,26 +679,12 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int, rng=None, *,
     last position, state)."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
-    logits, _aux, srcs = forward(params, cfg, batch, rng,
-                                 ep_groups=ep_groups, dp_groups=dp_groups,
-                                 collect_cache=True)
-    kinds = pattern(cfg)
+    logits, _aux, caches = forward(params, cfg, batch, rng,
+                                   ep_groups=ep_groups, dp_groups=dp_groups,
+                                   max_len=max_len)
     S = prompt_len(cfg, batch)
-    caches = []
-    for kind, src in zip(kinds, srcs):
-        if kind.rwkv:
-            caches.append(src)    # the states are already final
-            continue
-        per_layer = [layers.attn_cache_from_prefill(
-            cfg, kind.attn, src["k"][i], src["v"][i], max_len)
-            for i in range(src["k"].shape[0])]
-        caches.append({f: torch.stack([getattr(c, f) for c in per_layer])
-                       for f in CACHE_KEYS})
-        for extra in ("ssm_state", "ssm_conv"):
-            if extra in src:
-                caches[-1][extra] = src[extra]
     B = logits.shape[0]
-    state = DecodeState(caches=tuple(caches),
+    state = DecodeState(caches=caches,
                         length=torch.full((B,), S, dtype=torch.int32,
                                           device=logits.device))
     return logits[:, -1], state

@@ -272,7 +272,8 @@ try:
         def serve_step(params, state, tokens):
             with torch.no_grad(), layers.axis_hints(
                     dp_axes=steps.dp_axes(mesh), dp_size=dp, tp_size=tp,
-                    mesh=mesh, tp_mesh=mesh):
+                    mesh=mesh, tp_mesh=mesh, seq_mesh=mesh,
+                    max_len=max_len):
                 logits, state = tfm.decode_step(
                     tfm.tree_map(lambda x: x.to_local(), params), cfg,
                     state, steps._rows(tokens, mesh, device),
@@ -310,7 +311,8 @@ try:
                 same(x, y) for x, y in zip(a_toks + a_state,
                                            b_toks + b_state)))
     # F5: batches the data axes do not divide; every rank decodes all
-    # lanes of a one-device prefill's state (placed on the rank's heads),
+    # lanes of a one-device prefill's state (placed as the serve step's
+    # decode_state_shardings lay it out),
     # the weights as DTensors
     for arch in F5["archs"]:
         c = cb.smoke_config(arch)

@@ -799,19 +799,19 @@ def test_a_region_needs_a_model_axis_of_more_than_one_rank():
                              mesh=None):
         assert t_layers.tp_region() is None
         assert t_tfm.vocab_piece(t_cb.smoke_config("gemma2_2b")) is None
-        assert t_layers.kv_heads_held(t_cb.smoke_config("gemma2_2b")) == 2
+        assert t_layers.seq_plan(16) is None
 
 
 @pytest.mark.parametrize("H,KV,tp", ((4, 2, 2), (4, 2, 4), (8, 2, 4),
                                      (8, 8, 16)))
-def test_shard_decode_state_cuts_a_whole_state_to_the_ranks_heads(H, KV,
-                                                                  tp):
+def test_shard_decode_state_cuts_a_whole_state_to_the_jax_piece(H, KV, tp):
     """A whole decode state (every KV head, as one device's prefill makes
-    it) placed on each rank of a (1, tp) mesh: every attention cache is
-    the rank's block of the JAX expansion ``jnp.repeat(k, H // KV)`` (its
-    KV block where tp divides KV; every head where tp does not divide H),
-    shaped as ``init_decode_state`` on the mesh makes a rank's state.
-    (8, 2, 4) expands to 2 heads a rank, as many as there are KV heads."""
+    it) placed on each rank of a (1, tp) mesh is the rank's piece of
+    ``decode_state_shardings``: every KV head of every lane, and the
+    rank's block of the slots where tp divides them (one ``max_len`` it
+    divides, one it does not: the full layers' cache then stays whole,
+    as JAX replicates it), shaped as ``init_decode_state`` on the mesh
+    makes a rank's state; whatever head plan tp gives."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -820,37 +820,42 @@ def test_shard_decode_state_cuts_a_whole_state_to_the_ranks_heads(H, KV,
 
     cfg = dataclasses.replace(t_cb.smoke_config("gemma2_2b"), n_heads=H,
                               n_kv_heads=KV)
-    B, max_len = 2, 6
-    state = t_tfm.init_decode_state(cfg, B, max_len)
-    g = torch.Generator().manual_seed(H * KV + tp)
-    state = t_tfm.DecodeState(caches=tuple(
-        {k: torch.randn(v.shape, generator=g).to(v.dtype)
-         for k, v in c.items()} for c in state.caches),
-        length=state.length)
-    rep = H // KV
+    B = 2
+    split = 0
     try:
-        for rank in range(tp):
-            dist.init_process_group("fake", store=FakeStore(), rank=rank,
-                                    world_size=tp)
-            mesh = t_mesh.make_test_mesh(1, tp, device="cpu")
-            got = t_steps.shard_decode_state(cfg, mesh, state)
-            empty = t_steps.init_decode_state(cfg, mesh, B, max_len,
-                                              device="cpu")
-            for c, w, e in zip(got.caches, state.caches, empty.caches):
-                for k in t_tfm.CACHE_KEYS:
-                    whole = w[k].numpy()
-                    if H % tp:
-                        want = whole
-                    elif KV % tp == 0:
-                        n = KV // tp
-                        want = whole[:, :, rank * n:(rank + 1) * n]
-                    else:
-                        n = H // tp
-                        want = np.repeat(whole, rep, axis=2)[
-                            :, :, rank * n:(rank + 1) * n]
-                    np.testing.assert_array_equal(c[k].numpy(), want)
-                    assert c[k].shape == e[k].shape
-            dist.destroy_process_group()
+        for max_len in (2 * tp, 2 * tp + 1):
+            state = t_tfm.init_decode_state(cfg, B, max_len)
+            g = torch.Generator().manual_seed(H * KV + tp + max_len)
+            state = t_tfm.DecodeState(caches=tuple(
+                {k: torch.randn(v.shape, generator=g).to(v.dtype)
+                 for k, v in c.items()} for c in state.caches),
+                length=state.length)
+            for rank in range(tp):
+                dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                        world_size=tp)
+                mesh = t_mesh.make_test_mesh(1, tp, device="cpu")
+                specs = t_shd.decode_state_shardings(state, cfg, mesh)
+                got = t_steps.shard_decode_state(cfg, mesh, state)
+                empty = t_steps.init_decode_state(cfg, mesh, B, max_len,
+                                                  device="cpu")
+                for c, w, e, sp in zip(got.caches, state.caches,
+                                       empty.caches, specs.caches):
+                    for k in t_tfm.CACHE_KEYS:
+                        whole = w[k].numpy()
+                        C = whole.shape[3]
+                        assert sp[k][3] == ("model" if C % tp == 0
+                                            else None)
+                        if sp[k][3] == "model":
+                            n = C // tp
+                            want = whole[:, :, :, rank * n:(rank + 1) * n]
+                            split += 1
+                        else:
+                            want = whole
+                        assert c[k].shape[2] == KV
+                        np.testing.assert_array_equal(c[k].numpy(), want)
+                        assert c[k].shape == e[k].shape
+                dist.destroy_process_group()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+    assert split > 0

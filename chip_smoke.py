@@ -95,7 +95,10 @@ In order, it
    twin per call, bitwise, at the model's own layer-0 routing and seven
    more shapes, and its time beside the twin's, one ``index_put_`` call's
    (the kept slots' rows into a zeroed buffer) and its bound (the rows of
-   x that a kept slot reads, the tables, the buffer);
+   x that a kept slot reads, the tables, the buffer); at the prefill and
+   the decode shape what a call puts on the stream (the phase fails on a
+   memset or any operation but one dispatch kernel a call), its device
+   µs and the wrapper's host µs;
 9. after phase 18, prints the ``kernels`` JSON line (``sched_step``'s
    launches are the sweep's and the tuner's, ``flash_attention``'s those
    of phases 6, 8, 11, 12's two training runs, 13's hymba and moonshot,
@@ -272,7 +275,8 @@ In order, it
    + TP expansion, 4 x 1024, Dh 128, bf16) within 2e-2 of its twin,
    timed; (c) the dispatch into moonshot's tp = 16 rank's 4 experts (T =
    4096, D = 2048, k = 6) bitwise its twin, timed beside its bound and
-   ``index_put_`` (each the median of 7 timed runs); then, with nothing
+   ``index_put_`` (each the median of 7 timed runs), with its device µs
+   and the wrapper's host µs a call; then, with nothing
    timed, (d) ``train_4k`` of gemma2_2b and moonshot (yi_9b's and
    mistral_nemo_12b's cells since phase 18 left out) on both production
    meshes dry-run on the card's fake tensors (one subprocess each, all
@@ -327,7 +331,8 @@ In order, it
 
 Any mismatch or exception exits non-zero.  Without a CUDA device, or run
 outside the repository, it exits non-zero and prints no result.  It also
-prints one ``{"report": ...}`` line with every case's steps and times.
+prints the seconds its phases took and one ``{"report": ...}`` line with
+every case's steps and times.
 """
 
 from __future__ import annotations
@@ -1247,8 +1252,45 @@ MOE_CASES = (
     ("groups_2", 4096, 2048, 6, 64, 240, "bfloat16", 2),
     ("odd_row", 1000, 13, 6, 64, 120, "bfloat16", 1),
 )
-#: the dispatch kernel's two CUDA kernels, as the profiler names them
-MOE_KERNEL_KEYS = ("map_rows", "copy_rows")
+#: the dispatch's CUDA kernels (one a call: its bulk-copy path, or its
+#: vector path for rows that are not 16-byte multiples), as the profiler
+#: names them
+MOE_KERNEL_KEYS = ("moe_dispatch_bulk", "moe_dispatch_vec")
+#: unsynchronised calls a dispatch's host µs is the mean of: fewer at the
+#: prefill shape, whose device time a call is larger than the host's, so
+#: the launch queue does not fill
+MOE_HOST_CALLS = {"serve": 200, "decode": 1000, "tp": 1000}
+
+
+def fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.2f} us"
+
+
+def dispatch_calls(torch, call, n_profiled: int, n_host: int) -> dict:
+    """One dispatch call taken apart on the card: the CUDA operations
+    (kernels, memsets, copies) it puts on the stream and their device µs,
+    per call over ``n_profiled`` profiled calls
+    (``step_bench.stream_ops``), the dispatch kernels among them; the
+    wrapper's host µs a call (``time.perf_counter`` around ``n_host``
+    calls, not synchronised)."""
+    from repro_torch import step_bench
+
+    call()
+    torch.cuda.synchronize()
+    out = step_bench.stream_ops(lambda i: call(), n_profiled)
+    out["kernels_per_call"] = sum(
+        per_call for name, per_call in out["ops"].items()
+        if any(k in name for k in MOE_KERNEL_KEYS))
+    if out["ops_per_call"] < 1:
+        # the trace lost records even behind its filler: its counts hold
+        # no operation it did not see, its device time is not measured
+        out["device_us"] = None
+    t0 = time.perf_counter()
+    for _ in range(n_host):
+        call()
+    out["host_us"] = (time.perf_counter() - t0) / n_host * 1e6
+    torch.cuda.synchronize()
+    return out
 
 
 def moe_inputs(torch, balance, T, D, k, E, C, dtype, G, gen, dev):
@@ -1268,8 +1310,6 @@ def moe_phase(torch, dev, reg):
     """Phase 8: serve moonshot_v1_16b_a3b at full width through the flash
     and MoE-dispatch kernels and hold the dispatch against its plain twin.
     Returns (the dispatch kernel's row, report)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import base as cb
     from repro_torch.core import balance
     from repro_torch.data.pipeline import batch_for
@@ -1443,6 +1483,8 @@ def moe_phase(torch, dev, reg):
 
     # its time at the prefill shape (layer 0's own routing), beside the
     # twin's and one library call's; and at the decode shape
+    check(set(md.KERNEL_NAMES.values()) == set(MOE_KERNEL_KEYS),
+          f"dispatch kernels {md.KERNEL_NAMES} are not {MOE_KERNEL_KEYS}")
     E, C = kw0["n_experts"], kw0["capacity"]
     ms = cuda_time_ms(lambda i: md.moe_dispatch(x0, e0, p0, n_experts=E,
                                                 capacity=C), 50, torch)
@@ -1452,25 +1494,33 @@ def moe_phase(torch, dev, reg):
                                                       E, C)
     lib_same = bool(torch.equal(lib, mref.moe_dispatch(x0, e0, p0, E, C)))
     del lib
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            md.moe_dispatch(x0, e0, p0, n_experts=E, capacity=C)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if any(k in e.key for k in MOE_KERNEL_KEYS)]
-    n_calls = sum(e.count for e in rows if "copy_rows" in e.key)
-    dev_us = (sum(e.device_time_total for e in rows) / n_calls
-              if n_calls else None)
     _, xd, ed, pd, _, _ = cases[1]
     decode_ms = cuda_time_ms(lambda i: md.moe_dispatch(
         xd, ed, pd, n_experts=64, capacity=8), 200, torch)
+    # what a call puts on the stream, its device µs and the wrapper's host
+    # µs, at the prefill and the decode shape
+    calls = {
+        "serve": dispatch_calls(torch, lambda: md.moe_dispatch(
+            x0, e0, p0, n_experts=E, capacity=C), 5, MOE_HOST_CALLS["serve"]),
+        "decode": dispatch_calls(torch, lambda: md.moe_dispatch(
+            xd, ed, pd, n_experts=64, capacity=8), 20,
+            MOE_HOST_CALLS["decode"])}
+    for label, c in calls.items():
+        # one kernel a call: no other operation (no memset) in the trace,
+        # and no more dispatch kernels than calls (a trace that lost
+        # records may hold fewer)
+        other = [name for name in c["ops"]
+                 if not any(k in name for k in MOE_KERNEL_KEYS)]
+        check(not other and c["kernels_per_call"] <= 1,
+              f"moe_dispatch at the {label} shape: {c['ops_per_call']} "
+              f"CUDA operations a call ({c['ops']}), not one kernel")
+    dev_us = calls["serve"]["device_us"]
     bnd, by = bound_ms(nbytes, 0)
     out["moe_timed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             library_same=lib_same, rows_read=rows_read,
                             device_us=dev_us, bytes=nbytes, bound_ms=bnd,
                             bound_by=by, decode_ms=decode_ms,
-                            gb_per_s=nbytes / ms / 1e6)
+                            gb_per_s=nbytes / ms / 1e6, calls=calls)
     print(f"moe_dispatch at T={x0.shape[0]} D={x0.shape[1]} k={e0.shape[1]} "
           f"-> {E}x{C} bf16: {ms:.4f} ms a call ({nbytes / ms / 1e6:.1f} "
           f"GB/s, {ms / bnd:.2f}x its bound; device "
@@ -1479,6 +1529,13 @@ def moe_phase(torch, dev, reg):
           f"index_put_ of the kept rows {lib_ms:.4f} ms (equal: "
           f"{lib_same}); decode shape {decode_ms:.4f} ms",
           flush=True)
+    for label, c in calls.items():
+        print(f"moe_dispatch at the {label} shape: "
+              f"{c['ops_per_call']:g} CUDA operations a call "
+              f"({c['ops']}; {c['memsets_per_call']:g} memsets), device "
+              f"{fmt_us(c['device_us'])}, host {c['host_us']:.2f} us a "
+              "call",
+              flush=True)
     row = dict(name="moe_dispatch", route="cuda",
                source="src/repro_torch/kernels/csrc/moe_dispatch.cu",
                replaces=reg.KERNELS["moe_dispatch"].replaces,
@@ -4215,13 +4272,16 @@ def tp_phase(torch, dev, reg, sharded, later: dict, beside=None):
         torch, x, e_loc, pos, n_loc, C, runs=TP_TIMED_RUNS)
     lib_ms = statistics.median(lib_runs)
     bnd, by = bound_ms(nbytes, 0)
+    calls = dispatch_calls(torch, lambda: md.moe_dispatch(
+        x, e_loc, pos, n_experts=n_loc, capacity=C), 20,
+        MOE_HOST_CALLS["tp"])
     out["dispatch"] = dict(T=T, D=D, k=kk, experts=list(experts),
                            capacity=C, kept_slots=kept, rows_read=rows,
                            ms=ms, ms_runs=runs, library_ms_runs=lib_runs,
                            plain_ms=plain_ms, library_ms=lib_ms,
                            library_same=bool(torch.equal(lib, want)),
                            bytes=nbytes, bound_ms=bnd, bound_by=by,
-                           bitwise=True)
+                           bitwise=True, calls=calls)
     print(f"tp (c): moe_dispatch at moonshot's tp=16 rank shape, T={T} "
           f"D={D} k={kk} into experts [{experts[0]}, {experts[0] + n_loc})"
           f" x {C} bf16 ({kept} of {e_loc.numel()} slots kept, {rows} rows"
@@ -4232,7 +4292,11 @@ def tp_phase(torch, dev, reg, sharded, later: dict, beside=None):
           f"bytes), twin {plain_ms:.4f} ms, index_put_ of the kept rows "
           f"{lib_ms:.4f} ms (median of "
           f"{[round(t, 4) for t in lib_runs]}; equal to the twin's buffer: "
-          f"{out['dispatch']['library_same']})", flush=True)
+          f"{out['dispatch']['library_same']}); a call: "
+          f"{calls['ops_per_call']:g} CUDA operations ({calls['ops']}),"
+          f" device {fmt_us(calls['device_us'])}, the "
+          f"wrapper's host "
+          f"{calls['host_us']:.2f} us", flush=True)
     del x, ve, pos, e_loc, got, want, lib
     torch.cuda.empty_cache()
 
@@ -5084,6 +5148,7 @@ def run(torch) -> int:
     from repro_torch.kernels import sched_queue as sq
     from repro_torch.kernels import sched_step as ss
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = smi_line()
     print(card, flush=True)
@@ -5686,6 +5751,8 @@ def run(torch) -> int:
             if key in later:
                 later[key].stop()
     report["kernels"] = kernels
+    report["script_s"] = time.perf_counter() - t_script
+    print(f"the script's phases took {report['script_s']:.1f} s", flush=True)
     print(json.dumps({"report": report}))
 
     keys = ("name", "route", "source", "replaces", "launches",

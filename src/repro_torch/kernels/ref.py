@@ -666,6 +666,27 @@ def moe_dispatch(x, expert, pos, n_experts: int, capacity: int):
     return buf[:E * C].reshape(E, C, D)
 
 
+def moe_dispatch_rows(expert, pos, n_experts: int, capacity: int):
+    """The row map of the dispatch kernel's first phase: ``(E * C,)`` int64,
+    each flat row's highest token among the kept slots that name it (a
+    slot is dropped as :func:`moe_dispatch` drops it), -1 for a row that no
+    slot names.  The kernel's buffer is ``x[map]`` with the -1 rows zero;
+    it differs from :func:`moe_dispatch` only on rows that several slots
+    share, where the twin sums them."""
+    E, C = n_experts, capacity
+    k = expert.shape[1]
+    flat_e = expert.reshape(-1).long()
+    flat_p = pos.reshape(-1).long()
+    idx = flat_e * C + flat_p
+    ok = (flat_e >= 0) & (flat_p >= 0) & (idx < E * C)
+    token = torch.arange(expert.shape[0], device=expert.device
+                         ).repeat_interleave(k)
+    rows = torch.full((E * C + 1,), -1, dtype=torch.int64,
+                      device=expert.device)
+    rows.scatter_reduce_(0, torch.where(ok, idx, E * C), token, "amax")
+    return rows[:E * C]
+
+
 def moe_dispatch_backward(g, expert, pos, n_experts: int, capacity: int):
     """The gradient of :func:`moe_dispatch` in x: each kept slot's buffer
     row gathered back to its token and the k slots summed; a dropped slot

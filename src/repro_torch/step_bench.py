@@ -41,15 +41,30 @@ comparison of two versions of the port needs, as one JSON line:
   Dh=64, bf16, a zero state; ``chip_smoke.py`` phase 7's inputs), in the
   model's (B, T, H, Dh) layout and packed: ms a call by CUDA events over
   back-to-back calls and device µs a launch (profiler).  It calls only
-  ``rwkv6_scan.rwkv6``, so it times an older checkout's kernel too.
+  ``rwkv6_scan.rwkv6``, so it times an older checkout's kernel too;
+* ``dispatch`` (``--dispatch-only``): the MoE dispatch at moonshot's
+  prefill layer, a decode step and a tp = 16 rank's 4 experts
+  (:data:`DISPATCH_SHAPES`, NA-RP routing of seeded logits): ms a call
+  (the median of 7 runs of back-to-back calls, CUDA events), the CUDA
+  operations a call puts on the stream and their device µs (profiler),
+  the wrapper's host µs a call (unsynchronised calls; at the decode and
+  tp shapes also taken apart), the device µs of zeroing a buffer of the
+  output's size (``zero_``: what writing it costs this card), the bytes
+  bound, ``index_put_`` of the kept rows (median of 7 runs) and whether
+  the kernel equals its twin.  It calls only ``moe_dispatch.moe_dispatch``,
+  so it times an older checkout's kernel too.
 
     PYTHONPATH=src python3 -m repro_torch.step_bench [--rwkv6-only]
     PYTHONPATH=src python3 -m repro_torch.step_bench --rwkv6-shapes
+    PYTHONPATH=src python3 -m repro_torch.step_bench --dispatch-only
+    PYTHONPATH=src python3 -m repro_torch.step_bench --dispatch-variants
 
 ``--rwkv6-only`` measures only ``rwkv6``.  ``--rwkv6-shapes`` times the
 RWKV6 kernel at each launch shape of ``RWKV6_SHAPES`` (Dh = 64): an edited
 copy of ``csrc/rwkv6_scan.cu`` a shape, built and bound in place of the
 wrapper's library while it is timed, and held against the twin.
+``--dispatch-variants`` times the dispatch in the same way at each launch
+shape of ``DISPATCH_VARIANTS`` (threads a block, ring buffers a warp).
 
 Needs a CUDA device.  Uses only entry points the port has had since the
 fused kernel came in, so the same script times an older checkout:
@@ -70,14 +85,17 @@ import numpy as np
 import torch
 
 from repro_torch import apps
-from repro_torch.core import plan, scheduler, sweep
+from repro_torch.core import balance, plan, scheduler, sweep
 from repro_torch.core.spec import LATTICE, MODE_SPECS
 from repro_torch.core.state import NC, SimConfig, batch_of_one, tree_map
 from repro_torch.core import xqueue
+from repro_torch.kernels import moe_dispatch as md
+from repro_torch.kernels import ref
 from repro_torch.kernels import registry as reg
 from repro_torch.kernels import rwkv6_scan as rk
 from repro_torch.kernels import sched_queue as sq
 from repro_torch.kernels import sched_step as ss
+from repro_torch.models import moe
 
 #: the mid-run step timed (past the ramp-up of the bench graphs)
 MID_STEP = 40
@@ -475,6 +493,169 @@ def rwkv6_shapes(dev, shapes=RWKV6_SHAPES) -> dict:
     return out
 
 
+#: an H100 SXM's memory rate (NVIDIA's data sheet), for the bytes bound
+PEAK_BYTES_PER_S = 3.35e12
+#: the dispatch's shapes (T, capacity, the rank's experts (first, count) or
+#: None for all 64), moonshot's D = 2048, k = 6, 64 experts, bf16: its
+#: prefill layer, a decode step of batch 4, a tp = 16 rank's experts
+DISPATCH_SHAPES = {"serve": (4096, 480, None), "decode": (4, 8, None),
+                   "tp": (4096, 480, (20, 4))}
+#: unsynchronised calls a host µs is the mean of (fewer at the prefill
+#: shape, where the device is slower than the host: the queue stays short)
+DISPATCH_HOST_CALLS = {"serve": 200, "decode": 1000, "tp": 1000}
+
+
+def dispatch_inputs(dev, T: int, C: int, experts, D: int = 2048,
+                    k: int = 6, E: int = 64):
+    """x (bf16) and the (expert, pos) tables of an NA-RP routing of seeded
+    logits, on the rank's experts where ``experts`` is given."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((T, D), generator=gen, device=dev).bfloat16()
+    logits = torch.randn((T, E), generator=gen, device=dev) * 2.0
+    r = balance.route(logits, k, C, balance.default_expert_groups(E, 16, dev))
+    return (x, moe.local_experts(r.expert, experts), r.pos,
+            E if experts is None else experts[1])
+
+
+#: spin-kernel launches that open a trace of :func:`stream_ops`: late in a
+#: long process (``chip_smoke.py`` phase 8, after its traced serving runs)
+#: a trace has dropped the first 9 device records it should hold
+TRACE_FILLER = 32
+
+
+def stream_ops(fn, n: int) -> dict:
+    """The CUDA operations ``n`` calls of ``fn(i)`` put on the stream
+    (profiler): per call, their count, memsets among them and device µs,
+    and each operation's count a call by name.  The trace opens with
+    :data:`TRACE_FILLER` launches of a spin kernel (left out of the
+    counts), which take the records a trace can drop at its start; every
+    call puts at least one operation on the stream, so a trace that holds
+    fewer than ``n`` is redone with four times the filler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    filler = TRACE_FILLER
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(filler):
+                torch.cuda._sleep(100)
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.key]
+        if sum(e.count for e in ops) >= n:
+            break
+        filler *= 4
+    return dict(ops_per_call=sum(e.count for e in ops) / n,
+                memsets_per_call=sum(e.count for e in ops
+                                     if "memset" in e.key.lower()) / n,
+                device_us=sum(e.self_device_time_total for e in ops) / n,
+                ops={e.key[:60]: e.count / n for e in ops})
+
+
+def dispatch_times(dev, n: int = 50, runs: int = 7) -> dict:
+    """The MoE dispatch at each of :data:`DISPATCH_SHAPES`."""
+    out = {}
+    for label, (T, C, experts) in DISPATCH_SHAPES.items():
+        x, e, p, E = dispatch_inputs(dev, T, C, experts)
+
+        def call(i):
+            return md.moe_dispatch(x, e, p, n_experts=E, capacity=C)
+
+        keep = e >= 0
+        flat = (e.long() * C + p.long())[keep]
+        src = x[torch.nonzero(keep)[:, 0]]
+
+        def library(i):
+            return torch.zeros((E * C, x.shape[1]), dtype=x.dtype,
+                               device=dev).index_put_((flat,), src)
+
+        rows_read = int(keep.any(-1).sum())
+        nbytes = ((rows_read + E * C) * x.shape[1] * x.element_size()
+                  + 2 * e.numel() * 4)
+        ms_runs = [events_ms(call, n) for _ in range(runs)]
+        lib_runs = [events_ms(library, n) for _ in range(runs)]
+        call(0)
+        fill = torch.empty((E * C, x.shape[1]), dtype=x.dtype, device=dev)
+        out[label] = dict(
+            T=T, capacity=C, experts=E, kept_slots=int(keep.sum()),
+            rows_read=rows_read, bytes=nbytes,
+            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+            ms=statistics.median(ms_runs), ms_runs=ms_runs,
+            library_ms=statistics.median(lib_runs), library_ms_runs=lib_runs,
+            host_us=_host_us(call, DISPATCH_HOST_CALLS[label]),
+            bitwise=bool(torch.equal(call(0), ref.moe_dispatch(x, e, p, E,
+                                                               C))),
+            fill_device_us=stream_ops(lambda i: fill.zero_(), 20)[
+                "device_us"],
+            **stream_ops(call, 20))
+        if hasattr(md, "copy_path") and label != "serve":
+            out[label]["host_parts_us"] = dispatch_host_parts(x, e, p, E, C)
+    return out
+
+
+#: the dispatch's launch shapes tried: (threads a block, ring buffers a
+#: warp)
+DISPATCH_VARIANTS = ((256, 2), (256, 4), (256, 6), (128, 4), (384, 3))
+_DISPATCH_SHAPE = re.compile(
+    r"struct Shape \{ static constexpr int THREADS = \d+, NBUF = \d+; \};")
+
+
+def dispatch_variants(dev, variants=DISPATCH_VARIANTS) -> dict:
+    """:func:`dispatch_times` (3 runs a shape) at each launch shape of
+    ``variants``: an edited copy of ``csrc/moe_dispatch.cu`` a shape, built
+    and bound in place of the wrapper's library while it is timed."""
+    src = md.SOURCE.read_text()
+    if not _DISPATCH_SHAPE.search(src):
+        raise ValueError(f"{md.SOURCE} has no Shape line to edit")
+    saved, out = md._library, {}
+    try:
+        for threads, nbuf in variants:
+            path = (reg.BUILD_ROOT / "dispatch_variants"
+                    / f"t{threads}_b{nbuf}.cu")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(_DISPATCH_SHAPE.sub(
+                f"struct Shape {{ static constexpr int THREADS = {threads}, "
+                f"NBUF = {nbuf}; }};", src))
+            lib = md.bind(reg.build(path)[0])
+            md._library = lambda: lib
+            out[f"{threads},{nbuf}"] = {
+                label: {k: r[k] for k in ("ms", "ms_runs", "device_us",
+                                          "host_us", "bitwise")}
+                for label, r in dispatch_times(dev, runs=3).items()}
+    finally:
+        md._library = saved
+    return out
+
+
+def dispatch_host_parts(x, e, p, E: int, C: int) -> dict:
+    """The wrapper's host µs a call taken apart (medians of rounds in
+    turns): the whole call; its checks; the output's allocation; the row
+    map's lookup; the C entry point's call alone (a launch, on one
+    output).  Only where the device's work a call is shorter than the
+    host's (else the launch queue fills and the calls time the device)."""
+    out = torch.empty((E, C, x.shape[1]), dtype=x.dtype, device=x.device)
+    row_bytes = x.shape[1] * x.element_size()
+    lib, dev = md._library(), x.get_device()
+    stream = reg.stream(dev)
+    unit = md.copy_path(x.data_ptr(), out.data_ptr(), row_bytes)
+    args = (x.data_ptr(), e.data_ptr(), p.data_ptr(), out.data_ptr())
+    T, k = e.shape
+
+    def entry():
+        rows, gen = md._row_map(dev, stream, E * C)
+        return lib.moe_dispatch(*args, rows, T * k, k, C, E * C, row_bytes,
+                                unit, gen, stream)
+
+    return _host_us_turns({
+        "call": lambda: md.moe_dispatch(x, e, p, n_experts=E, capacity=C),
+        "checks": lambda: md._check(x, e, p, E, C),
+        "empty": lambda: x.new_empty((E, C, x.shape[1])),
+        "row_map": lambda: md._row_map(dev, stream, E * C),
+        "entry": entry}, n=1000)
+
+
 def measure(dev=None) -> dict:
     dev = torch.device(dev or "cuda")
     bench = {n: apps.build(n, scale="bench") for n in ("fib", "uts")}
@@ -500,6 +681,8 @@ def main() -> None:
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--rwkv6-only", action="store_true")
     which.add_argument("--rwkv6-shapes", action="store_true")
+    which.add_argument("--dispatch-only", action="store_true")
+    which.add_argument("--dispatch-variants", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_bench needs a CUDA device")
@@ -512,6 +695,10 @@ def main() -> None:
         res = {"rwkv6_shapes": rwkv6_shapes(dev)}
     elif args.rwkv6_only:
         res = {"rwkv6": rwkv6_times(dev)}
+    elif args.dispatch_only:
+        res = {"dispatch": dispatch_times(dev)}
+    elif args.dispatch_variants:
+        res = {"dispatch_variants": dispatch_variants(dev)}
     else:
         res = measure(dev)
     print(json.dumps({"card": card, "source": str(ss.SOURCE), **res}),

@@ -873,6 +873,116 @@ def test_moe_dispatch_kernel_keeps_the_highest_token_of_a_shared_row():
                        twin.reshape(-1, 3)[one_slot])
 
 
+def _kernel_rows(x, expert, pos, E, C):
+    """The kernel's contract: ``x[map]`` with the rows no slot names zero,
+    ``map`` the highest-token row map of ``ref.moe_dispatch_rows``."""
+    rows = ref.moe_dispatch_rows(expert, pos, E, C)
+    out = x[rows.clamp(min=0)]
+    out[rows < 0] = 0
+    return out.reshape(E, C, x.shape[1])
+
+
+def _shared_table(T, k, E, C, seed, device="cuda"):
+    """Random (expert, pos) tables with many slots sharing a row, a fifth
+    of the slots dropped (-1, -1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    e = torch.randint(0, E, (T, k), generator=gen, device=device,
+                      dtype=torch.int32)
+    p = torch.randint(0, C, (T, k), generator=gen, device=device,
+                      dtype=torch.int32)
+    drop = torch.rand((T, k), generator=gen, device=device) < 0.2
+    return e.masked_fill(drop, -1), p.masked_fill(drop, -1)
+
+
+#: (T, D, dtype, element offset of x, copy path): bf16 rows of one chunk,
+#: float32 rows of two chunks and a 32-byte tail, an offset view (4-byte
+#: vectors) and rows of 13 bf16 values (2-byte vectors)
+MOE_PATHS = {
+    "bulk_bf16": (512, 2048, "bfloat16", 0, 0),
+    "bulk_3_chunks": (256, 2056, "float32", 0, 0),
+    "vector_offset": (256, 64, "float32", 1, 4),
+    "vector_odd_row": (256, 13, "bfloat16", 0, 2),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", list(MOE_PATHS))
+def test_moe_dispatch_kernel_gives_the_row_map_on_both_paths(path):
+    """On tables with shared rows, the kernel's buffer is ``x`` gathered by
+    ``ref.moe_dispatch_rows`` (the highest token of each row, zero rows
+    where none), bit for bit, on the bulk and the vector copy paths."""
+    _need_card()
+    T, D, dtype, offset, unit = MOE_PATHS[path]
+    E, C, k = 16, 24, 4
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flat = torch.randn((T * D + offset,), generator=gen, device="cuda")
+    x = flat.to(getattr(torch, dtype))[offset:].view(T, D)
+    e, p = _shared_table(T, k, E, C, seed=4)
+    keep = e >= 0
+    flat_rows = (e.long() * C + p.long())[keep]
+    assert flat_rows.unique().numel() < flat_rows.numel()
+    out_probe = torch.empty((E, C, D), dtype=x.dtype, device="cuda")
+    assert md.copy_path(x.data_ptr(), out_probe.data_ptr(),
+                        D * x.element_size()) == unit
+    reg.reset_launches()
+    got = md.moe_dispatch(x, e, p, n_experts=E, capacity=C)
+    torch.cuda.synchronize()
+    assert reg.KERNELS["moe_dispatch"].launches == 1
+    assert torch.equal(got, _kernel_rows(x, e, p, E, C))
+
+
+@pytest.mark.gpu
+def test_moe_dispatch_kernel_leaves_no_stale_row_map():
+    """Calls right after each other on other tables, fewer and more
+    buffers (the kept map grows), both paths, no slot at all (k = 0), and
+    across the end of the map's generations (zeroed, counted from 1
+    again): no row of an earlier call leaks into a later one."""
+    _need_card()
+    T, D, k = 1024, 256, 6
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((T, D), generator=gen, device="cuda").bfloat16()
+    odd = torch.randn((T, 13), generator=gen, device="cuda").bfloat16()
+    full = _shared_table(T, k, 8, 128, seed=6)           # most rows named
+    sparse = (full[0].masked_fill(torch.arange(T, device="cuda")[:, None]
+                                  % 7 != 0, -1), full[1])
+    calls = [(x, full, 8, 128), (x, sparse, 8, 128), (x, full, 8, 64),
+             (x, _shared_table(T, k, 64, 96, seed=7), 64, 96),
+             (odd, full, 8, 128), (odd, sparse, 8, 128), (x, sparse, 8, 128),
+             (x, (full[0][:, :0], full[1][:, :0]), 8, 128)]      # k = 0
+    for i, (xx, (e, p), E, C) in enumerate(calls):
+        got = md.moe_dispatch(xx, e, p, n_experts=E, capacity=C)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _kernel_rows(xx, e, p, E, C)), i
+    have = md._ROW_MAPS[(x.get_device(), reg.stream(x.get_device()))]
+    assert have[2] >= len(calls)
+    have[2] = md.GENERATIONS - 1
+    for i, (e, p) in enumerate((full, sparse, full, sparse)):
+        got = md.moe_dispatch(x, e, p, n_experts=8, capacity=128)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _kernel_rows(x, e, p, 8, 128)), i
+    assert have[2] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", [(4096, 480), (4, 8)], ids=["serve",
+                                                            "decode"])
+def test_moe_dispatch_is_one_kernel_a_call_and_no_memset(T, C):
+    """At moonshot's prefill and decode shapes (D = 2048, k = 6, 64
+    experts, bf16) a call puts one CUDA kernel on the stream, the bulk
+    path's, and nothing else: no memset, no copy."""
+    _need_card()
+    from repro_torch import step_bench
+
+    x, ve, pos = moe_inputs(T, 2048, 6, 64, C, "bfloat16", 1, "cuda")
+    md.moe_dispatch(x, ve, pos, n_experts=64, capacity=C)    # the map
+    torch.cuda.synchronize()
+    ops = step_bench.stream_ops(lambda i: md.moe_dispatch(
+        x, ve, pos, n_experts=64, capacity=C), 5)
+    assert ops["ops_per_call"] == 1 and ops["memsets_per_call"] == 0, ops
+    ((name, per_call),) = ops["ops"].items()
+    assert md.KERNEL_NAMES["bulk"] in name and per_call == 1
+
+
 @pytest.mark.gpu
 def test_smoke_moe_serving_on_the_card_matches_the_cpu():
     """moonshot smoke weights served on the card and on the CPU: the same

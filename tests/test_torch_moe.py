@@ -142,6 +142,104 @@ def test_the_pallas_wrapper_drops_the_tail_and_the_port_does_not():
     assert np.array_equal(got.numpy(), whole)
 
 
+def kernel_rows(x, expert, pos, E, C):
+    """The CUDA kernel's contract on the CPU: ``x[map]`` with the rows that
+    no slot names zero, ``map`` the row map of ``ref.moe_dispatch_rows``."""
+    rows = t_ref.moe_dispatch_rows(expert, pos, E, C)
+    out = x[rows.clamp(min=0)]
+    out[rows < 0] = 0
+    return rows, out.reshape(E, C, x.shape[1])
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_dispatch_rows_give_the_pallas_kernel_on_shared_rows(dtype):
+    """Off the routing path, slots that share a row: the Pallas kernel's
+    in-order last write leaves the highest token's row, and so does the
+    CUDA kernel's row map (``ref.moe_dispatch_rows``), bit for bit; the
+    twin sums them.  Every pos is in [0, C), or -1 with expert -1."""
+    T, D, E, C, k = 64, 16, 4, 8, 3
+    rs = np.random.default_rng(7)
+    x = rs.standard_normal((T, D)).astype(np.float32)
+    e = rs.integers(0, E, (T, k)).astype(np.int32)
+    p = rs.integers(0, C, (T, k)).astype(np.int32)
+    drop = rs.random((T, k)) < 0.2
+    e[drop], p[drop] = -1, -1
+    flat = (e * C + p)[e >= 0]
+    assert len(flat) > len(np.unique(flat))             # shared rows
+    pallas = moe_dispatch_pallas(
+        jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(e), jnp.asarray(p),
+        n_experts=E, capacity=C, block_t=32, interpret=True)
+    tx = torch.as_tensor(x).to(getattr(torch, dtype))
+    rows, got = kernel_rows(tx, torch.as_tensor(e), torch.as_tensor(p), E, C)
+    assert rows.dtype == torch.int64 and tuple(rows.shape) == (E * C,)
+    assert got.dtype == tx.dtype
+    assert np.array_equal(npy(got), npy(pallas))
+    # each named row holds its highest token; the twin differs (sums)
+    for r in np.unique(flat):
+        assert int(rows[r]) == int(np.nonzero((e * C + p == r)
+                                              & (e >= 0))[0].max())
+    assert int((rows >= 0).sum()) == len(np.unique(flat))
+    twin = t_ref.moe_dispatch(tx, torch.as_tensor(e), torch.as_tensor(p), E,
+                              C)
+    assert not np.array_equal(npy(twin), npy(got))
+
+
+def test_dispatch_rows_match_the_jax_ref_without_shared_rows():
+    """Tables with no shared row, but with a pos past C (its flat row the
+    next expert's) and flat rows past E * C (dropped): the kernel's row map
+    gives the JAX ref's buffer bit for bit."""
+    T, D, E, C, k = 40, 8, 4, 6, 2
+    rs = np.random.default_rng(8)
+    x = rs.standard_normal((T, D)).astype(np.float32)
+    # distinct flat rows in [0, E * C + C) for the kept slots
+    kept = rs.random((T, k)) < 0.3
+    flat = rs.permutation(E * C + C)[:int(kept.sum())]
+    e = np.full((T, k), -1, np.int32)
+    p = np.full((T, k), -1, np.int32)
+    e[kept], p[kept] = flat // C, flat % C
+    past = kept & (e > 0) & (rs.random((T, k)) < 0.5)
+    e[past], p[past] = e[past] - 1, p[past] + C       # the same flat row
+    assert past.any() and (e * C + p >= E * C).any()
+    assert (p[kept] >= C).any()
+    rows, got = kernel_rows(torch.as_tensor(x), torch.as_tensor(e),
+                            torch.as_tensor(p), E, C)
+    want = j_ref.moe_dispatch(jnp.asarray(x), jnp.asarray(e), jnp.asarray(p),
+                              E, C)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert int((rows >= 0).sum()) == int((kept & (e * C + p < E * C)).sum())
+
+
+def test_the_pallas_kernel_clamps_a_pos_past_the_capacity():
+    """A reference behaviour, not a port fault (routing never makes such a
+    slot): ``moe_dispatch_pallas`` writes a slot whose pos is past C into
+    its expert's last row, and one whose pos is -1 with a kept expert
+    there too.  The JAX ref and the port put the first at flat row
+    ``expert * C + pos`` (the next expert's row) and drop the second."""
+    T, D, E, C = 8, 4, 2, 4
+    x = np.arange(1, T * D + 1, dtype=np.float32).reshape(T, D)
+    e = np.full((T, 1), -1, np.int32)
+    p = np.full((T, 1), -1, np.int32)
+    e[0, 0], p[0, 0] = 0, C + 1          # expert 0, pos C + 1
+    e[1, 0], p[1, 0] = 1, -1             # expert 1, pos -1
+    pallas = np.asarray(moe_dispatch_pallas(
+        jnp.asarray(x), jnp.asarray(e), jnp.asarray(p), n_experts=E,
+        capacity=C, block_t=T, interpret=True)).reshape(E * C, D)
+    want = np.zeros((E * C, D), np.float32)
+    want[C - 1], want[2 * C - 1] = x[0], x[1]        # each expert's last row
+    assert np.array_equal(pallas, want)
+    jref = np.asarray(j_ref.moe_dispatch(jnp.asarray(x), jnp.asarray(e),
+                                         jnp.asarray(p), E, C))
+    port = np.zeros((E * C, D), np.float32)
+    port[C + 1] = x[0]                               # expert 1's row 1
+    assert np.array_equal(jref.reshape(E * C, D), port)
+    te, tp = torch.as_tensor(e), torch.as_tensor(p)
+    _, rows = kernel_rows(torch.as_tensor(x), te, tp, E, C)
+    assert np.array_equal(rows.reshape(E * C, D).numpy(), port)
+    got = t_md.moe_dispatch(torch.as_tensor(x), te, tp, n_experts=E,
+                            capacity=C)
+    assert np.array_equal(got.reshape(E * C, D).numpy(), port)
+
+
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 def test_combine_matches_jax(dtype):
     T, D, E, C, k = 96, 16, 8, 32, 2
@@ -233,6 +331,22 @@ def test_copy_unit_is_the_widest_that_divides():
     assert t_md.vec_bytes(0, 256, 6 * 2) == 4
     assert t_md.vec_bytes(2, 0, 6) == 2
     assert t_md.vec_bytes(0, 0, 3) == 1
+
+
+def test_copy_path_is_bulk_where_16_bytes_divide():
+    """Bulk asynchronous copies need the row size and both base addresses
+    to be multiples of 16 bytes; every other row takes the widest vector
+    unit that divides all three."""
+    assert t_md.copy_path(0, 256, 4096) == t_md.BULK   # bf16 rows of 2048
+    assert t_md.copy_path(256, 512, 16) == t_md.BULK
+    assert t_md.copy_path(0, 256, 8192 + 16) == t_md.BULK   # 2 chunks + 16
+    assert t_md.copy_path(8, 256, 4096) == 8           # an offset view
+    assert t_md.copy_path(0, 8, 4096) == 8
+    assert t_md.copy_path(0, 256, 6 * 2) == 4
+    assert t_md.copy_path(0, 0, 13 * 2) == 2           # 13 bf16 values
+    assert t_md.copy_path(1, 0, 16) == 1
+    assert t_md.BULK not in t_md.VEC_BYTES
+    assert set(t_md.KERNEL_NAMES) == {"bulk", "vector"}
 
 
 # ---------------------------------------------------------------------------
